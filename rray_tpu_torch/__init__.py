@@ -1,0 +1,20 @@
+"""rray_tpu_torch: the rray_tpu raytracer on PyTorch and CUDA.
+
+The port of rray_tpu (JAX on a TPU) to PyTorch on an NVIDIA H100. Plain
+tensor code is PyTorch; each Pallas TPU kernel on the ported path is a
+CUDA kernel written by hand for Hopper, with a plain PyTorch version
+beside it that CPU tensors run. rray_tpu stays the reference the port
+is tested against; this package never imports JAX.
+"""
+from .config import EPSILON, RenderSettings
+from .scene.data import (AreaLight, Material, Pattern, PointLight, Shape,
+                         compile_scene)
+from .render.camera import Camera, compile_camera
+from .render.integrator import render
+
+__all__ = [
+    "EPSILON", "RenderSettings",
+    "AreaLight", "Material", "Pattern", "PointLight", "Shape",
+    "compile_scene",
+    "Camera", "compile_camera", "render",
+]

@@ -1,0 +1,50 @@
+"""Global configuration for the rray_tpu_torch renderer.
+
+Mirrors the reference's single global constant EPSILON = 1e-5
+(reference src/main.rs:10). There is no kernel switch: the device of the
+tensors decides. CUDA tensors run the hand-written kernels, CPU tensors
+their plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+# Float comparison / shadow-acne epsilon (reference: src/main.rs:10).
+EPSILON = 1e-5
+
+
+def offset_eps(dtype) -> float:
+    """Surface offset used for over_point/under_point.
+
+    The reference offsets by EPSILON in f64 (intersection.rs:57-58). In f32
+    that is below round-off at scene scale, so it widens to keep shadow
+    and refraction rays off the originating surface.
+    """
+    if dtype == torch.float64:
+        return EPSILON
+    return 1e-3
+
+
+def hit_match_tol(dtype) -> float:
+    """Relative tolerance that matches the hit's own crossing in the
+    n1/n2 walk (rray_tpu ops/soa.py refractive_indices_direct): the
+    crossing is re-derived, so bitwise equality with the closest-hit t
+    is not guaranteed."""
+    if dtype == torch.float64:
+        return 1e-9
+    return 1e-4
+
+
+@dataclasses.dataclass(frozen=True)
+class RenderSettings:
+    """Settings for one render."""
+
+    # Recursion depth for reflection/refraction (camera.rs:113 hardcodes 5).
+    depth: int = 5
+    # Compact-wavefront capacity: max live paths PER PIXEL per depth
+    # level when both reflection and refraction spawn; a pixel holding
+    # more nonzero-weight paths drops the lowest-weight ones. 2^depth
+    # keeps every path.
+    wavefront_capacity: int = 4

@@ -1,0 +1,130 @@
+// CUDA port of the Pallas TPU kernel
+//   rray_tpu/kernels/whitted.py::whitted_compact
+// (pallas_call body `_kernel`, node `_node_row`): the whole compact
+// Whitted wavefront for analytic sphere/plane/cube/cylinder/cone scenes
+// with point lights and cheap pattern trees (stages a and b of the TPU
+// kernel; area lights, meshes, CSG/torus/noise/texture are later work).
+//
+// What bounds it on an H100: compute and divergence, not memory. A ray
+// reads 24 B (origin, direction) and writes 12 B (RGB), and then runs
+// hundreds to thousands of scalar float ops whose branches (which prim
+// was hit, whether a path row is alive, shadowed or not) differ between
+// neighbouring threads. The design answers that simply:
+//   * one thread per primary ray: the TPU kernel's (8, 512) VMEM
+//     blocking and block-level pl.when skips become a per-thread loop
+//     that skips dead path rows (weight exactly 0), which gives the same
+//     output;
+//   * the small scene tables (prims [P<=16, 32], pattern nodes [N, 17],
+//     lights [L, 15], and the int tables that replace the TPU kernel's
+//     trace-time statics: prim kinds, pattern roots, pattern node types
+//     and children) are staged into shared memory once per block;
+//   * the path state (W rows x 7 floats, 2W children) lives in the
+//     thread's registers/local memory for all depth+1 levels; W is a
+//     template parameter (1, 2, 4, 8, 16, 32);
+//   * no tensor cores, TMA or wgmma: the work is scalar and branchy.
+// Speed is not tuned yet; this kernel is the simple, correct first port.
+//
+// Build (kernels/build.py): nvcc -gencode arch=compute_90a,code=sm_90a
+// -std=c++17 -O3 --fmad=false. --fmad=false keeps every product and sum
+// rounded separately, as the plain PyTorch version rounds them, so the
+// two agree bit for bit but for rsqrtf/powf ulps.
+#include <cuda_runtime.h>
+
+#define RRAY_DEVICE __device__ __forceinline__
+#define RRAY_NOINLINE __device__ __noinline__
+#include "whitted_device.cuh"
+
+namespace {
+
+using rray::SceneView;
+
+template <int W>
+__global__ void whitted_kernel(const float* __restrict__ rox,
+                               const float* __restrict__ roy,
+                               const float* __restrict__ roz,
+                               const float* __restrict__ rdx,
+                               const float* __restrict__ rdy,
+                               const float* __restrict__ rdz,
+                               float* __restrict__ out_r,
+                               float* __restrict__ out_g,
+                               float* __restrict__ out_b,
+                               const float* __restrict__ prims, int P,
+                               const float* __restrict__ pats, int N,
+                               const float* __restrict__ lights, int L,
+                               const int* __restrict__ ints, int R,
+                               int depth, bool has_refl, bool has_refr) {
+  extern __shared__ float smem[];
+  const int n_prim = P * rray::P_COLS;
+  const int n_pat = N * rray::PAT_COLS;
+  const int n_light = L * rray::L_COLS;
+  const int n_int = 2 * P + 3 * N;
+  float* s_prims = smem;
+  float* s_pats = s_prims + n_prim;
+  float* s_lights = s_pats + n_pat;
+  int* s_ints = reinterpret_cast<int*>(s_lights + n_light);
+  for (int k = threadIdx.x; k < n_prim; k += blockDim.x) s_prims[k] = prims[k];
+  for (int k = threadIdx.x; k < n_pat; k += blockDim.x) s_pats[k] = pats[k];
+  for (int k = threadIdx.x; k < n_light; k += blockDim.x) s_lights[k] = lights[k];
+  for (int k = threadIdx.x; k < n_int; k += blockDim.x) s_ints[k] = ints[k];
+  __syncthreads();
+
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= R) return;
+  SceneView s;
+  s.prims = s_prims;
+  s.pats = s_pats;
+  s.lights = s_lights;
+  s.kinds = s_ints;
+  s.roots = s_ints + P;
+  s.ptype = s_ints + 2 * P;
+  s.pa = s.ptype + N;
+  s.pb = s.pa + N;
+  s.P = P;
+  s.L = L;
+  float rgb[3];
+  rray::trace_ray<W>(s, rray::v3(rox[i], roy[i], roz[i]),
+                     rray::v3(rdx[i], rdy[i], rdz[i]), depth, has_refl,
+                     has_refr, rgb);
+  out_r[i] = rgb[0];
+  out_g[i] = rgb[1];
+  out_b[i] = rgb[2];
+}
+
+constexpr int kThreads = 128;
+
+}  // namespace
+
+// Launches the kernel on `stream` and returns cudaGetLastError() (0 on
+// success). All pointers are device pointers; `ints` holds kinds[P],
+// pattern roots[P], node types[N], child a rows[N], child b rows[N].
+extern "C" int whitted_compact_launch(
+    const float* rox, const float* roy, const float* roz, const float* rdx,
+    const float* rdy, const float* rdz, float* out_r, float* out_g,
+    float* out_b, const float* prims, int P, const float* pats, int N,
+    const float* lights, int L, const int* ints, int R, int depth, int W,
+    int has_refl, int has_refr, void* stream) {
+  if (R <= 0) return 0;
+  const size_t smem = sizeof(float) * (P * rray::P_COLS + N * rray::PAT_COLS +
+                                       L * rray::L_COLS + 2 * P + 3 * N);
+  const dim3 grid((R + kThreads - 1) / kThreads);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define RRAY_LAUNCH(w)                                                       \
+  whitted_kernel<w><<<grid, kThreads, smem, s>>>(                            \
+      rox, roy, roz, rdx, rdy, rdz, out_r, out_g, out_b, prims, P, pats, N,  \
+      lights, L, ints, R, depth, has_refl != 0, has_refr != 0)
+  switch (W) {
+    case 1: RRAY_LAUNCH(1); break;
+    case 2: RRAY_LAUNCH(2); break;
+    case 4: RRAY_LAUNCH(4); break;
+    case 8: RRAY_LAUNCH(8); break;
+    case 16: RRAY_LAUNCH(16); break;
+    case 32: RRAY_LAUNCH(32); break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+#undef RRAY_LAUNCH
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" const char* whitted_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}

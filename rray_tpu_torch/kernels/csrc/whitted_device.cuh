@@ -1,0 +1,526 @@
+// Per-ray device code of the compact Whitted kernel (see whitted.cu).
+//
+// One call of trace_ray<W> evaluates one primary ray's whole Whitted
+// tree: W path rows per level, 2W children, stable top-W by weight. The
+// arithmetic is a transcript of rray_tpu/kernels/whitted.py::_node_row
+// and _kernel, written in the same operation order as the plain PyTorch
+// version (rray_tpu_torch/kernels/whitted.py). Built with --fmad=false,
+// every product and sum rounds where the plain version's does, so the
+// two agree bit for bit except where rsqrtf/powf differ by an ulp.
+//
+// The header needs only the C math functions and two function-qualifier
+// macros, RRAY_DEVICE (inlined) and RRAY_NOINLINE, so it also compiles as
+// host C++ (tests/test_torch_whitted_cuh.py).
+#pragma once
+
+#include <math.h>
+
+namespace rray {
+
+constexpr int P_COLS = 32;    // prim row: see kernels/whitted.py P_COLS
+constexpr int PAT_COLS = 17;  // pattern node row
+constexpr int L_COLS = 15;    // light row
+constexpr int MAX_PATTERN_DEPTH = 8;
+constexpr float EPSILON = 1e-5f;
+constexpr float EPS_OFF = 1e-3f;  // f32 over/under offset
+constexpr float TOL = 1e-4f;      // f32 n1/n2 hit-match tolerance
+
+enum Kind { SPHERE = 0, PLANE = 1, CUBE = 2, CYLINDER = 3, CONE = 4 };
+enum PType { SOLID = 0, STRIPE = 1, GRADIENT = 2, RING = 3, CHECKER = 4,
+             BLEND = 5 };
+
+struct SceneView {
+  const float* prims;   // [P, P_COLS]
+  const float* pats;    // [N, PAT_COLS]
+  const float* lights;  // [L, L_COLS]
+  const int* kinds;     // [P] Kind
+  const int* roots;     // [P] pattern root row of each prim
+  const int* ptype;     // [N] PType
+  const int* pa;        // [N] child a row (-1: none)
+  const int* pb;        // [N] child b row
+  int P, L;
+};
+
+struct V3 { float x, y, z; };
+
+RRAY_DEVICE V3 v3(float x, float y, float z) { V3 r = {x, y, z}; return r; }
+RRAY_DEVICE V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
+RRAY_DEVICE V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
+RRAY_DEVICE V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
+RRAY_DEVICE V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
+RRAY_DEVICE float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
+RRAY_DEVICE V3 normalize(V3 a) {
+  return scale(a, rsqrtf(fmaxf(dot(a, a), 1e-18f)));
+}
+RRAY_DEVICE V3 reflect(V3 v, V3 n) { return sub(v, scale(n, 2.0f * dot(v, n))); }
+
+RRAY_DEVICE V3 affine_pt(const float* p, V3 v) {
+  return v3(p[0] * v.x + p[1] * v.y + p[2] * v.z + p[3],
+            p[4] * v.x + p[5] * v.y + p[6] * v.z + p[7],
+            p[8] * v.x + p[9] * v.y + p[10] * v.z + p[11]);
+}
+RRAY_DEVICE V3 affine_vec(const float* p, V3 v) {
+  return v3(p[0] * v.x + p[1] * v.y + p[2] * v.z,
+            p[4] * v.x + p[5] * v.y + p[6] * v.z,
+            p[8] * v.x + p[9] * v.y + p[10] * v.z);
+}
+RRAY_DEVICE V3 nmat_vec(const float* p, V3 v) {
+  return v3(p[12] * v.x + p[13] * v.y + p[14] * v.z,
+            p[15] * v.x + p[16] * v.y + p[17] * v.z,
+            p[18] * v.x + p[19] * v.y + p[20] * v.z);
+}
+
+// ---- hit slots (rray_tpu ops/soa.py forms, quirks included) -------------
+
+RRAY_DEVICE int sphere_slots(V3 o, V3 d, float* t, bool* ok) {
+  float a = dot(d, d);
+  float b = 2.0f * dot(d, o);
+  float c = dot(o, o) - 1.0f;
+  float disc = b * b - 4.0f * a * c;
+  bool hit = disc >= 0.0f;
+  float sq = sqrtf(fmaxf(disc, 1e-30f));
+  float inv2a = 0.5f / a;
+  t[0] = (-b - sq) * inv2a;
+  t[1] = (-b + sq) * inv2a;
+  ok[0] = ok[1] = hit;
+  return 2;
+}
+
+RRAY_DEVICE int plane_slots(V3 o, V3 d, float* t, bool* ok) {
+  ok[0] = fabsf(d.y) >= EPSILON;
+  t[0] = -o.y / (ok[0] ? d.y : 1.0f);
+  return 1;
+}
+
+RRAY_DEVICE void cube_axis(float oc, float dc, float* lo, float* hi) {
+  bool parallel = fabsf(dc) < EPSILON;
+  float dsafe = parallel ? 1.0f : dc;
+  float t1 = (-1.0f - oc) / dsafe;
+  float t2 = (1.0f - oc) / dsafe;
+  *lo = fminf(t1, t2);
+  *hi = fmaxf(t1, t2);
+  if (parallel) {
+    bool inside = (oc >= -1.0f) && (oc <= 1.0f);
+    *lo = inside ? -1e30f : 1e30f;
+    *hi = inside ? 1e30f : -1e30f;
+  }
+}
+
+RRAY_DEVICE int cube_slots(V3 o, V3 d, float* t, bool* ok) {
+  float xlo, xhi, ylo, yhi, zlo, zhi;
+  cube_axis(o.x, d.x, &xlo, &xhi);
+  cube_axis(o.y, d.y, &ylo, &yhi);
+  cube_axis(o.z, d.z, &zlo, &zhi);
+  t[0] = fmaxf(xlo, fmaxf(ylo, zlo));
+  t[1] = fminf(xhi, fminf(yhi, zhi));
+  ok[0] = ok[1] = t[0] <= t[1];
+  return 2;
+}
+
+RRAY_DEVICE void cap_slots(V3 o, V3 d, float ymin, float ymax,
+                                  bool closed, bool cone, float* t, bool* ok) {
+  bool steep = fabsf(d.y) >= EPSILON;
+  bool cap_possible = steep && closed;
+  float dsafe = steep ? d.y : 1.0f;
+  float bounds[2] = {ymin, ymax};
+  for (int k = 0; k < 2; ++k) {
+    float tk = (bounds[k] - o.y) / dsafe;
+    float x = o.x + tk * d.x;
+    float z = o.z + tk * d.z;
+    float radius = 1.0f;
+    if (cone) {
+      float y = o.y + tk * d.y;
+      radius = y * y;
+    }
+    t[k] = tk;
+    ok[k] = cap_possible && (x * x + z * z <= radius);
+  }
+}
+
+RRAY_DEVICE int cylinder_slots(V3 o, V3 d, const float* p, float* t,
+                                      bool* ok) {
+  float ymin = p[21], ymax = p[22];
+  bool closed = p[23] != 0.0f;
+  float a = d.x * d.x + d.z * d.z;
+  bool body_possible = fabsf(a) > EPSILON;
+  float b = 2.0f * (o.x * d.x + o.z * d.z);
+  float c = o.x * o.x + o.z * o.z - 1.0f;
+  float disc = b * b - 4.0f * a * c;
+  bool hit = body_possible && (disc >= 0.0f);
+  float sq = sqrtf(fmaxf(disc, 1e-30f));
+  float inv2a = 0.5f / (body_possible ? a : 1.0f);
+  float lo = (-b - sq) * inv2a;
+  float hi = (-b + sq) * inv2a;
+  float l2 = fminf(lo, hi), h2 = fmaxf(lo, hi);
+  float y0 = o.y + l2 * d.y;
+  float y1 = o.y + h2 * d.y;
+  t[0] = l2;
+  ok[0] = hit && (ymin < y0) && (y0 < ymax);
+  t[1] = h2;
+  ok[1] = hit && (ymin < y1) && (y1 < ymax);
+  // A negative discriminant drops the caps too (cylinder.rs:101-102).
+  bool miss_all = body_possible && (disc < 0.0f);
+  cap_slots(o, d, ymin, ymax, closed, false, t + 2, ok + 2);
+  ok[2] = ok[2] && !miss_all;
+  ok[3] = ok[3] && !miss_all;
+  return 4;
+}
+
+RRAY_DEVICE int cone_slots(V3 o, V3 d, const float* p, float* t,
+                                  bool* ok) {
+  float ymin = p[21], ymax = p[22];
+  bool closed = p[23] != 0.0f;
+  float a = d.x * d.x - d.y * d.y + d.z * d.z;
+  float b = 2.0f * (o.x * d.x - o.y * d.y + o.z * d.z);
+  float c = o.x * o.x - o.y * o.y + o.z * o.z;
+  bool a_small = fabsf(a) < EPSILON;
+  bool b_small = fabsf(b) < EPSILON;
+  float t_lin = -c / (b_small ? 1.0f : 2.0f * b);
+  float y_lin = o.y + t_lin * d.y;
+  bool lin_hit = a_small && !b_small && (ymin < y_lin) && (y_lin < ymax);
+  float disc = b * b - 4.0f * a * c;
+  bool quad_path = !(a_small && b_small) && !lin_hit;
+  bool okq = quad_path && (disc >= 0.0f);
+  float sq = sqrtf(fmaxf(disc, 1e-30f));
+  float inv2a = 0.5f / (a_small ? (a < 0.0f ? -EPSILON : EPSILON) : a);
+  float lo = (-b - sq) * inv2a;
+  float hi = (-b + sq) * inv2a;
+  float l2 = fminf(lo, hi), h2 = fmaxf(lo, hi);
+  float y0 = o.y + l2 * d.y;
+  float y1 = o.y + h2 * d.y;
+  t[0] = t_lin;
+  ok[0] = lin_hit;
+  t[1] = l2;
+  ok[1] = okq && (ymin < y0) && (y0 < ymax);
+  t[2] = h2;
+  ok[2] = okq && (ymin < y1) && (y1 < ymax);
+  bool miss_all = quad_path && (disc < 0.0f);
+  cap_slots(o, d, ymin, ymax, closed, true, t + 3, ok + 3);
+  ok[3] = ok[3] && !lin_hit && !miss_all;
+  ok[4] = ok[4] && !lin_hit && !miss_all;
+  return 5;
+}
+
+// Hit slots of prim p (kind k) on the object-space ray; at most 5.
+RRAY_DEVICE int prim_slots(int k, const float* p, V3 o, V3 d, float* t,
+                                  bool* ok) {
+  switch (k) {
+    case SPHERE: return sphere_slots(o, d, t, ok);
+    case PLANE: return plane_slots(o, d, t, ok);
+    case CUBE: return cube_slots(o, d, t, ok);
+    case CYLINDER: return cylinder_slots(o, d, p, t, ok);
+    default: return cone_slots(o, d, p, t, ok);
+  }
+}
+
+// ---- shadow predicate (rray_tpu kernels/analytic.py _occludes) ----------
+
+RRAY_DEVICE bool sphere_occludes(V3 o, V3 d, float dist) {
+  float a = dot(d, d);
+  float b = 2.0f * dot(d, o);
+  float c = dot(o, o) - 1.0f;
+  bool real = b * b - 4.0f * a * c >= 0.0f;
+  float fd = (a * dist + b) * dist + c;
+  float s2 = b + 2.0f * a * dist;
+  bool tm_in = (b <= 0.0f) && (c >= 0.0f) && ((s2 > 0.0f) || (fd < 0.0f));
+  bool tp_in = ((b <= 0.0f) || (c <= 0.0f)) && (s2 > 0.0f) && (fd > 0.0f);
+  return real && (tm_in || tp_in);
+}
+
+RRAY_DEVICE bool plane_occludes(V3 o, V3 d, float dist) {
+  float oy_dy = o.y * d.y;
+  return (fabsf(d.y) >= EPSILON) && (oy_dy <= 0.0f) &&
+         (-oy_dy < dist * d.y * d.y);
+}
+
+// Does prim p block [0, dist) on the world-space shadow ray?
+RRAY_DEVICE bool occludes(int k, const float* p, V3 over, V3 dir,
+                                 float dist) {
+  V3 o = affine_pt(p, over);
+  V3 d = affine_vec(p, dir);
+  if (k == SPHERE) return sphere_occludes(o, d, dist);
+  if (k == PLANE) return plane_occludes(o, d, dist);
+  float t[5];
+  bool ok[5];
+  int n = prim_slots(k, p, o, d, t, ok);
+  bool hit = false;
+  for (int s = 0; s < n; ++s) hit = hit || (ok[s] && t[s] >= 0.0f && t[s] < dist);
+  return hit;
+}
+
+// ---- normals and patterns -----------------------------------------------
+
+RRAY_DEVICE V3 local_normal(int k, const float* p, V3 lp) {
+  float x = lp.x, y = lp.y, z = lp.z;
+  if (k == SPHERE) return lp;
+  if (k == PLANE) return v3(0.0f, 1.0f, 0.0f);
+  if (k == CUBE) {
+    float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
+    float maxc = fmaxf(ax, fmaxf(ay, az));
+    return v3(maxc == ax ? x : 0.0f,
+              (maxc != ax && maxc == ay) ? y : 0.0f,
+              (maxc != ax && maxc != ay) ? z : 0.0f);
+  }
+  float cmin = p[21], cmax = p[22];
+  float dist = x * x + z * z;
+  bool top = (dist < 1.0f) && (y >= cmax - EPSILON);
+  bool bot = (dist < 1.0f) && (y <= cmin + EPSILON);
+  float side_y = 0.0f;
+  if (k == CONE) {
+    float ny = sqrtf(fmaxf(dist, 0.0f));
+    side_y = y > 0.0f ? -ny : ny;
+  }
+  bool cap = top || bot;
+  return v3(cap ? 0.0f : x, top ? 1.0f : (bot ? -1.0f : side_y),
+            cap ? 0.0f : z);
+}
+
+RRAY_DEVICE bool even(float v) { return fmodf(v, 2.0f) == 0.0f; }
+
+// Cheap pattern tree at pattern-space points. D bounds the recursion;
+// the wrapper rejects trees deeper than MAX_PATTERN_DEPTH.
+template <int D>
+RRAY_NOINLINE V3 eval_pattern(const SceneView& s, int node, V3 pts) {
+  const float* g = s.pats + node * PAT_COLS;
+  int type = s.ptype[node];
+  if (type == SOLID) return v3(g[12], g[13], g[14]);
+  V3 p = affine_pt(g, pts);
+  V3 a = eval_pattern<D - 1>(s, s.pa[node], p);
+  V3 b = eval_pattern<D - 1>(s, s.pb[node], p);
+  if (type == GRADIENT) {
+    float frac = p.x - floorf(p.x);
+    return add(a, scale(sub(b, a), frac));
+  }
+  if (type == BLEND) {
+    float sc = g[15];
+    return add(scale(a, 1.0f - sc), scale(b, sc));
+  }
+  bool cond;
+  if (type == STRIPE) {
+    cond = even(floorf(p.x));
+  } else if (type == RING) {
+    cond = even(floorf(sqrtf(p.x * p.x + p.z * p.z)));
+  } else {  // CHECKER
+    cond = even(floorf(p.x) + floorf(p.y) + floorf(p.z));
+  }
+  return cond ? a : b;
+}
+
+template <>
+RRAY_NOINLINE V3 eval_pattern<0>(const SceneView&, int, V3) {
+  return v3(0.0f, 0.0f, 0.0f);  // unreachable: depth checked by the wrapper
+}
+
+// ---- one Whitted node (rray_tpu whitted.py _node_row) --------------------
+
+struct Node {
+  V3 surface, over, under, reflectv, refr_dir;
+  float refl_w, refr_w;
+};
+
+RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
+                                  bool has_refl, bool has_refr) {
+  // Closest hit: per-prim minimum, then a strict < across prims, so the
+  // lowest prim id wins ties.
+  float best_t = INFINITY;
+  int win = -1;
+  float t[5];
+  bool ok[5];
+  for (int i = 0; i < s.P; ++i) {
+    const float* p = s.prims + i * P_COLS;
+    int n = prim_slots(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d), t, ok);
+    float tp = INFINITY;
+    for (int k = 0; k < n; ++k)
+      tp = fminf(tp, (ok[k] && t[k] >= 0.0f) ? t[k] : INFINITY);
+    if (tp < best_t) {
+      best_t = tp;
+      win = i;
+    }
+  }
+  Node out;
+  if (win < 0) {  // miss: no light, dead children
+    V3 z = v3(0.0f, 0.0f, 0.0f);
+    out.surface = z;
+    out.over = out.under = o;
+    out.reflectv = d;
+    out.refr_dir = v3(0.0f, 0.0f, 1.0f);
+    out.refl_w = out.refr_w = 0.0f;
+    return out;
+  }
+  const float* pw = s.prims + win * P_COLS;
+  V3 point = add(o, scale(d, best_t));
+  V3 eyev = neg(d);
+  V3 normalv = normalize(
+      nmat_vec(pw, local_normal(s.kinds[win], pw, affine_pt(pw, point))));
+  bool inside = dot(normalv, eyev) < 0.0f;
+  normalv = scale(normalv, inside ? -1.0f : 1.0f);
+  V3 over = add(point, scale(normalv, EPS_OFF));
+  V3 under = sub(point, scale(normalv, EPS_OFF));
+
+  // n1/n2: crossing-parity folds over every prim's slots (recomputed:
+  // the same formulas give the same values as the closest-hit pass).
+  float n1 = 1.0f, n2 = 1.0f;
+  if (has_refr) {
+    float t_hit = best_t;
+    float tol = TOL * fmaxf(1.0f, fabsf(t_hit));
+    float bts = -INFINITY, btl = -INFINITY, ior_s = 1.0f, ior_l = 1.0f;
+    for (int i = 0; i < s.P; ++i) {
+      const float* p = s.prims + i * P_COLS;
+      int n = prim_slots(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d), t, ok);
+      int cnt_s = 0, cnt_l = 0;
+      float last_s = -INFINITY, last_l = -INFINITY;
+      for (int k = 0; k < n; ++k) {
+        bool is_hit = (i == win) && (fabsf(t[k] - t_hit) <= tol);
+        bool before = ok[k] && (t[k] < t_hit);
+        bool in_s = before && !is_hit;
+        bool in_l = before || (ok[k] && is_hit);
+        cnt_s += in_s;
+        last_s = fmaxf(last_s, in_s ? t[k] : -INFINITY);
+        cnt_l += in_l;
+        last_l = fmaxf(last_l, in_l ? t[k] : -INFINITY);
+      }
+      if ((cnt_s % 2) == 1 && last_s > bts) {
+        bts = last_s;
+        ior_s = p[30];
+      }
+      if ((cnt_l % 2) == 1 && last_l > btl) {
+        btl = last_l;
+        ior_l = p[30];
+      }
+    }
+    n1 = (bts > -INFINITY && bts < INFINITY) ? ior_s : 1.0f;
+    n2 = (btl > -INFINITY && btl < INFINITY) ? ior_l : 1.0f;
+  }
+
+  // Pattern at the over point, on the winner's object space.
+  V3 base = eval_pattern<MAX_PATTERN_DEPTH>(s, s.roots[win], affine_pt(pw, over));
+
+  // Phong per point light with binary shadows (light.rs:98-140).
+  float amb = pw[24], dif = pw[25], spe = pw[26], shi = pw[27];
+  V3 surface = v3(0.0f, 0.0f, 0.0f);
+  for (int li = 0; li < s.L; ++li) {
+    const float* L = s.lights + li * L_COLS;
+    V3 to = v3(L[0] - over.x, L[1] - over.y, L[2] - over.z);
+    float dist = sqrtf(dot(to, to));
+    V3 dir = scale(to, 1.0f / fmaxf(dist, 1e-30f));
+    bool occ = false;
+    for (int j = 0; j < s.P && !occ; ++j)
+      occ = occludes(s.kinds[j], s.prims + j * P_COLS, over, dir, dist);
+    float unshadow = 1.0f - (occ ? 1.0f : 0.0f);
+    V3 effective = v3(base.x * L[3], base.y * L[4], base.z * L[5]);
+    V3 lightv = normalize(v3(L[0] - over.x, L[1] - over.y, L[2] - over.z));
+    V3 ambient = scale(effective, amb);
+    float ldn = dot(lightv, normalv);
+    bool lit = ldn >= 0.0f;
+    float dscale = lit ? dif * ldn : 0.0f;
+    float rde = dot(reflect(neg(lightv), normalv), eyev);
+    bool spec_on = lit && (rde > 0.0f);
+    float factor = powf(fmaxf(rde, 1e-30f), shi);
+    float sscale = spec_on ? spe * factor : 0.0f;
+    surface.x = surface.x + ambient.x + (effective.x * dscale + L[3] * sscale) * unshadow;
+    surface.y = surface.y + ambient.y + (effective.y * dscale + L[4] * sscale) * unshadow;
+    surface.z = surface.z + ambient.z + (effective.z * dscale + L[5] * sscale) * unshadow;
+  }
+
+  // Refraction + TIR + Schlick (scene.rs:310-336, computations.rs:39-54).
+  float reflective = pw[28], transparency = pw[29];
+  float n_ratio = n1 / n2;
+  float cos_i = dot(eyev, normalv);
+  float sin2_t = n_ratio * n_ratio * (1.0f - cos_i * cos_i);
+  bool tir = sin2_t > 1.0f;
+  float cos_t = sqrtf(fmaxf(1.0f - sin2_t, 1e-30f));
+  V3 direction = sub(scale(normalv, n_ratio * cos_i - cos_t), scale(eyev, n_ratio));
+  bool live = !tir && (transparency > 0.0f);
+  out.surface = surface;
+  out.over = over;
+  out.under = under;
+  out.reflectv = reflect(d, normalv);
+  out.refr_dir = live ? direction : v3(0.0f, 0.0f, 1.0f);
+  out.refl_w = reflective;
+  out.refr_w = live ? transparency : 0.0f;
+  if (has_refl && has_refr && reflective > 0.0f && transparency > 0.0f) {
+    float cos_eff = n1 > n2 ? cos_t : cos_i;
+    float q = (n1 - n2) / (n1 + n2);
+    float r0 = q * q;
+    float m = 1.0f - cos_eff;
+    float m2 = m * m;
+    float m5 = m * (m2 * m2);
+    float reflectance = r0 + (1.0f - r0) * m5;
+    if (n1 > n2 && sin2_t > 1.0f) reflectance = 1.0f;
+    out.refl_w = reflective * reflectance;
+    out.refr_w = out.refr_w * (1.0f - reflectance);
+  }
+  return out;
+}
+
+// ---- the level scan for one primary ray (rray_tpu whitted.py _kernel) ----
+
+// Path row: origin xyz, direction xyz, weight.
+struct Row { float c[7]; };
+
+RRAY_DEVICE Row make_row(V3 o, V3 d, float w) {
+  Row r = {{o.x, o.y, o.z, d.x, d.y, d.z, w}};
+  return r;
+}
+
+RRAY_DEVICE Row dead_row() {
+  Row r = {{0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 1.0f, 0.0f}};
+  return r;
+}
+
+// Spawn modes: both reflection and refraction -> 2W children + stable
+// top-W; exactly one -> a width-1 chain (W == 1); neither -> one level.
+template <int W>
+RRAY_DEVICE void trace_ray(const SceneView& s, V3 ro, V3 rd, int depth,
+                           bool has_refl, bool has_refr, float* rgb) {
+  const bool both = has_refl && has_refr;
+  const int spawn = both ? 2 : ((has_refl || has_refr) ? 1 : 0);
+  Row st[W];
+  Row ch[2 * W];
+  st[0] = make_row(ro, rd, 1.0f);
+  for (int r = 1; r < W; ++r) st[r] = dead_row();
+  float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
+  for (int level = 0; level <= depth; ++level) {
+    const int spawn_here = level == depth ? 0 : spawn;
+    for (int r = 0; r < 2 * W; ++r) ch[r] = dead_row();
+#pragma unroll 1  // one copy of the node's code, not W
+    for (int r = 0; r < W; ++r) {
+      float w = st[r].c[6];
+      if (w == 0.0f) continue;  // dead path row: contributes nothing
+      V3 o = v3(st[r].c[0], st[r].c[1], st[r].c[2]);
+      V3 d = v3(st[r].c[3], st[r].c[4], st[r].c[5]);
+      Node nd = node_eval(s, o, d, has_refl, has_refr);
+      acc_r = acc_r + nd.surface.x * w;
+      acc_g = acc_g + nd.surface.y * w;
+      acc_b = acc_b + nd.surface.z * w;
+      if (spawn_here == 2) {
+        ch[r] = make_row(nd.over, nd.reflectv, w * nd.refl_w);
+        ch[W + r] = make_row(nd.under, nd.refr_dir, w * nd.refr_w);
+      } else if (spawn_here == 1) {
+        ch[r] = has_refl ? make_row(nd.over, nd.reflectv, w * nd.refl_w)
+                         : make_row(nd.under, nd.refr_dir, w * nd.refr_w);
+      }
+    }
+    if (spawn_here == 2) {
+      // Stable top-W by weight: odd-even transposition over the 2W
+      // child rows, swapping on a strict < (= lax.sort's tie order).
+      for (int rnd = 0; rnd < 2 * W; ++rnd) {
+        for (int k = rnd % 2; k < 2 * W - 1; k += 2) {
+          if (ch[k].c[6] < ch[k + 1].c[6]) {
+            Row tmp = ch[k];
+            ch[k] = ch[k + 1];
+            ch[k + 1] = tmp;
+          }
+        }
+      }
+      for (int r = 0; r < W; ++r) st[r] = ch[r];
+    } else if (spawn_here == 1) {
+      st[0] = ch[0];
+    }
+  }
+  rgb[0] = acc_r;
+  rgb[1] = acc_g;
+  rgb[2] = acc_b;
+}
+
+}  // namespace rray

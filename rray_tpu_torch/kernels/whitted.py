@@ -1,0 +1,620 @@
+"""The whole compact Whitted wavefront per primary ray: CUDA kernel,
+plain PyTorch version, and the wrapper that picks between them.
+
+This is the port of rray_tpu's Pallas kernel
+`rray_tpu/kernels/whitted.py::whitted_compact` (body `_kernel`, node
+`_node_row`), stages a (core: analytic prims, point lights, cheap
+patterns, depth 0 and the width-1 reflection/refraction chain) and b
+(compact wavefront: W path rows per pixel, 2W children, stable top-W by
+weight). The CUDA source is kernels/csrc/whitted.cu: one thread runs one
+primary ray's whole tree with its path state in registers and local
+memory, the scene tables staged in shared memory.
+
+`whitted_compact` takes the tensors' device as the switch: CPU tensors
+run `whitted_compact_reference` (the plain version), CUDA tensors launch
+the kernel or raise. Both compute the same function; the plain version
+is dtype-generic so the tests can run it in float64 against rray_tpu's
+XLA path, while the kernel is float32 only, as the TPU kernel is.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..config import EPSILON, hit_match_tol, offset_eps
+from ..ops import soa
+from ..ops.vec import V3
+from ..scene import data as sd
+from .analytic import OCCLUSION_KINDS, _occludes
+
+CHEAP_PATTERNS = ("solid", "stripe", "gradient", "ring", "checker", "blend")
+# Pattern node codes shared with csrc/whitted.cu.
+PATTERN_CODES = {name: i for i, name in enumerate(CHEAP_PATTERNS)}
+# Path-row capacities the CUDA kernel is instantiated for.
+WIDTHS = (1, 2, 4, 8, 16, 32)
+MAX_PRIMS = 16
+# Shared-memory and recursion bounds of csrc/whitted.cu: the tables stay
+# under the 48 KB of static shared memory a block gets without opt-in,
+# and pattern trees are evaluated by a template recursion of this depth.
+MAX_PATTERN_ROWS = 256
+MAX_LIGHTS = 64
+MAX_PATTERN_DEPTH = 8
+
+# Kernel launches made by `whitted_compact` in this process (CPU calls,
+# which run the plain version, do not count).
+launches = 0
+
+
+def _tree_cheap(node) -> bool:
+    if node is None:
+        return True
+    return node.ptype in CHEAP_PATTERNS and _tree_cheap(node.a) \
+        and _tree_cheap(node.b)
+
+
+def _tree_depth(node) -> int:
+    if node is None:
+        return 0
+    return 1 + max(_tree_depth(node.a), _tree_depth(node.b))
+
+
+def _tree_rows(node) -> int:
+    if node is None:
+        return 0
+    return 1 + _tree_rows(node.a) + _tree_rows(node.b)
+
+
+def unsupported(scene) -> str | None:
+    """Why this scene cannot run as the kernel, naming the ROADMAP item
+    that will carry it — or None when it can."""
+    kinds = scene.prim_kinds
+    if scene.csg_ops:
+        return "CSG scenes: ROADMAP B1e"
+    if scene.counts[6]:
+        return "triangle meshes: ROADMAP B1d, then B2-B4"
+    if sd.TORUS in kinds:
+        return "tori: ROADMAP B1e"
+    if not kinds:
+        return "scenes without primitives: ROADMAP queue A 6 (torch node)"
+    if len(kinds) > MAX_PRIMS:
+        return (f"more than {MAX_PRIMS} primitives: ROADMAP queue A 6-10 "
+                "(torch fallback node)")
+    if any(light.kind != "point" for light in scene.lights):
+        return "area lights: ROADMAP B1c"
+    if len(scene.lights) > MAX_LIGHTS:
+        return f"more than {MAX_LIGHTS} lights: ROADMAP queue A 6"
+    if not all(_tree_cheap(p) for p in scene.patterns):
+        return "noise, perturbed and image patterns: ROADMAP B1e"
+    if any(_tree_depth(p) > MAX_PATTERN_DEPTH for p in scene.patterns) \
+            or sum(_tree_rows(p) for p in scene.patterns) > MAX_PATTERN_ROWS:
+        return "pattern trees past the kernel's table bounds: ROADMAP queue A 6"
+    return None
+
+
+def applicable(scene) -> bool:
+    """Can this scene's Whitted evaluation run as the kernel? Analytic
+    sphere/plane/cube/cylinder/cone prims (at most 16), point lights and
+    cheap pattern trees."""
+    return unsupported(scene) is None
+
+
+def wavefront_shape(scene, settings):
+    """(depth, W) as rray_tpu's _whitted_kernel_call derives them: the
+    compact wavefront when both reflection and refraction spawn, the
+    width-1 chain when one does, a single level when neither does."""
+    remaining = settings.depth
+    spawns = scene.has_reflective or scene.has_transparent
+    both = scene.has_reflective and scene.has_transparent
+    depth = remaining if spawns else 0
+    W = min(max(int(settings.wavefront_capacity), 2), 2 ** remaining) \
+        if (both and remaining > 0) else 1
+    return depth, W
+
+
+# ---------------------------------------------------------------------------
+# Host-side packing: per-prim params, pattern trees, lights.
+# ---------------------------------------------------------------------------
+
+# Per-prim row layout:
+#  0-11  world->object affine [3,4]
+# 12-20  normal matrix [3,3] (object normal -> world, unnormalized)
+# 21     ymin   22 ymax   23 closed
+# 24 ambient  25 diffuse  26 specular  27 shininess
+# 28 reflective  29 transparency  30 ior   31 torus minor radius
+P_COLS = 32
+PAT_COLS = 17
+L_COLS = 15
+
+
+def pack_prims(scene, dtype=None):
+    """[P, 32] prim table from the class shade table."""
+    tbl = scene.cls_table.to(dtype or scene.dtype)
+    cols = torch.cat([
+        torch.arange(sd.CLS_INV, sd.CLS_INV + 12),
+        torch.arange(sd.CLS_NMAT, sd.CLS_NMAT + 9),
+        torch.tensor([sd.CLS_PMIN, sd.CLS_PMAX, sd.CLS_CLOSED,
+                      sd.CLS_AMBIENT, sd.CLS_DIFFUSE, sd.CLS_SPECULAR,
+                      sd.CLS_SHININESS, sd.CLS_REFLECTIVE,
+                      sd.CLS_TRANSPARENCY, sd.CLS_IOR, sd.CLS_TORR])])
+    classes = torch.tensor(scene.prim_class_static, dtype=torch.long)
+    return tbl[classes][:, cols.to(tbl.device)].contiguous()
+
+
+def pack_patterns(scene, dtype=None):
+    """Flatten every pattern tree into one [N, 17] table plus static
+    per-root descriptors (ptype, row, meta, a_descr, b_descr), rows in
+    pre-order. Node row layout: 0-11 inv affine [3,4], 12-14 color,
+    15 scale, 16 persistence. `meta` is the octave count."""
+    dtype = dtype or scene.dtype
+    rows = []
+
+    def walk(node):
+        if node is None:
+            return None
+        idx = len(rows)
+        rows.append(torch.cat([
+            node.inv.reshape(12).to(dtype), node.color.reshape(3).to(dtype),
+            node.scale.reshape(1).to(dtype),
+            node.persistence.reshape(1).to(dtype)]))
+        return (node.ptype, idx, int(node.octaves), walk(node.a),
+                walk(node.b))
+
+    descrs = tuple(walk(root) for root in scene.patterns)
+    if not rows:
+        return torch.zeros((0, PAT_COLS), dtype=dtype,
+                           device=scene.device), descrs
+    return torch.stack(rows), descrs
+
+
+def pack_lights(scene, dtype=None):
+    """[L, 15]: position(3), intensity(3), corner(3), uvec(3), vvec(3);
+    the area extras are zeros for point lights."""
+    dtype = dtype or scene.dtype
+    z3 = torch.zeros(3, dtype=dtype, device=scene.device)
+    rows = []
+    for light in scene.lights:
+        area = light.kind == "area"
+        rows.append(torch.cat([
+            light.position.to(dtype).reshape(3),
+            light.intensity.to(dtype).reshape(3),
+            light.corner.to(dtype).reshape(3) if area else z3,
+            light.uvec.to(dtype).reshape(3) if area else z3,
+            light.vvec.to(dtype).reshape(3) if area else z3]))
+    if not rows:
+        return torch.zeros((0, L_COLS), dtype=dtype, device=scene.device)
+    return torch.stack(rows)
+
+
+# ---------------------------------------------------------------------------
+# The plain version: rray_tpu's _node_row and _kernel on [R] tensors.
+# ---------------------------------------------------------------------------
+
+def _affine_pt(p, v: V3) -> V3:
+    return V3(p[0] * v.x + p[1] * v.y + p[2] * v.z + p[3],
+              p[4] * v.x + p[5] * v.y + p[6] * v.z + p[7],
+              p[8] * v.x + p[9] * v.y + p[10] * v.z + p[11])
+
+
+def _affine_vec(p, v: V3) -> V3:
+    return V3(p[0] * v.x + p[1] * v.y + p[2] * v.z,
+              p[4] * v.x + p[5] * v.y + p[6] * v.z,
+              p[8] * v.x + p[9] * v.y + p[10] * v.z)
+
+
+def _nmat_vec(p, v: V3) -> V3:
+    return V3(p[12] * v.x + p[13] * v.y + p[14] * v.z,
+              p[15] * v.x + p[16] * v.y + p[17] * v.z,
+              p[18] * v.x + p[19] * v.y + p[20] * v.z)
+
+
+def _prim_slots(kind, p, o: V3, d: V3):
+    if kind == sd.SPHERE:
+        return soa._sphere_slots(o, d)
+    if kind == sd.PLANE:
+        return soa._plane_slots(o, d)
+    if kind == sd.CUBE:
+        return soa._cube_slots(o, d)
+    if kind == sd.CYLINDER:
+        return soa._cylinder_slots(o, d, p[21], p[22], p[23] != 0.0)
+    if kind == sd.CONE:
+        return soa._cone_slots(o, d, p[21], p[22], p[23] != 0.0)
+    raise ValueError(f"unsupported prim kind {kind}")
+
+
+def _scalar(x, dtype):
+    """A table value as a 0-d tensor, so scalar arithmetic on it rounds
+    in `dtype` exactly as the kernel's does."""
+    return torch.tensor(x, dtype=dtype)
+
+
+def _local_normal(kind, p, lp: V3) -> V3:
+    """Per-kind local normal (rray_tpu whitted.py _local_normal)."""
+    x, y, z = lp.x, lp.y, lp.z
+    zero = torch.zeros_like(x)
+    one = torch.ones_like(x)
+    if kind == sd.SPHERE:
+        return lp
+    if kind == sd.PLANE:
+        return V3(zero, one, zero)
+    if kind == sd.CUBE:
+        ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+        maxc = torch.maximum(ax, torch.maximum(ay, az))
+        return V3(torch.where(maxc == ax, x, zero),
+                  torch.where((maxc != ax) & (maxc == ay), y, zero),
+                  torch.where((maxc != ax) & (maxc != ay), z, zero))
+    cmin, cmax = _scalar(p[21], x.dtype), _scalar(p[22], x.dtype)
+    dist = x * x + z * z
+    top = (dist < 1.0) & (y >= cmax - EPSILON)
+    bot = (dist < 1.0) & (y <= cmin + EPSILON)
+    if kind == sd.CYLINDER:
+        side_y = zero
+    else:  # cone
+        ny = torch.sqrt(torch.clamp_min(dist, 0.0))
+        side_y = torch.where(y > 0.0, -ny, ny)
+    cap = top | bot
+    return V3(torch.where(cap, zero, x),
+              torch.where(top, one, torch.where(bot, -one, side_y)),
+              torch.where(cap, zero, z))
+
+
+def _eval_pattern(descr, pat, pts: V3) -> V3:
+    """Cheap pattern tree at pattern-space points (rray_tpu whitted.py
+    _eval_pattern_tex, image-free)."""
+    ptype, idx, _, da, db = descr
+    g = pat[idx]
+    if ptype == "solid":
+        return V3(torch.full_like(pts.x, g[12]), torch.full_like(pts.x, g[13]),
+                  torch.full_like(pts.x, g[14]))
+    p = _affine_pt(g, pts)
+    a = _eval_pattern(da, pat, p)
+    b = _eval_pattern(db, pat, p)
+    if ptype == "gradient":
+        frac = p.x - torch.floor(p.x)
+        return a + (b - a) * frac
+    if ptype == "blend":
+        s = _scalar(g[15], pts.x.dtype)
+        return a * (1.0 - s) + b * s
+    if ptype == "stripe":
+        cond = torch.remainder(torch.floor(p.x), 2.0) == 0.0
+    elif ptype == "ring":
+        cond = torch.remainder(torch.floor(torch.sqrt(p.x * p.x + p.z * p.z)),
+                               2.0) == 0.0
+    elif ptype == "checker":
+        cond = torch.remainder(torch.floor(p.x) + torch.floor(p.y)
+                               + torch.floor(p.z), 2.0) == 0.0
+    else:
+        raise ValueError(f"unsupported pattern {ptype}")
+    return V3(torch.where(cond, a.x, b.x), torch.where(cond, a.y, b.y),
+              torch.where(cond, a.z, b.z))
+
+
+def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
+          lights, o: V3, d: V3):
+    """One Whitted node over a batch of rays (rray_tpu whitted.py
+    _node_row, the slice's part of it).
+
+    Returns (surface, over, under, reflectv, refr_dir, refl_w, refr_w)."""
+    dtype = o.x.dtype
+    inf = torch.full_like(o.x, float("inf"))
+
+    # Closest hit: per-prim minimum, then a strict < across prims, so
+    # the lowest prim id wins ties.
+    slots_per_prim = []
+    best_t = inf
+    win = torch.full(o.x.shape, -1, dtype=torch.long, device=o.x.device)
+    for i, kind in enumerate(kinds):
+        p = prims[i]
+        slots = _prim_slots(kind, p, _affine_pt(p, o), _affine_vec(p, d))
+        slots_per_prim.append(slots)
+        tp = inf
+        for t, valid in slots:
+            tp = torch.minimum(tp, torch.where(valid & (t >= 0.0), t, inf))
+        better = tp < best_t
+        best_t = torch.where(better, tp, best_t)
+        win = torch.where(better, i, win)
+    found = torch.isfinite(best_t)
+    t_safe = torch.where(found, best_t, 0.0)
+    point = o + d * t_safe
+    eyev = -d
+
+    # Normal: the winner's kind formula on its object-space point,
+    # through its normal matrix, with the eye flip.
+    zero = torch.zeros_like(o.x)
+    nsel = V3(zero, zero, zero)
+    for i, kind in enumerate(kinds):
+        p = prims[i]
+        n = _nmat_vec(p, _local_normal(kind, p, _affine_pt(p, point)))
+        m = win == i
+        nsel = V3(torch.where(m, n.x, nsel.x), torch.where(m, n.y, nsel.y),
+                  torch.where(m, n.z, nsel.z))
+    normalv = nsel.normalize()
+    inside = normalv.dot(eyev) < 0.0
+    normalv = normalv * torch.where(inside, -1.0, 1.0).to(dtype)
+    eps = offset_eps(dtype)
+    over = point + normalv * eps
+    under = point - normalv * eps
+
+    # n1/n2: crossing-parity folds over the same slots.
+    if has_refr:
+        t_hit = torch.where(found, best_t, -1.0)
+        tol = hit_match_tol(dtype) * torch.clamp_min(torch.abs(t_hit), 1.0)
+        neg = -inf
+        bts, btl = neg, neg
+        ior_s = ior_l = torch.ones_like(o.x)
+        for i, slots in enumerate(slots_per_prim):
+            cnt_s = cnt_l = torch.zeros_like(o.x, dtype=torch.int32)
+            last_s = last_l = neg
+            for t, valid in slots:
+                is_hit = (win == i) & (torch.abs(t - t_hit) <= tol)
+                before = valid & (t < t_hit)
+                in_s = before & ~is_hit
+                in_l = before | (valid & is_hit)
+                cnt_s = cnt_s + in_s.to(torch.int32)
+                last_s = torch.maximum(last_s, torch.where(in_s, t, neg))
+                cnt_l = cnt_l + in_l.to(torch.int32)
+                last_l = torch.maximum(last_l, torch.where(in_l, t, neg))
+            ior_i = prims[i][30]
+            bs = ((cnt_s % 2) == 1) & (last_s > bts)
+            bts = torch.where(bs, last_s, bts)
+            ior_s = torch.where(bs, ior_i, ior_s)
+            bl = ((cnt_l % 2) == 1) & (last_l > btl)
+            btl = torch.where(bl, last_l, btl)
+            ior_l = torch.where(bl, ior_i, ior_l)
+        n1 = torch.where(torch.isfinite(bts) & (bts > -inf), ior_s, 1.0)
+        n2 = torch.where(torch.isfinite(btl) & (btl > -inf), ior_l, 1.0)
+    else:
+        n1 = n2 = torch.ones_like(o.x)
+
+    # Pattern at the over point, on the winner's object space.
+    base = V3(zero, zero, zero)
+    for i in range(len(kinds)):
+        col = _eval_pattern(pat_descrs[prim_pat[i]], pat,
+                            _affine_pt(prims[i], over))
+        m = win == i
+        base = V3(torch.where(m, col.x, base.x), torch.where(m, col.y, base.y),
+                  torch.where(m, col.z, base.z))
+
+    # Material columns of the winner (24-30), zeros where nothing was hit.
+    mats = torch.tensor([row[24:31] for row in prims], dtype=dtype,
+                        device=o.x.device)
+    sel = torch.where(found[:, None], mats[win.clamp_min(0)], 0.0)
+    amb, dif, spe, shi, reflective, transparency = sel.unbind(1)[:6]
+
+    # Phong per point light with binary shadows (light.rs:98-140). The
+    # shadow predicate reads the 16-col analytic layout (extras at
+    # 12-14); these 32-col rows keep them at 21-23.
+    surface = V3(zero, zero, zero)
+    for L in lights:
+        to = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z)
+        dist = to.norm()
+        direction = to * (1.0 / torch.clamp_min(dist, 1e-30))
+        occ = torch.zeros_like(found)
+        for i, kind in enumerate(kinds):
+            p = prims[i]
+            occ = occ | _occludes(kind, lambda j, p=p: p[j + 9 if j >= 12
+                                                          else j],
+                                  over.x, over.y, over.z, direction.x,
+                                  direction.y, direction.z, dist)
+        unshadow = 1.0 - occ.to(dtype)
+        effective = V3(base.x * L[3], base.y * L[4], base.z * L[5])
+        lightv = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z).normalize()
+        ambient = effective * amb
+        ldn = lightv.dot(normalv)
+        lit = ldn >= 0.0
+        dscale = torch.where(lit, dif * ldn, 0.0)
+        rde = (-lightv).reflect(normalv).dot(eyev)
+        spec_on = lit & (rde > 0.0)
+        factor = torch.pow(torch.clamp_min(rde, 1e-30), shi)
+        sscale = torch.where(spec_on, spe * factor, 0.0)
+        surface = V3(
+            surface.x + ambient.x + (effective.x * dscale
+                                     + L[3] * sscale) * unshadow,
+            surface.y + ambient.y + (effective.y * dscale
+                                     + L[4] * sscale) * unshadow,
+            surface.z + ambient.z + (effective.z * dscale
+                                     + L[5] * sscale) * unshadow)
+    surface = V3(torch.where(found, surface.x, 0.0),
+                 torch.where(found, surface.y, 0.0),
+                 torch.where(found, surface.z, 0.0))
+    reflectv = d.reflect(normalv)
+
+    # Refraction + TIR + Schlick (scene.rs:310-336, computations.rs:39-54).
+    n_ratio = n1 / n2
+    cos_i = eyev.dot(normalv)
+    sin2_t = n_ratio * n_ratio * (1.0 - cos_i * cos_i)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 1e-30))
+    direction = normalv * (n_ratio * cos_i - cos_t) - eyev * n_ratio
+    live = found & ~tir & (transparency > 0.0)
+    refr_dir = V3(torch.where(live, direction.x, 0.0),
+                  torch.where(live, direction.y, 0.0),
+                  torch.where(live, direction.z, 1.0))
+    refl_w = reflective
+    refr_w = torch.where(live, transparency, 0.0)
+    if has_refl and has_refr:
+        both = (reflective > 0.0) & (transparency > 0.0)
+        cos_eff = torch.where(n1 > n2, cos_t, cos_i)
+        q = (n1 - n2) / (n1 + n2)
+        r0 = q * q
+        m = 1.0 - cos_eff
+        m2 = m * m
+        m5 = m * (m2 * m2)  # the multiply order of lax.integer_pow(m, 5)
+        reflectance = r0 + (1.0 - r0) * m5
+        reflectance = torch.where((n1 > n2) & (sin2_t > 1.0), 1.0,
+                                  reflectance)
+        refl_w = torch.where(both, reflective * reflectance, refl_w)
+        refr_w = torch.where(both, refr_w * (1.0 - reflectance), refr_w)
+    return surface, over, under, reflectv, refr_dir, refl_w, refr_w
+
+
+def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
+                              light_tbl, kinds, pat_descrs, prim_pat,
+                              depth: int, W: int, has_refl: bool,
+                              has_refr: bool):
+    """Plain PyTorch version of the kernel -> (r, g, b) [R] tensors.
+
+    Every level evaluates all W path rows of every pixel at once
+    ([W*R] tensors). A row of weight 0 contributes nothing, as the
+    kernel skips it. When both reflection and refraction spawn, the 2W
+    children are ordered by a stable descending sort of their weights
+    and the first W survive — the order the kernel's odd-even
+    transposition network (swap on strict <) produces for weights >= 0."""
+    dtype = ro_comps[0].dtype
+    prims, pat, lights = prim_tbl.tolist(), pat_tbl.tolist(), \
+        light_tbl.tolist()
+    R = ro_comps[0].shape[0]
+    both = has_refl and has_refr
+    spawn = 2 if both else (1 if (has_refl or has_refr) else 0)
+    if W != 1 and not both:
+        raise ValueError("W > 1 needs both reflection and refraction")
+
+    # state[c, r]: component c (origin xyz, direction xyz, weight) of
+    # path row r; rows 1..W-1 start dead (weight 0, +z direction).
+    st = torch.zeros((7, W, R), dtype=dtype, device=ro_comps[0].device)
+    st[5] = 1.0
+    for c, v in enumerate(tuple(ro_comps) + tuple(rd_comps)):
+        st[c, 0] = v
+    st[6, 0] = 1.0
+    acc = [torch.zeros_like(ro_comps[0]) for _ in range(3)]
+    for level in range(depth + 1):
+        rows = st.reshape(7, W * R)
+        w = rows[6]
+        surface, over, under, reflectv, refr_dir, refl_w, refr_w = _node(
+            kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
+            lights, V3(rows[0], rows[1], rows[2]),
+            V3(rows[3], rows[4], rows[5]))
+        for c, v in enumerate((surface.x, surface.y, surface.z)):
+            contrib = torch.where(w != 0.0, v * w, 0.0).reshape(W, R)
+            for r in range(W):
+                acc[c] = acc[c] + contrib[r]
+        if level == depth or not spawn:
+            break
+        # Children [7, spawn*W, R]: reflection rows first, then refraction.
+        refl = (over, reflectv, w * refl_w)
+        refr = (under, refr_dir, w * refr_w)
+        children = [refl, refr] if spawn == 2 else \
+            [refl if has_refl else refr]
+        ch = torch.stack([
+            torch.cat([(pt.x, pt.y, pt.z, dr.x, dr.y, dr.z, cw)[c]
+                       .reshape(W, R) for pt, dr, cw in children])
+            for c in range(7)])
+        if spawn == 2:
+            order = torch.sort(ch[6], dim=0, descending=True,
+                               stable=True).indices[:W]
+            ch = torch.gather(ch, 1, order.expand(7, W, R))
+        st = ch[:, :W].contiguous()
+    return tuple(acc)
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's wrapper.
+# ---------------------------------------------------------------------------
+
+def int_table(kinds, pat_descrs, prim_pat, n_rows: int):
+    """The kernel's int table: prim kinds[P], pattern root rows[P], then
+    per pattern row its node type[N], child a row[N], child b row[N]
+    (-1 where a node has no child) — the statics that rray_tpu's kernel
+    unrolls at trace time, as data the CUDA kernel interprets."""
+    ptype = [0] * n_rows
+    pa = [-1] * n_rows
+    pb = [-1] * n_rows
+
+    def walk(descr):
+        if descr is None:
+            return -1
+        name, idx, _, da, db = descr
+        if name not in PATTERN_CODES:
+            raise ValueError(f"pattern {name!r} is not a cheap pattern")
+        ptype[idx] = PATTERN_CODES[name]
+        pa[idx], pb[idx] = walk(da), walk(db)
+        if name != "solid" and (pa[idx] < 0 or pb[idx] < 0):
+            raise ValueError(f"{name} pattern node without two children")
+        return idx
+
+    for descr in pat_descrs:
+        walk(descr)
+    roots = [pat_descrs[prim_pat[i]][1] for i in range(len(kinds))]
+    return list(kinds) + roots + ptype + pa + pb
+
+
+def _check(name, t, shape, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise TypeError(f"{name} is {t.dtype}; the CUDA kernel is float32 "
+                        "only")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
+            pat_descrs, prim_pat, depth, W, has_refl, has_refr):
+    global launches
+    from . import build
+
+    device = ro_comps[0].device
+    R = ro_comps[0].shape[0]
+    P, N, L = len(kinds), pat_tbl.shape[0], light_tbl.shape[0]
+    for k, c in enumerate(tuple(ro_comps) + tuple(rd_comps)):
+        _check(f"ray component {k}", c, (R,), device)
+    _check("prim_tbl", prim_tbl, (P, P_COLS), device)
+    _check("pat_tbl", pat_tbl, (N, PAT_COLS), device)
+    _check("light_tbl", light_tbl, (L, L_COLS), device)
+    if W not in WIDTHS:
+        raise ValueError(f"W={W}; the kernel is built for W in {WIDTHS}")
+    if W != 1 and not (has_refl and has_refr):
+        raise ValueError("W > 1 needs both reflection and refraction")
+    if not 0 < P <= MAX_PRIMS or any(k not in OCCLUSION_KINDS
+                                     for k in kinds):
+        raise ValueError(f"the kernel takes 1..{MAX_PRIMS} analytic "
+                         f"sphere/plane/cube/cylinder/cone prims: {kinds}")
+    if N > MAX_PATTERN_ROWS or L > MAX_LIGHTS or any(
+            _descr_depth(d) > MAX_PATTERN_DEPTH for d in pat_descrs):
+        raise ValueError("pattern or light tables past the kernel's bounds")
+    if depth < 0:
+        raise ValueError(f"depth={depth}")
+    ints = torch.tensor(int_table(kinds, pat_descrs, prim_pat, N),
+                        dtype=torch.int32, device=device)
+    outs = [torch.empty(R, dtype=torch.float32, device=device)
+            for _ in range(3)]
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = build.load_library().whitted_compact_launch(
+            *(ptr(c) for c in tuple(ro_comps) + tuple(rd_comps)),
+            *(ptr(o) for o in outs), ptr(prim_tbl), P, ptr(pat_tbl), N,
+            ptr(light_tbl), L, ptr(ints), R, depth, W, int(has_refl),
+            int(has_refr), ctypes.c_void_p(stream))
+    if rc != 0:
+        raise RuntimeError(f"whitted kernel launch failed: CUDA error {rc} "
+                           f"({build.error_string(rc)})")
+    launches += 1
+    return tuple(outs)
+
+
+def _descr_depth(descr) -> int:
+    if descr is None:
+        return 0
+    return 1 + max(_descr_depth(descr[3]), _descr_depth(descr[4]))
+
+
+def whitted_compact(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl,
+                    kinds, pat_descrs, prim_pat, depth: int, W: int,
+                    has_refl: bool, has_refr: bool):
+    """Whitted evaluation of [R] primary rays -> (r, g, b) [R] tensors.
+
+    ro/rd_comps: 3-tuples of [R] tensors; prim_tbl [P,32], pat_tbl
+    [N,17], light_tbl [L,15] (see pack_*); kinds, pat_descrs, prim_pat
+    mirror the scene structure (SceneData.prim_kinds, pack_patterns'
+    descriptors, SceneData.prim_pattern_static). CPU tensors run the
+    plain version; CUDA tensors launch the kernel (float32 only)."""
+    if ro_comps[0].device.type == "cpu":
+        return whitted_compact_reference(
+            ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
+            pat_descrs, prim_pat, depth, W, has_refl, has_refr)
+    return _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
+                   pat_descrs, prim_pat, depth, W, has_refl, has_refr)

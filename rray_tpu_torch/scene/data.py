@@ -1,0 +1,459 @@
+"""Scene representation: host-side construction + device-side SoA tables.
+
+The host description (Pattern, Material, Shape, lights) is rray_tpu's,
+so the YAML and OBJ loaders carry over unchanged. `compile_scene` folds
+the scene graph into the same flat tables as rray_tpu's compile_scene:
+per-leaf composed world->object affines and normal matrices, the
+[M, 34] class shade table (`CLS_*` columns), per-type affines, pattern
+trees and lights. Group transform chains fold at build time, which is
+exact because per-level normalization only rescales directions.
+
+The tables are torch tensors on the caller's device, in a plain
+dataclass; structural facts (counts, prim kinds, pattern node types,
+light kinds) are plain Python fields. This slice compiles analytic
+leaves and groups: CSG nodes and triangles raise NotImplementedError
+naming the ROADMAP item that will carry them.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Optional, Tuple
+
+import numpy as np
+import torch
+
+from .. import mathutils as mu
+
+# Primitive type codes.
+SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, TRIANGLE = range(7)
+
+# cls_table column layout (one row per shade class; every analytic leaf
+# is its own class).
+CLS_INV = 0          # 12 cols: world->object affine, row-major [3,4]
+CLS_NMAT = 12        # 9 cols: object-normal -> world matrix [3,3]
+CLS_TYPE = 21        # type code (exact small int in float)
+CLS_PATTERN = 22     # pattern root index
+CLS_AMBIENT = 23
+CLS_DIFFUSE = 24
+CLS_SPECULAR = 25
+CLS_SHININESS = 26
+CLS_REFLECTIVE = 27
+CLS_TRANSPARENCY = 28
+CLS_IOR = 29
+CLS_PMIN = 30        # cylinder/cone minimum (by type)
+CLS_PMAX = 31        # cylinder/cone maximum
+CLS_CLOSED = 32      # cylinder/cone closed flag (0/1)
+CLS_TORR = 33        # torus minor radius
+CLS_COLS = 34
+
+
+# --------------------------------------------------------------------------
+# Host-side pattern / material / shape description (what the YAML loader and
+# tests construct).
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class Pattern:
+    """Host pattern-tree node (material/pattern.rs:26-37)."""
+
+    ptype: str  # solid|test|stripe|gradient|ring|checker|blend|perturbed|noise|image
+    transform: np.ndarray = dataclasses.field(default_factory=mu.identity)
+    color: Optional[np.ndarray] = None
+    a: Optional["Pattern"] = None
+    b: Optional["Pattern"] = None
+    scale: float = 0.0
+    octaves: int = 0
+    persistence: float = 0.0
+    texture: Optional[np.ndarray] = None  # [H, W, 3] float in [0,1]
+
+    @staticmethod
+    def solid(color, transform=None):
+        return Pattern("solid", transform if transform is not None else mu.identity(),
+                       color=np.asarray(color, np.float64))
+
+
+def default_pattern() -> Pattern:
+    return Pattern.solid([1.0, 1.0, 1.0])
+
+
+@dataclasses.dataclass
+class Material:
+    """Host material (material.rs:35-58 defaults)."""
+
+    pattern: Pattern = dataclasses.field(default_factory=default_pattern)
+    ambient: float = 0.1
+    diffuse: float = 0.9
+    specular: float = 0.9
+    shininess: float = 200.0
+    reflective: float = 0.0
+    transparency: float = 0.0
+    refractive_index: float = 1.0
+
+
+@dataclasses.dataclass
+class Shape:
+    """Host scene-graph node; leaves become SoA rows, interior nodes fold."""
+
+    kind: str  # sphere|plane|cube|cylinder|cone|torus|triangle|smooth_triangle|group|csg
+    transform: np.ndarray = dataclasses.field(default_factory=mu.identity)
+    material: Optional[Material] = None
+    hidden: bool = False
+    # cylinder / cone
+    minimum: float = -np.inf
+    maximum: float = np.inf
+    closed: bool = False
+    # torus
+    minor_radius: float = 1.0
+    # triangle
+    p1: Optional[np.ndarray] = None
+    p2: Optional[np.ndarray] = None
+    p3: Optional[np.ndarray] = None
+    n1: Optional[np.ndarray] = None
+    n2: Optional[np.ndarray] = None
+    n3: Optional[np.ndarray] = None
+    # group
+    children: Tuple["Shape", ...] = ()
+    # csg
+    operation: str = "union"
+    left: Optional["Shape"] = None
+    right: Optional["Shape"] = None
+
+
+@dataclasses.dataclass
+class PointLight:
+    position: np.ndarray
+    intensity: np.ndarray
+
+
+@dataclasses.dataclass
+class AreaLight:
+    corner: np.ndarray
+    uvec: np.ndarray
+    vvec: np.ndarray
+    intensity: np.ndarray
+    level: int = 5
+
+    @property
+    def position(self):
+        # Area lights shade from their center (light.rs:41-45).
+        return self.corner + 0.5 * self.uvec + 0.5 * self.vvec
+
+
+# --------------------------------------------------------------------------
+# Device-side tables.
+# --------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class PatternData:
+    ptype: str
+    octaves: int
+    inv: Any  # [3,4] pattern-space inverse affine
+    color: Any  # [3]
+    scale: Any  # scalar
+    persistence: Any  # scalar
+    texture: Any  # [H,W] int32 packed RGB8, [H,W,3] float, or None
+    a: Optional["PatternData"]
+    b: Optional["PatternData"]
+
+
+@dataclasses.dataclass
+class LightData:
+    kind: str  # "point" | "area"
+    level: int
+    position: Any  # [3] (area: center)
+    intensity: Any  # [3]
+    corner: Any  # [3] or None
+    uvec: Any
+    vvec: Any
+
+
+# Tensor fields of SceneData, in rray_tpu's SceneData order.
+TENSOR_FIELDS = (
+    "prim_inv", "prim_nmat", "prim_type", "prim_row",
+    "mat_ambient", "mat_diffuse", "mat_specular", "mat_shininess",
+    "mat_reflective", "mat_transparency", "mat_ior", "pattern_id",
+    "prim_class", "cls_table",
+    "sph_inv", "sph_prim", "pla_inv", "pla_prim", "cub_inv", "cub_prim",
+    "cyl_inv", "cyl_prim", "cyl_min", "cyl_max", "cyl_closed",
+    "con_inv", "con_prim", "con_min", "con_max", "con_closed",
+    "tor_inv", "tor_prim", "tor_r",
+    "tri_p1", "tri_e1", "tri_e2",
+    "tri_n1", "tri_n2", "tri_n3", "tri_smooth", "tri_prim",
+    "tri_class", "csg_side",
+)
+# Structural fields (plain Python), in rray_tpu's SceneData order.
+STATIC_FIELDS = (
+    "csg_ops", "has_reflective", "has_transparent", "counts", "prim_kinds",
+    "prim_rows_static", "csg_member_static", "csg_side_static",
+    "n_classes", "prim_class_static", "prim_pattern_static",
+)
+
+
+@dataclasses.dataclass
+class SceneData:
+    """All device tensors for one compiled scene (leaves may be size 0).
+
+    Field meanings follow rray_tpu's SceneData: per-prim tables indexed
+    by prim id (DFS order), per-type analytic tables, triangle tables
+    (empty until meshes are ported), CSG sides (empty until CSG is
+    ported), then the structural Python fields."""
+
+    prim_inv: Any       # [P,3,4] composed world->object affine
+    prim_nmat: Any      # [P,3,3] object-normal -> world (unnormalized)
+    prim_type: Any      # [P] int32 type code
+    prim_row: Any       # [P] int32 row in its per-type table
+    mat_ambient: Any    # [P]
+    mat_diffuse: Any
+    mat_specular: Any
+    mat_shininess: Any
+    mat_reflective: Any
+    mat_transparency: Any
+    mat_ior: Any
+    pattern_id: Any     # [P] int32 index into `patterns`
+    prim_class: Any     # [P] int32 shade-class id (see CLS_* columns)
+    cls_table: Any      # [M, CLS_COLS] class shade table
+    sph_inv: Any        # [Ns,3,4]
+    sph_prim: Any       # [Ns] int32
+    pla_inv: Any
+    pla_prim: Any
+    cub_inv: Any
+    cub_prim: Any
+    cyl_inv: Any
+    cyl_prim: Any
+    cyl_min: Any        # [Ncyl]
+    cyl_max: Any
+    cyl_closed: Any     # [Ncyl] bool
+    con_inv: Any
+    con_prim: Any
+    con_min: Any
+    con_max: Any
+    con_closed: Any
+    tor_inv: Any
+    tor_prim: Any
+    tor_r: Any          # [Nt] minor radius
+    tri_p1: Any         # [T,3]
+    tri_e1: Any
+    tri_e2: Any
+    tri_n1: Any         # [T,3] unnormalized world vertex normals
+    tri_n2: Any
+    tri_n3: Any
+    tri_smooth: Any     # [T] bool
+    tri_prim: Any       # [T] int32
+    tri_class: Any      # [T] int32
+    csg_side: Any       # [C, P] int32
+    lights: Tuple[LightData, ...]
+    patterns: Tuple[PatternData, ...]
+    csg_ops: Tuple[int, ...]
+    has_reflective: bool
+    has_transparent: bool
+    counts: Tuple[int, ...]  # (Ns, Npl, Ncu, Ncy, Nco, Nto, T, P)
+    prim_kinds: Tuple[int, ...]
+    prim_rows_static: Tuple[int, ...]
+    csg_member_static: Tuple[bool, ...] = ()
+    csg_side_static: Tuple[Tuple[int, ...], ...] = ()
+    n_classes: int = 0
+    prim_class_static: Tuple[int, ...] = ()
+    prim_pattern_static: Tuple[int, ...] = ()
+
+    @property
+    def dtype(self):
+        return self.cls_table.dtype
+
+    @property
+    def device(self):
+        return self.cls_table.device
+
+
+# --------------------------------------------------------------------------
+# Compilation: host scene graph -> SceneData.
+# --------------------------------------------------------------------------
+
+_KIND_TO_TYPE = {
+    "sphere": SPHERE, "plane": PLANE, "cube": CUBE, "cylinder": CYLINDER,
+    "cone": CONE, "torus": TORUS,
+}
+
+
+def _walk(shape: Shape, parent_world: np.ndarray, leaves):
+    """DFS fold of the scene graph into leaves (shape, world).
+
+    `hidden` is honored only where the reference's builder consults it:
+    top-level objects (scene_builder_yaml.rs:401) and group children
+    (scene_builder_yaml.rs:169)."""
+    world = parent_world @ shape.transform
+    if shape.kind == "group":
+        for child in shape.children:
+            if not child.hidden:
+                _walk(child, world, leaves)
+        return
+    if shape.kind == "csg":
+        raise NotImplementedError(
+            "CSG nodes are not ported yet (ROADMAP B1e and queue A 9)")
+    if shape.kind not in _KIND_TO_TYPE:
+        raise NotImplementedError(
+            f"{shape.kind} leaves are not ported yet (ROADMAP B1d: "
+            "in-kernel mesh, then B2-B4)")
+    leaves.append((shape, world))
+
+
+def _tensor(x, dtype, device):
+    return torch.as_tensor(np.asarray(x), dtype=dtype, device=device)
+
+
+def _compile_pattern(p: Pattern, dtype, device) -> PatternData:
+    tex = None
+    if p.texture is not None:
+        # 8-bit sources pack RGB into one int32 plane (the value layout
+        # of rray_tpu's uint32 packing); others keep float [H,W,3].
+        arr = np.asarray(p.texture, np.float64)
+        q = np.round(arr * 255.0)
+        if (arr.ndim == 3 and arr.shape[-1] == 3
+                and q.min() >= 0.0 and q.max() <= 255.0
+                and np.abs(arr * 255.0 - q).max() < 1e-9):
+            qi = q.astype(np.int32)
+            tex = _tensor((qi[..., 0] << 16) | (qi[..., 1] << 8) | qi[..., 2],
+                          torch.int32, device)
+        else:
+            tex = _tensor(arr, dtype, device)
+    return PatternData(
+        ptype=p.ptype,
+        octaves=int(p.octaves),
+        inv=_tensor(mu.affine(mu.inverse(p.transform)), dtype, device),
+        color=_tensor(p.color if p.color is not None else np.zeros(3),
+                      dtype, device),
+        scale=_tensor(p.scale, dtype, device),
+        persistence=_tensor(p.persistence, dtype, device),
+        texture=tex,
+        a=_compile_pattern(p.a, dtype, device) if p.a is not None else None,
+        b=_compile_pattern(p.b, dtype, device) if p.b is not None else None,
+    )
+
+
+def _compile_light(light, dtype, device) -> LightData:
+    t = lambda v: _tensor(v, dtype, device)
+    if isinstance(light, PointLight):
+        return LightData("point", 0, t(light.position), t(light.intensity),
+                         None, None, None)
+    return LightData("area", int(light.level), t(light.position),
+                     t(light.intensity), t(light.corner), t(light.uvec),
+                     t(light.vvec))
+
+
+def compile_scene(objects, lights, dtype=torch.float32,
+                  device="cpu") -> SceneData:
+    """Fold a host scene graph into SoA tables on `device`."""
+    leaves = []
+    for obj in objects:
+        if not obj.hidden:
+            _walk(obj, mu.identity(), leaves)
+    P = len(leaves)
+
+    # Deduplicate pattern roots by host-object identity.
+    pattern_roots: list[Pattern] = []
+    pattern_index: dict[int, int] = {}
+
+    def pattern_id_of(p: Pattern) -> int:
+        if id(p) not in pattern_index:
+            pattern_index[id(p)] = len(pattern_roots)
+            pattern_roots.append(p)
+        return pattern_index[id(p)]
+
+    prim_inv = np.zeros((P, 3, 4))
+    prim_nmat = np.zeros((P, 3, 3))
+    prim_type = np.zeros(P, np.int32)
+    prim_row = np.zeros(P, np.int32)
+    mats = {k: np.zeros(P) for k in
+            ("ambient", "diffuse", "specular", "shininess", "reflective",
+             "transparency", "ior")}
+    pat_ids = np.zeros(P, np.int32)
+    by_type: dict[int, list[int]] = {t: [] for t in range(7)}
+    materials = []
+    for pid, (shape, world) in enumerate(leaves):
+        t = _KIND_TO_TYPE[shape.kind]
+        prim_type[pid] = t
+        prim_row[pid] = len(by_type[t])
+        by_type[t].append(pid)
+        prim_inv[pid] = mu.affine(mu.inverse(world))
+        prim_nmat[pid] = mu.normal_matrix(world)
+        m = shape.material or Material()
+        materials.append(m)
+        mats["ambient"][pid] = m.ambient
+        mats["diffuse"][pid] = m.diffuse
+        mats["specular"][pid] = m.specular
+        mats["shininess"][pid] = m.shininess
+        mats["reflective"][pid] = m.reflective
+        mats["transparency"][pid] = m.transparency
+        mats["ior"][pid] = m.refractive_index
+        pat_ids[pid] = pattern_id_of(m.pattern)
+
+    f = lambda x: _tensor(x, dtype, device)
+    i32 = lambda x: _tensor(np.asarray(x, np.int32), torch.int32, device)
+    tables = {}
+    for name, t in (("sph", SPHERE), ("pla", PLANE), ("cub", CUBE),
+                    ("cyl", CYLINDER), ("con", CONE), ("tor", TORUS)):
+        ids = by_type[t]
+        tables[f"{name}_inv"] = f(prim_inv[ids] if ids else np.zeros((0, 3, 4)))
+        tables[f"{name}_prim"] = i32(ids)
+    for name, t in (("cyl", CYLINDER), ("con", CONE)):
+        shapes = [leaves[p][0] for p in by_type[t]]
+        tables[f"{name}_min"] = f([s.minimum for s in shapes])
+        tables[f"{name}_max"] = f([s.maximum for s in shapes])
+        tables[f"{name}_closed"] = _tensor(
+            np.array([s.closed for s in shapes], bool), torch.bool, device)
+    tables["tor_r"] = f([leaves[p][0].minor_radius for p in by_type[TORUS]])
+
+    # Every analytic leaf is its own shade class.
+    cls_table = np.zeros((max(P, 1), CLS_COLS))
+    for pid, (shape, _) in enumerate(leaves):
+        m = materials[pid]
+        row = cls_table[pid]
+        row[CLS_INV:CLS_INV + 12] = prim_inv[pid].reshape(12)
+        row[CLS_NMAT:CLS_NMAT + 9] = prim_nmat[pid].reshape(9)
+        row[CLS_TYPE] = prim_type[pid]
+        row[CLS_PATTERN] = pat_ids[pid]
+        row[CLS_AMBIENT] = m.ambient
+        row[CLS_DIFFUSE] = m.diffuse
+        row[CLS_SPECULAR] = m.specular
+        row[CLS_SHININESS] = m.shininess
+        row[CLS_REFLECTIVE] = m.reflective
+        row[CLS_TRANSPARENCY] = m.transparency
+        row[CLS_IOR] = m.refractive_index
+        if shape.kind in ("cylinder", "cone"):
+            row[CLS_PMIN] = shape.minimum
+            row[CLS_PMAX] = shape.maximum
+            row[CLS_CLOSED] = float(bool(shape.closed))
+        elif shape.kind == "torus":
+            row[CLS_TORR] = shape.minor_radius
+
+    empty3 = f(np.zeros((0, 3)))
+    return SceneData(
+        prim_inv=f(prim_inv), prim_nmat=f(prim_nmat),
+        prim_type=i32(prim_type), prim_row=i32(prim_row),
+        mat_ambient=f(mats["ambient"]), mat_diffuse=f(mats["diffuse"]),
+        mat_specular=f(mats["specular"]),
+        mat_shininess=f(mats["shininess"]),
+        mat_reflective=f(mats["reflective"]),
+        mat_transparency=f(mats["transparency"]), mat_ior=f(mats["ior"]),
+        pattern_id=i32(pat_ids), prim_class=i32(np.arange(P)),
+        cls_table=f(cls_table),
+        **tables,
+        tri_p1=empty3, tri_e1=empty3, tri_e2=empty3,
+        tri_n1=empty3, tri_n2=empty3, tri_n3=empty3,
+        tri_smooth=_tensor(np.zeros(0, bool), torch.bool, device),
+        tri_prim=i32([]), tri_class=i32([]),
+        csg_side=i32(np.zeros((0, max(P, 1)))),
+        lights=tuple(_compile_light(l, dtype, device) for l in lights),
+        patterns=tuple(_compile_pattern(p, dtype, device)
+                       for p in pattern_roots),
+        csg_ops=(),
+        has_reflective=any(m.reflective > 0.0 for m in materials),
+        has_transparent=any(m.transparency > 0.0 for m in materials),
+        counts=tuple(len(by_type[t]) for t in range(7)) + (P,),
+        prim_kinds=tuple(int(t) for t in prim_type),
+        prim_rows_static=tuple(int(r) for r in prim_row),
+        csg_member_static=(False,) * P,
+        csg_side_static=(),
+        n_classes=P,
+        prim_class_static=tuple(range(P)),
+        prim_pattern_static=tuple(int(i) for i in pat_ids),
+    )

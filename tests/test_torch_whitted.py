@@ -1,0 +1,91 @@
+"""rray_tpu_torch/kernels/whitted.py: the plain version of the CUDA
+kernel against rray_tpu's Pallas kernel (interpret mode, as
+tests/test_wavefront.py runs it), routing, and the launch counter. The
+CUDA kernel itself runs only on the card (chip_smoke.py holds it
+against this plain version there); the compact W=4 glass case is in
+test_torch_whitted_glass.py and the float64 checks against rray_tpu's
+XLA path in test_torch_whitted_xla.py."""
+import os
+
+import numpy as np
+import pytest
+import torch
+
+import torch_parity as tp
+from rray_tpu_torch import api
+from rray_tpu_torch.kernels import whitted
+
+
+def test_example1_depth0_matches_pallas_kernel():
+    jscene, tscene = tp.scenes(tp.EXAMPLE1, "float32")
+    o, d = tp.seeded_rays()
+    port, shape = tp.port_render_rays(tscene, o, d)
+    assert shape == (0, 1)
+    tp.assert_f32_budget(port, tp.jax_kernel_rays(jscene, o, d, *shape))
+
+
+def test_reflection_chain_matches_pallas_kernel():
+    """Glass without transparency: the width-1 reflection chain, depth 5."""
+    jscene, tscene = tp.scenes(tp.GLASS, "float32", reflection_only=True)
+    assert tscene.has_reflective and not tscene.has_transparent
+    o, d = tp.seeded_rays()
+    port, shape = tp.port_render_rays(tscene, o, d)
+    assert shape == (5, 1)
+    tp.assert_f32_budget(port, tp.jax_kernel_rays(jscene, o, d, *shape))
+
+
+def test_cpu_tensors_never_launch_the_kernel():
+    _, tscene = tp.scenes(tp.GLASS, "float32")
+    o, d = tp.seeded_rays(n=64)
+    before = whitted.launches
+    tp.port_render_rays(tscene, o, d)
+    api.render_scene_from_file(tp.GLASS, 8, 6, "", device="cpu")
+    assert whitted.launches == before
+
+
+@pytest.mark.parametrize("name,item", [("area_light.yaml", "B1c"),
+                                       ("csg_showcase.yaml", "B1e")])
+def test_unported_scenes_raise(name, item):
+    path = os.path.join(tp.BASE, "examples", name)
+    with pytest.raises(NotImplementedError, match=item):
+        api.render_scene_from_file(path, 8, 6, "", device="cpu")
+
+
+def test_applicable_gating():
+    for path in (tp.GLASS, tp.EXAMPLE1):
+        assert whitted.applicable(tp.scenes(path, "float32")[1])
+    from rray_tpu_torch.io.yaml_loader import load_scene_file
+    from rray_tpu_torch.scene.data import Shape, compile_scene
+    _, lights, shapes = load_scene_file(tp.GLASS)
+    torus = compile_scene(shapes + [Shape("torus", material=shapes[0].material)],
+                          lights)
+    assert "B1e" in whitted.unsupported(torus)
+    many = compile_scene(shapes * 5, lights)
+    assert len(many.prim_kinds) == 20
+    assert "queue A" in whitted.unsupported(many)
+
+
+def test_int_table_layout():
+    _, tscene = tp.scenes(tp.EXAMPLE1, "float32")
+    _, descrs = whitted.pack_patterns(tscene)
+    ints = whitted.int_table(tscene.prim_kinds, descrs,
+                             tscene.prim_pattern_static, 4)
+    # plane (kind 1) with checker root row 0, sphere (kind 0) with solid
+    # root row 3; checker's children are rows 1 and 2.
+    assert ints == [1, 0, 0, 3, 4, 0, 0, 0, 1, -1, -1, -1, 2, -1, -1, -1]
+
+
+def test_cuda_only_wrapper_checks_run_before_launch():
+    """The wrapper's argument checks need no card: a float64 or wrongly
+    shaped input is refused before any library is loaded."""
+    _, tscene = tp.scenes(tp.EXAMPLE1, "float32")
+    pat, descrs = whitted.pack_patterns(tscene)
+    rays = tuple(torch.zeros(8, dtype=torch.float64) for _ in range(3))
+    args = (whitted.pack_prims(tscene), pat, whitted.pack_lights(tscene),
+            tscene.prim_kinds, descrs, tscene.prim_pattern_static, 0, 1,
+            False, False)
+    with pytest.raises(TypeError, match="float32"):
+        whitted._launch(rays, rays, *args)
+    rays32 = tuple(torch.zeros(8) for _ in range(3))
+    with pytest.raises(ValueError, match="W=3"):
+        whitted._launch(rays32, rays32, *args[:7], 3, False, False)
