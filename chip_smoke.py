@@ -6,16 +6,31 @@ Run from the repository root, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's CUDA kernels from the sources in this checkout,
-holds each kernel against its plain PyTorch version on the card, drives
-the main path (rray_tpu_torch.api.render_scene_from_file, what the CLI
-calls) at 800x600, and times kernel and plain version with CUDA events.
-It prints the card, one line per phase, a JSON line describing the
-kernels, and last a JSON line naming the device. Any failure exits
-non-zero before the last line; without CUDA it exits 1 at once.
+holds each kernel against its plain PyTorch version on the card at the
+shapes the main path gives it, drives the main path
+(rray_tpu_torch.api.render_scene_from_file, what the CLI calls) at
+800x600 over the example scenes and four mesh scenes, and times kernels
+and plain versions (CUDA events; each kernel's own device time with
+torch.profiler). It prints the card, one line per
+phase, a JSON line describing the kernels, and last a JSON line naming
+the device. Any failure exits non-zero before the last line; without
+CUDA it exits 1 at once.
+
+The mesh scenes are written as YAML + OBJ into a temporary directory
+(UV spheres, as benchmarks/bench_mesh.py makes them; the camera, light
+and checker floor of rray_tpu's mesh benchmark cells):
+
+    mesh4   one 220-triangle sphere             whitted kernel, depth 0
+    mesh4r  the same over a reflective floor    whitted kernel, depth 5
+    mesh9   nine 60-triangle spheres, 9 colours fast node: triangle kernels
+    mesh4b  one 3120-triangle sphere            fast node: BVH kernel
 """
 from __future__ import annotations
 
+import contextlib
+import functools
 import json
+import math
 import os
 import subprocess
 import sys
@@ -24,16 +39,40 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 800, 600
-SCENES = (("glass", "examples/glass.yaml"),
-          ("example1", "examples/example1.yaml"))
-# Kernel vs plain version, float32 on the card: at most this fraction of
-# pixels may differ by more than PIX_TOL in some channel (rsqrtf/powf
-# ulps can flip a shadow or n1/n2 boundary decision), and no pixel by
-# more than MAX_TOL (one u8 step).
+DEVICE = "cuda"
+EXAMPLES = (("glass", "examples/glass.yaml"),
+            ("example1", "examples/example1.yaml"))
+# Whole images, kernel vs plain version in float32 on the card: at most
+# this fraction of pixels may differ by more than PIX_TOL in some
+# channel (rsqrtf/powf ulps can flip a shadow or n1/n2 boundary
+# decision), and no pixel by more than MAX_TOL (one u8 step).
 PIX_TOL = 1e-4
 FRAC_TOL = 1e-3
 MAX_TOL = 1.0 / 255.0
-KERNEL_REPS, PLAIN_REPS = 20, 3
+# Triangle kernels vs plain versions: the same winning triangle on at
+# least IDX_SHARE of the rays (a box cull flipped by a rounding at a box
+# face may drop a grazing hit); where the winner agrees, t, u, v within
+# HIT_TOL * max(1, |t|), the normal within HIT_TOL * max(1, |n|) and the
+# aux payload (prim id, shade class) equal; any-hit flags equal on at
+# least ANY_SHARE.
+IDX_SHARE = 0.999
+HIT_TOL = 1e-5
+ANY_SHARE = 0.9999
+# Timing windows: at least this much device time per window, in turns
+# plain, kernel, kernel, plain.
+WINDOW_MS = 200.0
+# The card's peaks for the least-time bound (NVIDIA's H100 SXM data
+# sheet): HBM bandwidth and FP32 rate outside the tensor cores.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_FLOP_PER_S = 67e12
+# Float operations per test, counted from the device code: a ray-prim
+# slot test is the world->object affine of origin and direction (36)
+# plus the slot form (~24, sphere/plane); a shadow occlusion test the
+# same affine plus ~20; a ray-triangle test is Moller-Trumbore (~50:
+# 9+5 cross/det, 1 div, 3+6 u, 9+6 q/v, 6 t, ~11 compares and sums).
+OPS_PRIM, OPS_OCCLUDE, OPS_TRI = 60, 56, 50
+# Rays per step of the least-work count ([RAY_STEP, T] temporaries).
+RAY_STEP = 8192
 
 
 def fail(msg: str):
@@ -41,44 +80,190 @@ def fail(msg: str):
     sys.exit(1)
 
 
-def camera_rays(path, torch):
+# ---------------------------------------------------------------------------
+# Mesh scenes (a copy of benchmarks/bench_mesh.py::uv_sphere_obj, so this
+# script imports nothing of rray_tpu).
+# ---------------------------------------------------------------------------
+
+def uv_sphere_obj(n_lat=40, n_lon=40):
+    """OBJ text of a smooth UV sphere (~2 * n_lat * n_lon triangles)."""
+    import numpy as np
+
+    lines = []
+    for i in range(n_lat + 1):
+        theta = np.pi * i / n_lat
+        for j in range(n_lon):
+            phi = 2 * np.pi * j / n_lon
+            x = np.sin(theta) * np.cos(phi)
+            y = np.cos(theta)
+            z = np.sin(theta) * np.sin(phi)
+            lines.append(f"v {x} {y} {z}")
+            lines.append(f"vn {x} {y} {z}")
+
+    def vid(i, j):
+        return i * n_lon + (j % n_lon) + 1
+
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = vid(i, j), vid(i + 1, j)
+            c, d = vid(i + 1, j + 1), vid(i, j + 1)
+            if i > 0:
+                lines.append(f"f {a}//{a} {b}//{b} {d}//{d}")
+            if i < n_lat - 1:
+                lines.append(f"f {b}//{b} {c}//{c} {d}//{d}")
+    return "\n".join(lines)
+
+
+SCENE_HEAD = """camera:
+  fov: 60
+  from: [0, 1.5, -4]
+  to: [0, 0.7, 0]
+  up: [0, 1, 0]
+lights:
+  - type: point
+    position: [-10, 10, -10]
+    color: [1, 1, 1]
+scene:
+  - type: plane
+    material:
+      pattern:
+        type: checker
+        color_a: [1, 1, 1]
+        color_b: [0.2, 0.2, 0.2]
+      specular: 0
+      reflective: {reflective}
+"""
+MESH_ENTRY = """  - type: obj_file
+    obj_file: {obj}
+    transforms:
+      - type: scale
+        amount: [{s}, {s}, {s}]
+      - type: translate
+        amount: [{x}, {y}, {z}]
+    material:
+      pattern:
+        type: solid
+        color: [{r}, {g}, {b}]
+"""
+NINE = [(0.9, 0.2, 0.2), (0.2, 0.9, 0.2), (0.2, 0.2, 0.9), (0.9, 0.9, 0.2),
+        (0.9, 0.2, 0.9), (0.2, 0.9, 0.9), (0.6, 0.4, 0.2), (0.4, 0.2, 0.6),
+        (0.8, 0.8, 0.8)]
+MESH_SCENES = (  # name, (n_lat, n_lon), floor reflective, nine-mesh grid
+    ("mesh4", (11, 11), 0.0, False),
+    ("mesh4r", (11, 11), 0.3, False),
+    ("mesh9", (6, 6), 0.0, True),
+    ("mesh4b", (40, 40), 0.0, False),
+)
+
+
+def write_mesh_scenes(tmp):
+    paths = {}
+    for name, lat_lon, reflective, grid in MESH_SCENES:
+        obj = os.path.join(tmp, f"{name}.obj")
+        with open(obj, "w") as f:
+            f.write(uv_sphere_obj(*lat_lon))
+        text = SCENE_HEAD.format(reflective=reflective)
+        if grid:
+            for k, (r, g, b) in enumerate(NINE):
+                text += MESH_ENTRY.format(obj=obj, s=0.3,
+                                          x=(k % 3 - 1) * 0.9, y=0.5,
+                                          z=(k // 3 - 1) * 0.9, r=r, g=g,
+                                          b=b)
+        else:
+            text += MESH_ENTRY.format(obj=obj, s=1.0, x=0, y=1, z=0, r=0.7,
+                                      g=0.5, b=0.2)
+        paths[name] = os.path.join(tmp, f"{name}.yaml")
+        with open(paths[name], "w") as f:
+            f.write(text)
+    return paths
+
+
+# ---------------------------------------------------------------------------
+# Helpers.
+# ---------------------------------------------------------------------------
+
+def card_state():
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def camera_scene(path, torch):
     from rray_tpu_torch.io.yaml_loader import load_scene_file
     from rray_tpu_torch.render.camera import (Camera, all_rays_soa,
                                               compile_camera)
     from rray_tpu_torch.scene.data import compile_scene
 
-    cam_spec, lights, shapes = load_scene_file(os.path.join(ROOT, path))
-    scene = compile_scene(shapes, lights, dtype=torch.float32, device="cuda")
+    cam_spec, lights, shapes = load_scene_file(path)
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device=DEVICE)
     cam = Camera(WIDTH, HEIGHT, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
-    return scene, all_rays_soa(compile_camera(cam, torch.float32, "cuda"))
+    return scene, all_rays_soa(compile_camera(cam, torch.float32, DEVICE))
 
 
-def kernel_args(scene):
-    from rray_tpu_torch.config import RenderSettings
-    from rray_tpu_torch.kernels import whitted
-
-    pat_tbl, descrs = whitted.pack_patterns(scene)
-    depth, W = whitted.wavefront_shape(scene, RenderSettings())
-    return (whitted.pack_prims(scene), pat_tbl, whitted.pack_lights(scene),
-            scene.prim_kinds, descrs, scene.prim_pattern_static, depth, W,
-            scene.has_reflective, scene.has_transparent)
-
-
-def frame_ms(torch, fn, reps):
-    fn()  # warm-up
+def window_ms(torch, fn):
+    """(mean ms per call over a window of at least WINDOW_MS of device
+    time (CUDA events), the window's call count), after a warm-up call.
+    For a wrapper whose host work outlasts its kernel, this is the
+    call's host time."""
+    fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    fn()
+    stop.record()
+    torch.cuda.synchronize()
+    reps = max(1, math.ceil(WINDOW_MS / max(start.elapsed_time(stop), 1e-3)))
     start.record()
     for _ in range(reps):
         fn()
     stop.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, reps
 
 
-def compare(torch, kernel_rgb, plain_rgb, what):
+def kernel_ms(torch, fn, kernel, reps):
+    """Device time per launch of the CUDA kernel whose name contains
+    `kernel`, over `reps` calls of `fn` (torch.profiler, CUPTI): the
+    kernel alone, without the wrapper's host work and table packing."""
+    fn()
+    torch.cuda.synchronize()
+    activities = [torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total = sum(getattr(e, "self_device_time_total",
+                        getattr(e, "self_cuda_time_total", 0.0))
+                for e in prof.key_averages() if kernel in e.key)
+    if total <= 0:
+        fail(f"the profiler saw no device time for {kernel}")
+    return total / 1e3 / reps
+
+
+def timed_turns(torch, what, kernel, kernel_fn, plain_fn):
+    """Times in turns plain, kernel, kernel, plain -> (kernel device ms
+    per launch, wrapper call ms, plain ms), each the mean of its two
+    turns; prints every turn with the card's SM clock and power limit."""
+    times = {"plain": [], "call": [], "kernel": []}
+    for side in ("plain", "kernel", "kernel", "plain"):
+        if side == "plain":
+            ms, _ = window_ms(torch, plain_fn)
+            times["plain"].append(ms)
+            print(f"time {what} plain: {ms:.5f} ms [{card_state()}]")
+            continue
+        call, reps = window_ms(torch, kernel_fn)
+        ms = kernel_ms(torch, kernel_fn, kernel, reps)
+        times["call"].append(call)
+        times["kernel"].append(ms)
+        print(f"time {what} kernel: {ms:.5f} ms on the device, call "
+              f"{call:.5f} ms ({reps} calls) [{card_state()}]")
+    return tuple(sum(times[k]) / 2 for k in ("kernel", "call", "plain"))
+
+
+def compare_images(torch, kernel_rgb, plain_rgb, what):
     """(max abs difference, fraction of pixels over PIX_TOL)."""
     k = torch.stack(kernel_rgb, -1)
     p = torch.stack(plain_rgb, -1)
@@ -91,7 +276,364 @@ def compare(torch, kernel_rgb, plain_rgb, what):
         fail(f"{what}: kernel vs plain max |diff| {max_abs:.3e}, "
              f"{frac:.3e} of pixels over {PIX_TOL} (limits {MAX_TOL:.3e}, "
              f"{FRAC_TOL})")
-    return max_abs, frac
+    return max_abs
+
+
+def compare_hits(torch, kern, plain, n_aux, what):
+    """Triangle-kernel outputs (t, u, v, idx[, n][, aux]; the last
+    `n_aux` are aux columns) vs the plain version's -> max |diff| over
+    the float outputs where the winner agrees."""
+    same = kern[3] == plain[3]
+    share = float(same.double().mean())
+    first_aux = len(plain) - n_aux
+    worst = 0.0
+    for k, (a, b) in enumerate(zip(kern, plain)):
+        if k == 3:
+            continue
+        both_inf = torch.isinf(a) & torch.isinf(b) & ((a > 0) == (b > 0))
+        d = torch.where(same & ~both_inf, (a - b).abs(), 0.0)
+        scale = plain[0] if k < 3 else b
+        tol = HIT_TOL * torch.clamp_min(scale.abs(), 1.0)
+        tol = torch.where(torch.isfinite(tol), tol, HIT_TOL)
+        if k >= first_aux:
+            tol = torch.zeros_like(tol)
+        if bool((d > tol).any()):
+            fail(f"{what}: output {k} differs by {float(d.max()):.3e} "
+                 f"where the winner agrees (limit "
+                 f"{'0' if k >= first_aux else f'{HIT_TOL} * max(1, |x|)'})")
+        worst = max(worst, float(d.max()))
+    if share < IDX_SHARE:
+        fail(f"{what}: the winning triangle agrees on {share:.6f} of rays "
+             f"(limit {IDX_SHARE})")
+    print(f"parity {what}: winner equal on {share:.6f} of rays, max "
+          f"|kernel - plain| {worst:.3e} where it is")
+    return worst
+
+
+def compare_flags(torch, kern, plain, what):
+    share = float((kern == plain).double().mean())
+    if share < ANY_SHARE:
+        fail(f"{what}: any-hit flags equal on {share:.6f} (limit "
+             f"{ANY_SHARE})")
+    print(f"parity {what}: flags equal on {share:.6f} of rays, "
+          f"{float(plain.double().mean()):.4f} occluded")
+    return float((kern != plain).double().max())
+
+
+def triangle_tests(torch, rays, geom, bound):
+    """Moller-Trumbore tests the function needs at least, counted per
+    triangle, a granularity no kernel chooses: for each ray, every
+    triangle whose own AABB it enters at or before `bound` (its final
+    closest t, or its shadow distance; -inf counts nothing)."""
+    from rray_tpu_torch.kernels import triangles
+
+    boxes = triangles.chunk_boxes(geom[:9], 1)[:, :-1]
+    total = 0
+    for r0 in range(0, rays[0][0].shape[0], RAY_STEP):
+        o = [c[r0:r0 + RAY_STEP, None] for c in rays[0]]
+        d = [c[r0:r0 + RAY_STEP] for c in rays[1]]
+        inv = [(1.0 / torch.where(c.abs() < 1e-30,
+                                  torch.where(c < 0, -1e-30, 1e-30), c))[:, None]
+               for c in d]
+        lo = [(boxes[j][None, :] - o[j]) * inv[j] for j in range(3)]
+        hi = [(boxes[3 + j][None, :] - o[j]) * inv[j] for j in range(3)]
+        tmin = torch.maximum(torch.maximum(torch.minimum(lo[0], hi[0]),
+                                           torch.minimum(lo[1], hi[1])),
+                             torch.minimum(lo[2], hi[2]))
+        tmax = torch.minimum(torch.minimum(torch.maximum(lo[0], hi[0]),
+                                           torch.maximum(lo[1], hi[1])),
+                             torch.maximum(lo[2], hi[2]))
+        enter = ((tmin <= tmax) & (tmax >= 0.0)
+                 & (tmin <= bound[r0:r0 + RAY_STEP, None]))
+        total += int(enter.sum())
+    return total
+
+
+def bound_ms(n_bytes, n_ops):
+    """The least time the card could take: the larger of bytes over its
+    memory rate and operations over its FP32 rate -> (ms, which bounds
+    it, a line giving both terms)."""
+    by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
+    by_ops = n_ops / PEAK_FLOP_PER_S * 1e3
+    return (max(by_bytes, by_ops),
+            "bytes" if by_bytes >= by_ops else "operations",
+            f"bytes {by_bytes:.6f} ms, operations {by_ops:.6f} ms")
+
+
+@contextlib.contextmanager
+def plain_triangle_kernels():
+    """Route the fast node's triangle calls to the plain versions on the
+    card, to render its plain image (kernel calls made meanwhile would
+    not count: none are)."""
+    from rray_tpu_torch.kernels import bvh, triangles
+
+    def plain(fn):
+        return lambda *a, **k: fn(*a, **{key: v for key, v in k.items()
+                                         if key != "leaf"}, chunk=128)
+
+    saved = (triangles.closest_triangle, triangles.any_triangle,
+             bvh.bvh_closest_triangle)
+    triangles.closest_triangle = plain(triangles.closest_triangle_reference)
+    triangles.any_triangle = plain(triangles.any_triangle_reference)
+    bvh.bvh_closest_triangle = plain(bvh.bvh_closest_triangle_reference)
+    try:
+        yield
+    finally:
+        (triangles.closest_triangle, triangles.any_triangle,
+         bvh.bvh_closest_triangle) = saved
+
+
+# ---------------------------------------------------------------------------
+# Phases.
+# ---------------------------------------------------------------------------
+
+def whitted_phase(torch, name, path, results):
+    """The whitted kernel against its plain version on one scene's camera
+    rays; the primary level's tests for the bound."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.kernels import triangles, whitted
+    from rray_tpu_torch.ops import soa
+
+    scene, (ro, rd) = camera_scene(path, torch)
+    rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
+    inputs = whitted.kernel_inputs(scene, RenderSettings())
+    kern = whitted.whitted_compact(*rays, **inputs)
+    plain = whitted.whitted_compact_reference(*rays, **inputs)
+    torch.cuda.synchronize()
+    max_abs = compare_images(torch, kern, plain, name)
+    print(f"parity whitted {name} {WIDTH}x{HEIGHT} (depth {inputs['depth']},"
+          f" W {inputs['W']}, {scene.counts[6]} triangles): max |kernel - "
+          f"plain| {max_abs:.3e}")
+    # Least work, primary level only: every ray tests every analytic
+    # prim; every hit tests every analytic occluder per light; every mesh
+    # triangle whose AABB a ray enters before its closest hit.
+    R, P = ro.x.shape[0], len(inputs["kinds"])
+    t_an = soa.analytic_closest(scene, ro, rd)[0]
+    tests_tri, t_hit = 0, t_an
+    if scene.counts[6]:
+        cols = inputs["tri_tbl"].unbind(1)
+        T = scene.counts[6]
+        geom = tuple(c[:T].contiguous() for c in cols[:9])
+        t_mesh = triangles.closest_triangle(*rays, geom, t_init=t_an)[0]
+        t_hit = torch.minimum(t_an, t_mesh)
+        tests_tri = triangle_tests(torch, rays, geom, t_hit)
+    hits = int(torch.isfinite(t_hit).sum())
+    L = inputs["light_tbl"].shape[0]
+    n_ops = (R * P * OPS_PRIM + hits * L * P * OPS_OCCLUDE
+             + tests_tri * OPS_TRI)
+    n_bytes = 4 * (9 * R + sum(t.numel() for k, t in inputs.items()
+                               if k.endswith("_tbl")))
+    results.setdefault("whitted", {})[name] = dict(
+        rays=rays, inputs=inputs, plain=plain, max_abs=max_abs,
+        bound=bound_ms(n_bytes, n_ops))
+
+
+def triangle_phase(torch, name, path, results):
+    """The fast node's triangle kernel (B2 or B4) against its plain
+    version on the camera rays, closest hit seeded with the analytic
+    hit, with normals and payload as the fast node asks; then shadow
+    any-hit (B3 or B4) from the hit points toward the light."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.kernels import bvh, triangles
+    from rray_tpu_torch.ops import soa
+
+    settings = RenderSettings()
+    scene, (ro, rd) = camera_scene(path, torch)
+    rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
+    T = scene.counts[6]
+    use_bvh = T >= settings.bvh_min_tris
+    t_an = soa.analytic_closest(scene, ro, rd)[0]
+    tri = soa._tri_comps(scene, normals=True)
+    aux = (scene.tri_prim.float(), scene.tri_class.float())
+    if use_bvh:
+        closest = functools.partial(bvh.bvh_closest_triangle, *rays, tri,
+                                    dist=t_an, aux=aux,
+                                    leaf=settings.bvh_leaf)
+        closest_plain = functools.partial(
+            bvh.bvh_closest_triangle_reference, *rays, tri, dist=t_an,
+            aux=aux, chunk=128)
+    else:
+        closest = functools.partial(triangles.closest_triangle, *rays, tri,
+                                    t_init=t_an, aux=aux)
+        closest_plain = functools.partial(
+            triangles.closest_triangle_reference, *rays, tri, t_init=t_an,
+            aux=aux, chunk=128)
+    kern = closest()
+    plain = closest_plain()
+    torch.cuda.synchronize()
+    kname = "bvh_closest_triangle" if use_bvh else "closest_triangle"
+    err = compare_hits(torch, kern, plain, len(aux), f"{kname} {name} closest")
+    R = ro.x.shape[0]
+    t_hit = torch.minimum(t_an, plain[0])
+    tests = triangle_tests(torch, rays, tri, t_hit)
+    # Read: rays 6 + bound 1 per ray, 18 + 2 aux per triangle; written:
+    # t, u, v, idx, normal 3, aux 2 per ray.
+    n_bytes = 4 * (7 * R + 20 * T) + 4 * 9 * R
+    results.setdefault(kname, []).append(dict(
+        what=f"{name} closest", fn=closest, plain_fn=closest_plain,
+        max_abs=err, bound=bound_ms(n_bytes, tests * OPS_TRI)))
+
+    # Shadow rays from just in front of each hit toward the light.
+    light = scene.lights[0].position
+    found = torch.isfinite(t_hit)
+    t_back = torch.where(found, t_hit - 1e-3, 0.0)
+    over = [o + d * t_back for o, d in zip(rays[0], rays[1])]
+    to = [light[j] - over[j] for j in range(3)]
+    dist = torch.sqrt(to[0] * to[0] + to[1] * to[1] + to[2] * to[2])
+    srays = (tuple(over), tuple(c / dist for c in to))
+    geom = tri[:9]
+    if use_bvh:
+        any_k = functools.partial(bvh.bvh_closest_triangle, *srays, geom,
+                                  dist=dist, any_hit=True,
+                                  leaf=settings.bvh_leaf)
+        any_p = functools.partial(bvh.bvh_closest_triangle_reference,
+                                  *srays, geom, dist=dist, any_hit=True,
+                                  chunk=128)
+        flags = lambda out: (out[0] < dist).int()
+        aname = "bvh_closest_triangle"
+    else:
+        any_k = functools.partial(triangles.any_triangle, *srays, geom, dist)
+        any_p = functools.partial(triangles.any_triangle_reference, *srays,
+                                  geom, dist, chunk=128)
+        flags = lambda out: out
+        aname = "any_triangle"
+    kf, pf = flags(any_k()), flags(any_p())
+    torch.cuda.synchronize()
+    err = compare_flags(torch, kf, pf, f"{aname} {name} shadow")
+    # An occluded ray needs one test (its hit), an open one every
+    # triangle whose AABB it enters before the light.
+    occluded = pf != 0
+    tests = triangle_tests(torch, srays, geom,
+                           torch.where(occluded, -math.inf, dist)) \
+        + int(occluded.sum())
+    n_bytes = 4 * (7 * R + 9 * T) + 4 * R
+    results.setdefault(aname, []).append(dict(
+        what=f"{name} shadow", fn=any_k, plain_fn=any_p, max_abs=err,
+        bound=bound_ms(n_bytes, tests * OPS_TRI)))
+
+
+def main_path(torch, np, scene_paths):
+    """The main path as the CLI drives it, counts from zero -> images and
+    the launch counts."""
+    from PIL import Image
+
+    from rray_tpu_torch import api
+    from rray_tpu_torch.kernels import bvh, triangles, whitted
+
+    runs = [("glass", scene_paths["glass"], 1),
+            ("example1", scene_paths["example1"], 1),
+            ("example1", scene_paths["example1"], 2)]
+    runs += [(name, scene_paths[name], 1) for name, *_ in MESH_SCENES]
+    whitted.launches = 0
+    triangles.closest_launches = triangles.any_launches = 0
+    bvh.launches = 0
+    images = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, path, aa in runs:
+            png = os.path.join(tmp, f"{name}_aa{aa}.png")
+            t0 = time.perf_counter()
+            image = api.render_scene_from_file(path, WIDTH, HEIGHT, png,
+                                               aa=aa, device=DEVICE)
+            wall = time.perf_counter() - t0
+            shape = np.asarray(Image.open(png)).shape
+            if shape != (HEIGHT, WIDTH, 4):
+                fail(f"{png}: PNG shape {shape}")
+            if not np.isfinite(image).all():
+                fail(f"{name} aa={aa}: non-finite image")
+            images[(name, aa)] = image
+            print(f"main path {name} {WIDTH}x{HEIGHT} aa={aa}: PNG {shape}, "
+                  f"{wall * 1e3:.1f} ms wall, PNG write included "
+                  f"[{card_state()}]")
+    counts = {"whitted_compact": whitted.launches,
+              "closest_triangle": triangles.closest_launches,
+              "any_triangle": triangles.any_launches,
+              "bvh_closest_triangle": bvh.launches}
+    print(f"main path kernel launches: {json.dumps(counts)}")
+    for kname, n in counts.items():
+        if n < 1:
+            fail(f"the main path launched {kname} {n} times")
+    return images, counts
+
+
+def frame_breakdown(torch, np, name, path, reps=5):
+    """Where a CLI-path frame's wall time goes (host clock, each phase
+    ended by a synchronize; medians of `reps` calls after a warm-up),
+    and the device's busy share of one frame (torch.profiler)."""
+    from rray_tpu_torch import api
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.io.yaml_loader import load_scene_file
+    from rray_tpu_torch.kernels import whitted
+    from rray_tpu_torch.render import canvas, integrator
+    from rray_tpu_torch.render.camera import (Camera, all_rays_soa,
+                                              compile_camera)
+    from rray_tpu_torch.scene.data import compile_scene
+
+    settings = RenderSettings()
+    phases = {}
+
+    def mark(key, t0):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        phases.setdefault(key, []).append((t1 - t0) * 1e3)
+        return t1
+
+    with tempfile.TemporaryDirectory() as tmp:
+        png = os.path.join(tmp, "frame.png")
+        for rep in range(reps + 1):
+            torch.cuda.synchronize()
+            t0 = start = time.perf_counter()
+            cam_spec, lights, shapes = load_scene_file(path)
+            t0 = mark("load_scene_file (YAML, OBJ)", t0)
+            scene = compile_scene(shapes, lights, device=DEVICE)
+            t0 = mark("compile_scene", t0)
+            cam = Camera(WIDTH, HEIGHT, cam_spec["fov"])
+            cam.transform = cam_spec["transform"]
+            ro, rd = all_rays_soa(compile_camera(cam, torch.float32, DEVICE))
+            t0 = mark("camera rays", t0)
+            node = integrator.route(scene)
+            if node == "kernel":
+                inputs = whitted.kernel_inputs(scene, settings)
+                t0 = mark("table packing", t0)
+                rgb = whitted.whitted_compact((ro.x, ro.y, ro.z),
+                                              (rd.x, rd.y, rd.z), **inputs)
+                t0 = mark("whitted kernel call", t0)
+            else:
+                out = integrator.color_at_fast(scene, ro, rd, settings.depth,
+                                               settings)
+                rgb = (out.x, out.y, out.z)
+                t0 = mark("fast node (triangle kernels + torch ops)", t0)
+            image = torch.stack(rgb, -1).reshape(HEIGHT, WIDTH, 3)
+            image = image.cpu().numpy()
+            t0 = mark("image to host", t0)
+            canvas.write_png(png, image)
+            t0 = mark("write_png", t0)
+            mark("frame, by phases", start)
+            t0 = time.perf_counter()
+            api.render_scene_from_file(path, WIDTH, HEIGHT, png,
+                                       device=DEVICE)
+            mark("render_scene_from_file", t0)
+            if rep == 0:  # warm-up
+                phases.clear()
+        activities = [torch.profiler.ProfilerActivity.CPU,
+                      torch.profiler.ProfilerActivity.CUDA]
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            api.render_scene_from_file(path, WIDTH, HEIGHT, png,
+                                       device=DEVICE)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+    device = [(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0)) / 1e3, e.key)
+              for e in prof.key_averages()]
+    busy = sum(ms for ms, _ in device)
+    for key, vals in phases.items():
+        print(f"where the time goes {name} {WIDTH}x{HEIGHT}: {key} "
+              f"{float(np.median(vals)):.3f} ms (median of {len(vals)})")
+    top = ", ".join(f"{key} {ms:.3f} ms" for ms, key in
+                    sorted(device, reverse=True)[:5] if ms > 0)
+    print(f"where the time goes {name}: device busy {busy:.3f} ms of a "
+          f"{wall:.1f} ms profiled frame ({100 * busy / wall:.1f}%); top "
+          f"device time: {top} [{card_state()}]")
 
 
 def main() -> int:
@@ -101,7 +643,6 @@ def main() -> int:
         fail("torch.cuda.is_available() is False")
     sys.path.insert(0, ROOT)
     import numpy as np
-    from PIL import Image
 
     from rray_tpu_torch import api
     from rray_tpu_torch.kernels import build, whitted
@@ -119,78 +660,87 @@ def main() -> int:
     print(f"build: {info['seconds']:.3f} s, cache hit: {info['cache_hit']}, "
           f"{os.path.relpath(info['path'], ROOT)}")
     for line in info["log"].splitlines():
-        if "registers" in line:  # one line per W instantiation
+        if "registers" in line or "stack frame" in line:
             print(f"  {line.strip()}")
 
-    # Kernel against its plain version on the main path's camera rays.
+    tmp = tempfile.TemporaryDirectory()
+    scene_paths = {name: os.path.join(ROOT, path) for name, path in EXAMPLES}
+    scene_paths.update(write_mesh_scenes(tmp.name))
+
     results = {}
-    for name, path in SCENES:
-        scene, (ro, rd) = camera_rays(path, torch)
-        rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
-        args = kernel_args(scene)
-        kern = whitted.whitted_compact(*rays, *args)
-        plain = whitted.whitted_compact_reference(*rays, *args)
-        torch.cuda.synchronize()
-        max_abs, frac = compare(torch, kern, plain, name)
-        print(f"parity {name} {WIDTH}x{HEIGHT} (depth {args[-4]}, "
-              f"W {args[-3]}): max |kernel - plain| {max_abs:.3e}, "
-              f"pixels over {PIX_TOL}: {frac:.3e}")
-        results[name] = dict(rays=rays, args=args, max_abs=max_abs,
-                             plain=plain)
+    for name in ("glass", "example1", "mesh4", "mesh4r"):
+        whitted_phase(torch, name, scene_paths[name], results)
+    for name in ("mesh9", "mesh4b"):
+        triangle_phase(torch, name, scene_paths[name], results)
 
-    # The main path, as the CLI drives it: counts from zero.
-    whitted.launches = 0
-    with tempfile.TemporaryDirectory() as tmp:
-        images = {}
-        for name, path, aa in (("glass", SCENES[0][1], 1),
-                               ("example1", SCENES[1][1], 1),
-                               ("example1", SCENES[1][1], 2)):
-            png = os.path.join(tmp, f"{name}_aa{aa}.png")
-            t0 = time.perf_counter()
-            image = api.render_scene_from_file(
-                os.path.join(ROOT, path), WIDTH, HEIGHT, png, aa=aa,
-                device="cuda")
-            wall = time.perf_counter() - t0
-            shape = np.asarray(Image.open(png)).shape
-            if shape != (HEIGHT, WIDTH, 4):
-                fail(f"{png}: PNG shape {shape}")
-            if not np.isfinite(image).all():
-                fail(f"{name} aa={aa}: non-finite image")
-            images[(name, aa)] = image
-            print(f"main path {name} {WIDTH}x{HEIGHT} aa={aa}: PNG {shape}, "
-                  f"{wall * 1e3:.1f} ms wall, PNG write included [{card}]")
-    launches = whitted.launches
-    print(f"main path kernel launches: {launches}")
-    if launches < 3:
-        fail(f"the main path launched the whitted kernel {launches} times")
-    # The main path's aa=1 frames against the plain version's.
-    for name, _ in SCENES:
-        img = torch.from_numpy(images[(name, 1)]).cuda().reshape(-1, 3)
-        compare(torch, img.unbind(-1), results[name]["plain"],
-                f"main path {name}")
+    images, counts = main_path(torch, np, scene_paths)
+    # Main-path images against the plain versions': the whitted kernel's
+    # scenes against whitted_compact_reference, the fast node's against
+    # the same node with the plain triangle versions.
+    for name in ("glass", "example1", "mesh4", "mesh4r"):
+        img = torch.from_numpy(images[(name, 1)]).to(DEVICE).reshape(-1, 3)
+        compare_images(torch, img.unbind(-1),
+                       results["whitted"][name]["plain"], f"main path {name}")
+    for name in ("mesh9", "mesh4b"):
+        with plain_triangle_kernels():
+            plain = api.render_scene_from_file(scene_paths[name], WIDTH,
+                                               HEIGHT, "", device=DEVICE)
+        diff = compare_images(
+            torch, torch.from_numpy(images[(name, 1)]).to(DEVICE).unbind(-1),
+            torch.from_numpy(plain).to(DEVICE).unbind(-1), f"main path {name}")
+        print(f"parity main path {name}: max |kernels - plain| {diff:.3e}")
+    for name in ("mesh4", "mesh4b"):
+        frame_breakdown(torch, np, name, scene_paths[name])
+    tmp.cleanup()
 
-    # Times on the card, after one warm-up run each.
-    for name, _ in SCENES:
-        rays, args = results[name]["rays"], results[name]["args"]
-        ms = frame_ms(torch, lambda: whitted.whitted_compact(*rays, *args),
-                      KERNEL_REPS)
-        plain_ms = frame_ms(
-            torch, lambda: whitted.whitted_compact_reference(*rays, *args),
-            PLAIN_REPS)
+    # Times on the card, in turns.
+    kernels = []
+    for name, res in results["whitted"].items():
+        fn = functools.partial(whitted.whitted_compact, *res["rays"],
+                               **res["inputs"])
+        plain_fn = functools.partial(whitted.whitted_compact_reference,
+                                     *res["rays"], **res["inputs"])
+        res["ms"], res["call_ms"], res["plain_ms"] = timed_turns(
+            torch, f"whitted_compact {name}", "whitted_kernel", fn, plain_fn)
         n = WIDTH * HEIGHT
-        results[name].update(ms=ms, plain_ms=plain_ms)
-        print(f"time {name} {WIDTH}x{HEIGHT}: kernel {ms:.4f} ms/frame "
-              f"({n / ms * 1e3:.4g} primary rays/s), plain {plain_ms:.4f} "
-              f"ms/frame ({n / plain_ms * 1e3:.4g} primary rays/s) [{card}]")
+        print(f"time whitted_compact {name} {WIDTH}x{HEIGHT}: kernel "
+              f"{res['ms']:.4f} ms/frame ({n / res['ms'] * 1e3:.4g} primary "
+              f"rays/s), call {res['call_ms']:.4f} ms, plain "
+              f"{res['plain_ms']:.4f} ms/frame, bound {res['bound'][0]:.5f} "
+              f"ms ({res['bound'][2]}) [{card}]")
+    device_names = {"closest_triangle": "closest_kernel",
+                    "any_triangle": "any_kernel",
+                    "bvh_closest_triangle": "bvh_kernel"}
+    for kname in ("closest_triangle", "any_triangle", "bvh_closest_triangle"):
+        for res in results[kname]:
+            res["ms"], res["call_ms"], res["plain_ms"] = timed_turns(
+                torch, f"{kname} {res['what']}", device_names[kname],
+                res["fn"], res["plain_fn"])
+            print(f"time {kname} {res['what']} {WIDTH}x{HEIGHT}: kernel "
+                  f"{res['ms']:.5f} ms, call {res['call_ms']:.5f} ms, plain "
+                  f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.5f} ms "
+                  f"({res['bound'][2]}) [{card}]")
 
-    glass = results["glass"]
-    print(json.dumps({"kernels": [{
-        "name": "whitted_compact", "route": "cuda",
-        "source": "rray_tpu_torch/kernels/csrc/whitted.cu",
-        "replaces": "rray_tpu/kernels/whitted.py:1464",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs"] for r in results.values()),
-        "ms": glass["ms"], "plain_ms": glass["plain_ms"]}]}))
+    sources = {"whitted_compact": ("whitted.cu", "whitted.py:1464"),
+               "closest_triangle": ("triangles.cu", "triangles.py:385"),
+               "any_triangle": ("triangles.cu", "triangles.py:320"),
+               "bvh_closest_triangle": ("bvh.cu", "bvh.py:558")}
+    for kname, (src, tpu) in sources.items():
+        if kname == "whitted_compact":
+            res = results["whitted"]["glass"]
+            err = max(r["max_abs"] for r in results["whitted"].values())
+        else:
+            res = results[kname][0]
+            err = max(r["max_abs"] for r in results[kname])
+        kernels.append({
+            "name": kname, "route": "cuda",
+            "source": f"rray_tpu_torch/kernels/csrc/{src}",
+            "replaces": f"rray_tpu/kernels/{tpu}",
+            "launches": counts[kname], "max_abs_err": err,
+            "ms": res["ms"], "plain_ms": res["plain_ms"],
+            "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+            "library_ms": None})
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -3,7 +3,8 @@
 Mirrors the reference's single global constant EPSILON = 1e-5
 (reference src/main.rs:10). There is no kernel switch: the device of the
 tensors decides. CUDA tensors run the hand-written kernels, CPU tensors
-their plain PyTorch versions.
+their plain PyTorch versions. The mesh settings are rray_tpu's
+(rray_tpu/config.py bvh_min_tris, bvh_leaf).
 """
 from __future__ import annotations
 
@@ -43,6 +44,11 @@ class RenderSettings:
 
     # Recursion depth for reflection/refraction (camera.rs:113 hardcodes 5).
     depth: int = 5
+    # Meshes with at least this many triangles take the BVH kernel on the
+    # fast node; smaller ones the linear chunk kernels.
+    bvh_min_tris: int = 1024
+    # BVH leaf size (triangles per leaf; auto_leaf may raise it).
+    bvh_leaf: int = 128
     # Compact-wavefront capacity: max live paths PER PIXEL per depth
     # level when both reflection and refraction spawn; a pixel holding
     # more nonzero-weight paths drops the lowest-weight ones. 2^depth

@@ -2,40 +2,52 @@
 
 The reference's host runtime is native Rust (tobj, the `image` crate);
 ours is C++ behind a C ABI: single-pass OBJ parsing to flat arrays, PNG
-encoding, and the canvas quantization cast. The library is compiled on
-demand with g++ and cached next to the sources; every caller has a pure-
-Python fallback, so a missing toolchain only costs speed.
+encoding, and the canvas quantization cast. The port compiles its own
+copy of the shared source with g++ at first use, into the build
+directory of its CUDA kernels (`build/rray_tpu_torch/`, named by a hash
+of the source and flags); it never writes into `native/`. Every caller
+has a pure-Python fallback, so a missing toolchain only costs speed.
 """
 from __future__ import annotations
 
 import ctypes
+import hashlib
 import os
 import subprocess
 import threading
 
 import numpy as np
 
+from ..kernels.build import BUILD_DIR
+
 _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
 
-_SRC_DIR = os.path.join(os.path.dirname(os.path.dirname(
-    os.path.dirname(os.path.abspath(__file__)))), "native")
-_SRC = os.path.join(_SRC_DIR, "rray_host.cpp")
-_SO = os.path.join(_SRC_DIR, "librray_host.so")
+_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__)))), "native", "rray_host.cpp")
+_FLAGS = ("-O2", "-shared", "-fPIC")
+
+
+def library_path() -> str:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    with open(_SRC, "rb") as f:
+        h.update(f.read())
+    return os.path.join(BUILD_DIR, f"librray_host_{h.hexdigest()[:16]}.so")
 
 
 def _build() -> str:
-    if os.path.exists(_SO) and os.path.getmtime(_SO) >= os.path.getmtime(_SRC):
-        return _SO
-    # Build beside the target and rename: rray_tpu shares this library,
-    # and a process loading it must never see a half-written file.
-    tmp = f"{_SO}.{os.getpid()}.tmp"
-    subprocess.run(
-        ["g++", "-O2", "-shared", "-fPIC", "-o", tmp, _SRC, "-lz"],
-        check=True, capture_output=True)
-    os.replace(tmp, _SO)
-    return _SO
+    so = library_path()
+    if os.path.exists(so):
+        return so
+    # Build beside the target and rename: a process loading the library
+    # must never see a half-written file.
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    tmp = f"{so}.{os.getpid()}.tmp"
+    subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC, "-lz"], check=True,
+                   capture_output=True)
+    os.replace(tmp, so)
+    return so
 
 
 def get_lib():

@@ -2,10 +2,12 @@
 
 The kernels are compiled by `nvcc` into one shared library with a plain
 C interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds, not minutes). The library lands in `build/rray_tpu_torch/` at
-the repository root, named by a hash of the sources and flags, so a
-changed source rebuilds and an unchanged one loads the cached file.
-Nothing is downloaded and no package of finished kernels is used.
+seconds, not minutes). Each .cu file compiles to an object in its own
+`nvcc` process, all started together, and one more `nvcc` links them.
+The library lands in `build/rray_tpu_torch/` at the repository root,
+named by a hash of the sources and flags, so a changed source rebuilds
+and an unchanged one loads the cached file. Nothing is downloaded and no
+package of finished kernels is used.
 
 Flags: sm_90a (Hopper), -O3, and --fmad=false so that the kernels round
 every product and sum separately, as their plain PyTorch versions do.
@@ -23,12 +25,13 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-_SOURCES = ("whitted.cu", "whitted_device.cuh")
+_UNITS = ("whitted.cu", "triangles.cu", "bvh.cu")
+_SOURCES = _UNITS + ("vec_device.cuh", "mesh_device.cuh",
+                     "whitted_device.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "rray_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-Xptxas", "-v", "-Xcompiler", "-fPIC")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -54,15 +57,39 @@ def library_path() -> str:
 
 
 def _compile(path: str) -> str:
+    """Compile every unit in parallel, link, and return nvcc's output."""
     os.makedirs(os.path.dirname(path), exist_ok=True)
-    tmp = f"{path}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp, os.path.join(_CSRC, "whitted.cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, path)
-    return proc.stdout + proc.stderr
+    tmp = f"{path}.{os.getpid()}"
+    nvcc = _nvcc()
+    jobs = []
+    for unit in _UNITS:
+        obj = f"{tmp}.{unit}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(_CSRC, unit)]
+        jobs.append((cmd, obj, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+    log, failed = [], []
+    for cmd, _, proc in jobs:
+        out = proc.communicate()[0]
+        log.append(out)
+        if proc.returncode != 0:
+            failed.append(f"{' '.join(cmd)}\n{out}")
+    objs = [obj for _, obj, _ in jobs]
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", f"{tmp}.so", *objs]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}"
+                               f"{proc.stderr}")
+        os.replace(f"{tmp}.so", path)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(log)
 
 
 def load_library():
@@ -81,8 +108,19 @@ def load_library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.whitted_compact_launch.restype = i32
         lib.whitted_compact_launch.argtypes = (
-            [ptr] * 9 + [ptr, i32, ptr, i32, ptr, i32, ptr]
-            + [i32] * 5 + [ptr])
+            [ptr] * 9 + [ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, i32,
+                         ptr, i32] + [i32] * 5 + [ptr])
+        lib.closest_triangle_launch.restype = i32
+        lib.closest_triangle_launch.argtypes = (
+            [ptr] * 7 + [ptr, i32, i32, ptr] + [i32] * 4 + [ptr, ptr, i32,
+                                                          ptr])
+        lib.any_triangle_launch.restype = i32
+        lib.any_triangle_launch.argtypes = (
+            [ptr] * 7 + [ptr, i32, i32, ptr, i32, i32, ptr, i32, ptr])
+        lib.bvh_closest_launch.restype = i32
+        lib.bvh_closest_launch.argtypes = (
+            [ptr] * 7 + [ptr, i32, i32, ptr, ptr] + [i32] * 6
+            + [ptr, ptr, i32, ptr])
         lib.whitted_error_string.restype = ctypes.c_char_p
         lib.whitted_error_string.argtypes = [i32]
         _LIB = lib
@@ -91,3 +129,41 @@ def load_library():
 
 def error_string(code: int) -> str:
     return load_library().whitted_error_string(code).decode()
+
+
+def ptr(t):
+    """A tensor's device pointer for ctypes (None: a null pointer)."""
+    return ctypes.c_void_p(None if t is None else t.data_ptr())
+
+
+def stream(device):
+    """PyTorch's current CUDA stream on `device`, for ctypes."""
+    import torch
+
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def check_arg(name, t, shape, device, dtype=None):
+    """Refuse what a kernel does not take: another device, a dtype other
+    than `dtype` (float32 by default), another shape, a strided tensor."""
+    import torch
+
+    dtype = dtype or torch.float32
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} is {t.dtype}; the CUDA kernel takes "
+                        f"{dtype} only")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
+                         f"{tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} is not contiguous")
+
+
+def check_launch(kernel: str, rc: int):
+    """Raise if a C entry point returned a CUDA error (a refused launch
+    never runs, and a later synchronize would not report it)."""
+    if rc != 0:
+        raise RuntimeError(f"{kernel} kernel launch failed: CUDA error {rc} "
+                           f"({error_string(rc)})")

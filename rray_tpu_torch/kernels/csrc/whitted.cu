@@ -1,23 +1,31 @@
 // CUDA port of the Pallas TPU kernel
 //   rray_tpu/kernels/whitted.py::whitted_compact
 // (pallas_call body `_kernel`, node `_node_row`): the whole compact
-// Whitted wavefront for analytic sphere/plane/cube/cylinder/cone scenes
-// with point lights and cheap pattern trees (stages a and b of the TPU
-// kernel; area lights, meshes, CSG/torus/noise/texture are later work).
+// Whitted wavefront for scenes of analytic sphere/plane/cube/cylinder/cone
+// prims and opaque triangle meshes of at most 1024 triangles, with point
+// lights and cheap pattern trees (stages a, b and d of the TPU kernel;
+// area lights and CSG/torus/noise/texture are later work).
 //
 // What bounds it on an H100: compute and divergence, not memory. A ray
 // reads 24 B (origin, direction) and writes 12 B (RGB), and then runs
-// hundreds to thousands of scalar float ops whose branches (which prim
-// was hit, whether a path row is alive, shadowed or not) differ between
-// neighbouring threads. The design answers that simply:
+// hundreds to thousands of scalar float ops per node (tens of thousands
+// with a mesh: ~50 per triangle tested) whose branches (which prim was
+// hit, whether a path row is alive, shadowed or not, which mesh chunks
+// the ray enters) differ between neighbouring threads. The design
+// answers that simply:
 //   * one thread per primary ray: the TPU kernel's (8, 512) VMEM
 //     blocking and block-level pl.when skips become a per-thread loop
-//     that skips dead path rows (weight exactly 0), which gives the same
+//     that skips dead path rows (weight exactly 0) and mesh chunks the
+//     ray itself does not enter before its best t, which gives the same
 //     output;
-//   * the small scene tables (prims [P<=16, 32], pattern nodes [N, 17],
-//     lights [L, 15], and the int tables that replace the TPU kernel's
-//     trace-time statics: prim kinds, pattern roots, pattern node types
-//     and children) are staged into shared memory once per block;
+//   * the small scene tables (prims and one row per mesh material group
+//     [P + G <= 24, 32], pattern nodes [N, 17], lights [L, 15], and the
+//     int tables that replace the TPU kernel's trace-time statics: prim
+//     kinds, pattern roots, pattern node types and children) are staged
+//     into shared memory once per block; the mesh table ([<= 1032, 19]
+//     rows, 78 KB, more than the 48 KB of static shared memory) and its
+//     chunk boxes stay in global memory behind the read-only cache, where
+//     the threads of a warp that test the same triangle read one row;
 //   * the path state (W rows x 7 floats, 2W children) lives in the
 //     thread's registers/local memory for all depth+1 levels; W is a
 //     template parameter (1, 2, 4, 8, 16, 32);
@@ -48,16 +56,19 @@ __global__ void whitted_kernel(const float* __restrict__ rox,
                                float* __restrict__ out_r,
                                float* __restrict__ out_g,
                                float* __restrict__ out_b,
-                               const float* __restrict__ prims, int P,
+                               const float* __restrict__ prims, int P, int G,
                                const float* __restrict__ pats, int N,
                                const float* __restrict__ lights, int L,
-                               const int* __restrict__ ints, int R,
-                               int depth, bool has_refl, bool has_refr) {
+                               const int* __restrict__ ints,
+                               const float* __restrict__ tris, int T,
+                               const float* __restrict__ tboxes, int n_chunks,
+                               int R, int depth, bool has_refl,
+                               bool has_refr) {
   extern __shared__ float smem[];
-  const int n_prim = P * rray::P_COLS;
+  const int n_prim = (P + G) * rray::P_COLS;
   const int n_pat = N * rray::PAT_COLS;
   const int n_light = L * rray::L_COLS;
-  const int n_int = 2 * P + 3 * N;
+  const int n_int = 2 * P + G + 3 * N;
   float* s_prims = smem;
   float* s_pats = s_prims + n_prim;
   float* s_lights = s_pats + n_pat;
@@ -70,17 +81,21 @@ __global__ void whitted_kernel(const float* __restrict__ rox,
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= R) return;
-  SceneView s;
+  rray::SceneView s;
   s.prims = s_prims;
   s.pats = s_pats;
   s.lights = s_lights;
   s.kinds = s_ints;
   s.roots = s_ints + P;
-  s.ptype = s_ints + 2 * P;
+  s.ptype = s_ints + 2 * P + G;
   s.pa = s.ptype + N;
   s.pb = s.pa + N;
+  s.tris = tris;
+  s.tboxes = tboxes;
   s.P = P;
   s.L = L;
+  s.T = T;
+  s.n_chunks = n_chunks;
   float rgb[3];
   rray::trace_ray<W>(s, rray::v3(rox[i], roy[i], roz[i]),
                      rray::v3(rdx[i], rdy[i], rdz[i]), depth, has_refl,
@@ -96,22 +111,26 @@ constexpr int kThreads = 128;
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). All pointers are device pointers; `ints` holds kinds[P],
-// pattern roots[P], node types[N], child a rows[N], child b rows[N].
+// pattern roots[P + G], node types[N], child a rows[N], child b rows[N];
+// `tris`/`tboxes` may be null when T = 0 (no mesh).
 extern "C" int whitted_compact_launch(
     const float* rox, const float* roy, const float* roz, const float* rdx,
     const float* rdy, const float* rdz, float* out_r, float* out_g,
-    float* out_b, const float* prims, int P, const float* pats, int N,
-    const float* lights, int L, const int* ints, int R, int depth, int W,
-    int has_refl, int has_refr, void* stream) {
+    float* out_b, const float* prims, int P, int G, const float* pats, int N,
+    const float* lights, int L, const int* ints, const float* tris, int T,
+    const float* tboxes, int n_chunks, int R, int depth, int W, int has_refl,
+    int has_refr, void* stream) {
   if (R <= 0) return 0;
-  const size_t smem = sizeof(float) * (P * rray::P_COLS + N * rray::PAT_COLS +
-                                       L * rray::L_COLS + 2 * P + 3 * N);
+  const size_t smem =
+      sizeof(float) * ((P + G) * rray::P_COLS + N * rray::PAT_COLS +
+                       L * rray::L_COLS + 2 * P + G + 3 * N);
   const dim3 grid((R + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RRAY_LAUNCH(w)                                                       \
   whitted_kernel<w><<<grid, kThreads, smem, s>>>(                            \
-      rox, roy, roz, rdx, rdy, rdz, out_r, out_g, out_b, prims, P, pats, N,  \
-      lights, L, ints, R, depth, has_refl != 0, has_refr != 0)
+      rox, roy, roz, rdx, rdy, rdz, out_r, out_g, out_b, prims, P, G, pats,  \
+      N, lights, L, ints, tris, T, tboxes, n_chunks, R, depth,               \
+      has_refl != 0, has_refr != 0)
   switch (W) {
     case 1: RRAY_LAUNCH(1); break;
     case 2: RRAY_LAUNCH(2); break;

@@ -8,20 +8,20 @@
 // every product and sum rounds where the plain version's does, so the
 // two agree bit for bit except where rsqrtf/powf differ by an ulp.
 //
-// The header needs only the C math functions and two function-qualifier
-// macros, RRAY_DEVICE (inlined) and RRAY_NOINLINE, so it also compiles as
+// Like vec_device.cuh and mesh_device.cuh, the header also compiles as
 // host C++ (tests/test_torch_whitted_cuh.py).
 #pragma once
 
-#include <math.h>
+#include "mesh_device.cuh"
 
 namespace rray {
 
 constexpr int P_COLS = 32;    // prim row: see kernels/whitted.py P_COLS
 constexpr int PAT_COLS = 17;  // pattern node row
 constexpr int L_COLS = 15;    // light row
+constexpr int T_COLS = 19;    // mesh row: p1 e1 e2 n1 n2 n3, group id
+constexpr int MESH_CHUNK = 24;
 constexpr int MAX_PATTERN_DEPTH = 8;
-constexpr float EPSILON = 1e-5f;
 constexpr float EPS_OFF = 1e-3f;  // f32 over/under offset
 constexpr float TOL = 1e-4f;      // f32 n1/n2 hit-match tolerance
 
@@ -30,29 +30,18 @@ enum PType { SOLID = 0, STRIPE = 1, GRADIENT = 2, RING = 3, CHECKER = 4,
              BLEND = 5 };
 
 struct SceneView {
-  const float* prims;   // [P, P_COLS]
+  const float* prims;   // [P + G, P_COLS]: analytic prims, then groups
   const float* pats;    // [N, PAT_COLS]
   const float* lights;  // [L, L_COLS]
   const int* kinds;     // [P] Kind
-  const int* roots;     // [P] pattern root row of each prim
+  const int* roots;     // [P + G] pattern root row of each prim row
   const int* ptype;     // [N] PType
   const int* pa;        // [N] child a row (-1: none)
   const int* pb;        // [N] child b row
-  int P, L;
+  const float* tris;    // [T, T_COLS] mesh rows (T = 0: no mesh)
+  const float* tboxes;  // [6, n_chunks + 1] chunk boxes, then the whole
+  int P, L, T, n_chunks;
 };
-
-struct V3 { float x, y, z; };
-
-RRAY_DEVICE V3 v3(float x, float y, float z) { V3 r = {x, y, z}; return r; }
-RRAY_DEVICE V3 add(V3 a, V3 b) { return v3(a.x + b.x, a.y + b.y, a.z + b.z); }
-RRAY_DEVICE V3 sub(V3 a, V3 b) { return v3(a.x - b.x, a.y - b.y, a.z - b.z); }
-RRAY_DEVICE V3 neg(V3 a) { return v3(-a.x, -a.y, -a.z); }
-RRAY_DEVICE V3 scale(V3 a, float s) { return v3(a.x * s, a.y * s, a.z * s); }
-RRAY_DEVICE float dot(V3 a, V3 b) { return a.x * b.x + a.y * b.y + a.z * b.z; }
-RRAY_DEVICE V3 normalize(V3 a) {
-  return scale(a, rsqrtf(fmaxf(dot(a, a), 1e-18f)));
-}
-RRAY_DEVICE V3 reflect(V3 v, V3 n) { return sub(v, scale(n, 2.0f * dot(v, n))); }
 
 RRAY_DEVICE V3 affine_pt(const float* p, V3 v) {
   return v3(p[0] * v.x + p[1] * v.y + p[2] * v.z + p[3],
@@ -337,6 +326,20 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
       win = i;
     }
   }
+  // The mesh fold after the analytic prims, bounded by their best t
+  // (rray_tpu _mesh_closest): a mesh winner takes its group's prim row
+  // and carries the interpolated vertex normal.
+  V3 mesh_n = v3(0.0f, 0.0f, 0.0f);
+  if (s.T > 0) {
+    TriHit m = closest_chunks(s.tris, T_COLS, s.T, s.tboxes, s.n_chunks,
+                              MESH_CHUNK, o, d, best_t);
+    if (m.t < best_t) {
+      const float* g = s.tris + (size_t)m.idx * T_COLS;
+      best_t = m.t;
+      win = s.P + (int)g[18];
+      mesh_n = hit_normal(g, m.u, m.v);
+    }
+  }
   Node out;
   if (win < 0) {  // miss: no light, dead children
     V3 z = v3(0.0f, 0.0f, 0.0f);
@@ -351,7 +354,9 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
   V3 point = add(o, scale(d, best_t));
   V3 eyev = neg(d);
   V3 normalv = normalize(
-      nmat_vec(pw, local_normal(s.kinds[win], pw, affine_pt(pw, point))));
+      win >= s.P ? mesh_n
+                 : nmat_vec(pw, local_normal(s.kinds[win], pw,
+                                             affine_pt(pw, point))));
   bool inside = dot(normalv, eyev) < 0.0f;
   normalv = scale(normalv, inside ? -1.0f : 1.0f);
   V3 over = add(point, scale(normalv, EPS_OFF));
@@ -406,6 +411,9 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
     bool occ = false;
     for (int j = 0; j < s.P && !occ; ++j)
       occ = occludes(s.kinds[j], s.prims + j * P_COLS, over, dir, dist);
+    if (!occ && s.T > 0)
+      occ = any_chunks(s.tris, T_COLS, s.T, s.tboxes, s.n_chunks, MESH_CHUNK,
+                       over, dir, dist);
     float unshadow = 1.0f - (occ ? 1.0f : 0.0f);
     V3 effective = v3(base.x * L[3], base.y * L[4], base.z * L[5]);
     V3 lightv = normalize(v3(L[0] - over.x, L[1] - over.y, L[2] - over.z));

@@ -4,11 +4,14 @@ plain PyTorch version, and the wrapper that picks between them.
 This is the port of rray_tpu's Pallas kernel
 `rray_tpu/kernels/whitted.py::whitted_compact` (body `_kernel`, node
 `_node_row`), stages a (core: analytic prims, point lights, cheap
-patterns, depth 0 and the width-1 reflection/refraction chain) and b
+patterns, depth 0 and the width-1 reflection/refraction chain), b
 (compact wavefront: W path rows per pixel, 2W children, stable top-W by
-weight). The CUDA source is kernels/csrc/whitted.cu: one thread runs one
-primary ray's whole tree with its path state in registers and local
-memory, the scene tables staged in shared memory.
+weight) and d (the in-kernel mesh: up to 1024 triangles folded after
+the analytic prims, for closest hits and shadows, with materials and
+patterns per material group). The CUDA source is kernels/csrc/whitted.cu:
+one thread runs one primary ray's whole tree with its path state in
+registers and local memory, the small scene tables staged in shared
+memory and the triangle table read from global memory.
 
 `whitted_compact` takes the tensors' device as the switch: CPU tensors
 run `whitted_compact_reference` (the plain version), CUDA tensors launch
@@ -18,14 +21,13 @@ XLA path, while the kernel is float32 only, as the TPU kernel is.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from ..config import EPSILON, hit_match_tol, offset_eps
 from ..ops import soa
 from ..ops.vec import V3
 from ..scene import data as sd
+from . import triangles
 from .analytic import OCCLUSION_KINDS, _occludes
 
 CHEAP_PATTERNS = ("solid", "stripe", "gradient", "ring", "checker", "blend")
@@ -40,17 +42,26 @@ MAX_PRIMS = 16
 MAX_PATTERN_ROWS = 256
 MAX_LIGHTS = 64
 MAX_PATTERN_DEPTH = 8
+# The in-kernel mesh (rray_tpu whitted.py:297-307): at most 1024
+# triangles, culled in Morton-ordered chunks of 24, at most 8 (shade
+# class, pattern) material groups. Triangle rows: p1 e1 e2 (0-8), vertex
+# normals n1 n2 n3 (9-17), material group id (18).
+MESH_MAX_TRIS = 1024
+MESH_CHUNK = 24
+MAX_GROUPS = 8
+T_COLS = 19
 
 # Kernel launches made by `whitted_compact` in this process (CPU calls,
 # which run the plain version, do not count).
 launches = 0
 
 
-def _tree_cheap(node) -> bool:
+def tree_cheap(node) -> bool:
+    """Does this pattern tree hold only cheap pattern nodes?"""
     if node is None:
         return True
-    return node.ptype in CHEAP_PATTERNS and _tree_cheap(node.a) \
-        and _tree_cheap(node.b)
+    return node.ptype in CHEAP_PATTERNS and tree_cheap(node.a) \
+        and tree_cheap(node.b)
 
 
 def _tree_depth(node) -> int:
@@ -65,37 +76,51 @@ def _tree_rows(node) -> int:
     return 1 + _tree_rows(node.a) + _tree_rows(node.b)
 
 
-def unsupported(scene) -> str | None:
-    """Why this scene cannot run as the kernel, naming the ROADMAP item
-    that will carry it — or None when it can."""
-    kinds = scene.prim_kinds
+def unported(scene) -> str | None:
+    """Why neither the kernel nor the torch fast node renders this scene
+    yet, naming the ROADMAP item that will carry it — or None."""
     if scene.csg_ops:
         return "CSG scenes: ROADMAP B1e"
-    if scene.counts[6]:
-        return "triangle meshes: ROADMAP B1d, then B2-B4"
-    if sd.TORUS in kinds:
+    if sd.TORUS in scene.prim_kinds:
         return "tori: ROADMAP B1e"
-    if not kinds:
-        return "scenes without primitives: ROADMAP queue A 6 (torch node)"
-    if len(kinds) > MAX_PRIMS:
-        return (f"more than {MAX_PRIMS} primitives: ROADMAP queue A 6-10 "
-                "(torch fallback node)")
     if any(light.kind != "point" for light in scene.lights):
-        return "area lights: ROADMAP B1c"
-    if len(scene.lights) > MAX_LIGHTS:
-        return f"more than {MAX_LIGHTS} lights: ROADMAP queue A 6"
-    if not all(_tree_cheap(p) for p in scene.patterns):
+        return "area lights: ROADMAP B1c and B5"
+    if not all(tree_cheap(p) for p in scene.patterns):
         return "noise, perturbed and image patterns: ROADMAP B1e"
+    return None
+
+
+def unsupported(scene) -> str | None:
+    """Why the kernel cannot run this scene — or None when it can. The
+    gate is rray_tpu's applicable() for the stages ported so far."""
+    reason = unported(scene)
+    if reason is not None:
+        return reason
+    kinds = scene.prim_kinds
+    T = scene.counts[6]
+    if not kinds:
+        return "scenes without primitives"
+    if T > MESH_MAX_TRIS:
+        return f"meshes of more than {MESH_MAX_TRIS} triangles"
+    if T and scene.has_transparent:
+        return "transparent scenes with meshes"
+    if T and len(_tri_groups(scene)[1]) > MAX_GROUPS:
+        return f"meshes of more than {MAX_GROUPS} material groups"
+    if sum(k != sd.TRIANGLE for k in kinds) > MAX_PRIMS:
+        return f"more than {MAX_PRIMS} analytic primitives"
+    if len(scene.lights) > MAX_LIGHTS:
+        return f"more than {MAX_LIGHTS} lights"
     if any(_tree_depth(p) > MAX_PATTERN_DEPTH for p in scene.patterns) \
             or sum(_tree_rows(p) for p in scene.patterns) > MAX_PATTERN_ROWS:
-        return "pattern trees past the kernel's table bounds: ROADMAP queue A 6"
+        return "pattern trees past the kernel's table bounds"
     return None
 
 
 def applicable(scene) -> bool:
     """Can this scene's Whitted evaluation run as the kernel? Analytic
-    sphere/plane/cube/cylinder/cone prims (at most 16), point lights and
-    cheap pattern trees."""
+    sphere/plane/cube/cylinder/cone prims (at most 16), opaque meshes of
+    at most 1024 triangles in at most 8 material groups, point lights
+    and cheap pattern trees."""
     return unsupported(scene) is None
 
 
@@ -127,8 +152,33 @@ PAT_COLS = 17
 L_COLS = 15
 
 
+def _tri_groups(scene):
+    """Static (shade class, pattern) grouping of the triangle prims ->
+    (per-prim group id list, representative prim id per group)."""
+    prim_gid = [0] * len(scene.prim_kinds)
+    key_to_gid = {}
+    reps = []
+    for i, k in enumerate(scene.prim_kinds):
+        if k != sd.TRIANGLE:
+            continue
+        key = (scene.prim_class_static[i], scene.prim_pattern_static[i])
+        if key not in key_to_gid:
+            key_to_gid[key] = len(reps)
+            reps.append(i)
+        prim_gid[i] = key_to_gid[key]
+    return prim_gid, tuple(reps)
+
+
+def prim_rows(scene):
+    """Prim ids of the kernel's prim-table rows: the analytic prims, then
+    one representative triangle per material group (row P + g holds
+    group g's material and pattern; no row per triangle)."""
+    analytic = [i for i, k in enumerate(scene.prim_kinds) if k != sd.TRIANGLE]
+    return analytic + list(_tri_groups(scene)[1])
+
+
 def pack_prims(scene, dtype=None):
-    """[P, 32] prim table from the class shade table."""
+    """[P + G, 32] prim table from the class shade table."""
     tbl = scene.cls_table.to(dtype or scene.dtype)
     cols = torch.cat([
         torch.arange(sd.CLS_INV, sd.CLS_INV + 12),
@@ -137,8 +187,31 @@ def pack_prims(scene, dtype=None):
                       sd.CLS_AMBIENT, sd.CLS_DIFFUSE, sd.CLS_SPECULAR,
                       sd.CLS_SHININESS, sd.CLS_REFLECTIVE,
                       sd.CLS_TRANSPARENCY, sd.CLS_IOR, sd.CLS_TORR])])
-    classes = torch.tensor(scene.prim_class_static, dtype=torch.long)
-    return tbl[classes][:, cols.to(tbl.device)].contiguous()
+    classes = torch.tensor([scene.prim_class_static[i]
+                            for i in prim_rows(scene)], dtype=torch.long)
+    return tbl[classes.to(tbl.device)][:, cols.to(tbl.device)].contiguous()
+
+
+def pack_tris(scene, dtype=None):
+    """([Tp, 19] triangle table, [6, n_chunks + 1] chunk AABBs, the last
+    column the whole mesh's box) for the in-kernel mesh (rray_tpu
+    whitted.py pack_tris). Rows keep the Morton order; the table pads
+    to whole MESH_CHUNK chunks with p1 = 1e30 and zero edges
+    (degenerate: det == 0 misses), which the boxes leave out."""
+    dtype = dtype or scene.dtype
+    T = scene.counts[6]
+    Tp = T + (-T) % MESH_CHUNK
+    prim_gid, _ = _tri_groups(scene)
+    gid = torch.tensor(prim_gid, dtype=dtype,
+                       device=scene.device)[scene.tri_prim.long()]
+    cols = [tbl[:, j].to(dtype) for tbl in (
+        scene.tri_p1, scene.tri_e1, scene.tri_e2, scene.tri_n1,
+        scene.tri_n2, scene.tri_n3) for j in range(3)] + [gid]
+    boxes = triangles.chunk_boxes(cols, MESH_CHUNK)
+    tbl = torch.zeros((Tp, T_COLS), dtype=dtype, device=scene.device)
+    tbl[T:, 0:3] = triangles.FAR
+    tbl[:T] = torch.stack(cols, 1)
+    return tbl, boxes
 
 
 def pack_patterns(scene, dtype=None):
@@ -184,6 +257,25 @@ def pack_lights(scene, dtype=None):
     if not rows:
         return torch.zeros((0, L_COLS), dtype=dtype, device=scene.device)
     return torch.stack(rows)
+
+
+def kernel_inputs(scene, settings):
+    """Keyword arguments of `whitted_compact` (all but the rays) for a
+    scene the kernel takes."""
+    pat_tbl, descrs = pack_patterns(scene)
+    depth, W = wavefront_shape(scene, settings)
+    inputs = dict(
+        prim_tbl=pack_prims(scene), pat_tbl=pat_tbl,
+        light_tbl=pack_lights(scene),
+        kinds=tuple(k for k in scene.prim_kinds if k != sd.TRIANGLE),
+        pat_descrs=descrs,
+        prim_pat=tuple(scene.prim_pattern_static[i]
+                       for i in prim_rows(scene)),
+        depth=depth, W=W, has_refl=scene.has_reflective,
+        has_refr=scene.has_transparent)
+    if scene.counts[6]:
+        inputs["tri_tbl"], inputs["tri_boxes"] = pack_tris(scene)
+    return inputs
 
 
 # ---------------------------------------------------------------------------
@@ -290,13 +382,16 @@ def _eval_pattern(descr, pat, pts: V3) -> V3:
 
 
 def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
-          lights, o: V3, d: V3):
+          lights, mesh, o: V3, d: V3):
     """One Whitted node over a batch of rays (rray_tpu whitted.py
-    _node_row, the slice's part of it).
+    _node_row, the slice's part of it). `prims` holds the P = len(kinds)
+    analytic rows, then one row per mesh material group; `mesh` is None
+    or (the triangle table's 18 geometry columns, its group-id column).
 
     Returns (surface, over, under, reflectv, refr_dir, refl_w, refr_w)."""
     dtype = o.x.dtype
     inf = torch.full_like(o.x, float("inf"))
+    P = len(kinds)
 
     # Closest hit: per-prim minimum, then a strict < across prims, so
     # the lowest prim id wins ties.
@@ -313,6 +408,16 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
         better = tp < best_t
         best_t = torch.where(better, tp, best_t)
         win = torch.where(better, i, win)
+    if mesh is not None:
+        # The mesh fold after the analytic prims, bounded by their best t
+        # (rray_tpu _mesh_closest); a mesh winner's row is its group's.
+        geom, gid = mesh
+        mt, _, _, _, mnx, mny, mnz, mgid = triangles.closest_triangle_reference(
+            (o.x, o.y, o.z), (d.x, d.y, d.z), geom, t_init=best_t,
+            aux=(gid,))
+        mesh_win = mt < best_t
+        best_t = torch.where(mesh_win, mt, best_t)
+        win = torch.where(mesh_win, P + mgid.long(), win)
     found = torch.isfinite(best_t)
     t_safe = torch.where(found, best_t, 0.0)
     point = o + d * t_safe
@@ -328,6 +433,11 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
         m = win == i
         nsel = V3(torch.where(m, n.x, nsel.x), torch.where(m, n.y, nsel.y),
                   torch.where(m, n.z, nsel.z))
+    if mesh is not None:
+        # Mesh winners carry the interpolated world vertex normal.
+        nsel = V3(torch.where(mesh_win, mnx, nsel.x),
+                  torch.where(mesh_win, mny, nsel.y),
+                  torch.where(mesh_win, mnz, nsel.z))
     normalv = nsel.normalize()
     inside = normalv.dot(eyev) < 0.0
     normalv = normalv * torch.where(inside, -1.0, 1.0).to(dtype)
@@ -366,9 +476,10 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
     else:
         n1 = n2 = torch.ones_like(o.x)
 
-    # Pattern at the over point, on the winner's object space.
+    # Pattern at the over point, on the winner's object space (a mesh
+    # group's: its class row's).
     base = V3(zero, zero, zero)
-    for i in range(len(kinds)):
+    for i in range(len(prims)):
         col = _eval_pattern(pat_descrs[prim_pat[i]], pat,
                             _affine_pt(prims[i], over))
         m = win == i
@@ -396,6 +507,11 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
                                                           else j],
                                   over.x, over.y, over.z, direction.x,
                                   direction.y, direction.z, dist)
+        if mesh is not None:
+            occ = occ | (triangles.any_triangle_reference(
+                (over.x, over.y, over.z),
+                (direction.x, direction.y, direction.z), mesh[0],
+                dist) != 0)
         unshadow = 1.0 - occ.to(dtype)
         effective = V3(base.x * L[3], base.y * L[4], base.z * L[5])
         lightv = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z).normalize()
@@ -451,8 +567,10 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
 def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
                               light_tbl, kinds, pat_descrs, prim_pat,
                               depth: int, W: int, has_refl: bool,
-                              has_refr: bool):
+                              has_refr: bool, tri_tbl=None, tri_boxes=None):
     """Plain PyTorch version of the kernel -> (r, g, b) [R] tensors.
+    `tri_boxes` only culls in the kernel; the plain version tests every
+    triangle (padding rows included: they never hit).
 
     Every level evaluates all W path rows of every pixel at once
     ([W*R] tensors). A row of weight 0 contributes nothing, as the
@@ -463,6 +581,10 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
     dtype = ro_comps[0].dtype
     prims, pat, lights = prim_tbl.tolist(), pat_tbl.tolist(), \
         light_tbl.tolist()
+    mesh = None
+    if tri_tbl is not None:
+        cols = tri_tbl.unbind(1)
+        mesh = (cols[:18], cols[18])
     R = ro_comps[0].shape[0]
     both = has_refl and has_refr
     spawn = 2 if both else (1 if (has_refl or has_refr) else 0)
@@ -482,7 +604,7 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
         w = rows[6]
         surface, over, under, reflectv, refr_dir, refl_w, refr_w = _node(
             kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
-            lights, V3(rows[0], rows[1], rows[2]),
+            lights, mesh, V3(rows[0], rows[1], rows[2]),
             V3(rows[3], rows[4], rows[5]))
         for c, v in enumerate((surface.x, surface.y, surface.z)):
             contrib = torch.where(w != 0.0, v * w, 0.0).reshape(W, R)
@@ -512,10 +634,11 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
 # ---------------------------------------------------------------------------
 
 def int_table(kinds, pat_descrs, prim_pat, n_rows: int):
-    """The kernel's int table: prim kinds[P], pattern root rows[P], then
-    per pattern row its node type[N], child a row[N], child b row[N]
-    (-1 where a node has no child) — the statics that rray_tpu's kernel
-    unrolls at trace time, as data the CUDA kernel interprets."""
+    """The kernel's int table: analytic prim kinds[P], the pattern root
+    row of every prim-table row[P + G], then per pattern row its node
+    type[N], child a row[N], child b row[N] (-1 where a node has no
+    child) — the statics that rray_tpu's kernel unrolls at trace time,
+    as data the CUDA kernel interprets."""
     ptype = [0] * n_rows
     pa = [-1] * n_rows
     pb = [-1] * n_rows
@@ -534,64 +657,63 @@ def int_table(kinds, pat_descrs, prim_pat, n_rows: int):
 
     for descr in pat_descrs:
         walk(descr)
-    roots = [pat_descrs[prim_pat[i]][1] for i in range(len(kinds))]
+    roots = [pat_descrs[prim_pat[i]][1] for i in range(len(prim_pat))]
     return list(kinds) + roots + ptype + pa + pb
 
 
-def _check(name, t, shape, device):
-    if t.device != device:
-        raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name} is {t.dtype}; the CUDA kernel is float32 "
-                        "only")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
-                         f"{tuple(shape)}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name} is not contiguous")
-
-
 def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
-            pat_descrs, prim_pat, depth, W, has_refl, has_refr):
+            pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
+            tri_boxes=None):
     global launches
     from . import build
 
     device = ro_comps[0].device
     R = ro_comps[0].shape[0]
     P, N, L = len(kinds), pat_tbl.shape[0], light_tbl.shape[0]
+    G = len(prim_pat) - P
     for k, c in enumerate(tuple(ro_comps) + tuple(rd_comps)):
-        _check(f"ray component {k}", c, (R,), device)
-    _check("prim_tbl", prim_tbl, (P, P_COLS), device)
-    _check("pat_tbl", pat_tbl, (N, PAT_COLS), device)
-    _check("light_tbl", light_tbl, (L, L_COLS), device)
+        build.check_arg(f"ray component {k}", c, (R,), device)
+    build.check_arg("prim_tbl", prim_tbl, (P + G, P_COLS), device)
+    build.check_arg("pat_tbl", pat_tbl, (N, PAT_COLS), device)
+    build.check_arg("light_tbl", light_tbl, (L, L_COLS), device)
     if W not in WIDTHS:
         raise ValueError(f"W={W}; the kernel is built for W in {WIDTHS}")
     if W != 1 and not (has_refl and has_refr):
         raise ValueError("W > 1 needs both reflection and refraction")
-    if not 0 < P <= MAX_PRIMS or any(k not in OCCLUSION_KINDS
-                                     for k in kinds):
-        raise ValueError(f"the kernel takes 1..{MAX_PRIMS} analytic "
+    if P > MAX_PRIMS or any(k not in OCCLUSION_KINDS for k in kinds):
+        raise ValueError(f"the kernel takes at most {MAX_PRIMS} analytic "
                          f"sphere/plane/cube/cylinder/cone prims: {kinds}")
     if N > MAX_PATTERN_ROWS or L > MAX_LIGHTS or any(
             _descr_depth(d) > MAX_PATTERN_DEPTH for d in pat_descrs):
         raise ValueError("pattern or light tables past the kernel's bounds")
     if depth < 0:
         raise ValueError(f"depth={depth}")
+    Tp = n_chunks = 0
+    if tri_tbl is not None:
+        Tp, n_chunks = tri_tbl.shape[0], tri_boxes.shape[1] - 1
+        build.check_arg("tri_tbl", tri_tbl, (Tp, T_COLS), device)
+        build.check_arg("tri_boxes", tri_boxes, (6, n_chunks + 1), device)
+        if Tp > MESH_MAX_TRIS + MESH_CHUNK or Tp % MESH_CHUNK \
+                or n_chunks != Tp // MESH_CHUNK or not 0 < G <= MAX_GROUPS:
+            raise ValueError(f"mesh of {Tp} rows, {n_chunks} chunks, {G} "
+                             "groups: past the kernel's bounds")
+        if has_refr:
+            raise ValueError("the in-kernel mesh takes no refraction")
+    elif G or P == 0:
+        raise ValueError(f"{P} prims and {G} group rows without a mesh")
     ints = torch.tensor(int_table(kinds, pat_descrs, prim_pat, N),
                         dtype=torch.int32, device=device)
     outs = [torch.empty(R, dtype=torch.float32, device=device)
             for _ in range(3)]
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())
+    ptr = build.ptr
     with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
         rc = build.load_library().whitted_compact_launch(
             *(ptr(c) for c in tuple(ro_comps) + tuple(rd_comps)),
-            *(ptr(o) for o in outs), ptr(prim_tbl), P, ptr(pat_tbl), N,
-            ptr(light_tbl), L, ptr(ints), R, depth, W, int(has_refl),
-            int(has_refr), ctypes.c_void_p(stream))
-    if rc != 0:
-        raise RuntimeError(f"whitted kernel launch failed: CUDA error {rc} "
-                           f"({build.error_string(rc)})")
+            *(ptr(o) for o in outs), ptr(prim_tbl), P, G, ptr(pat_tbl), N,
+            ptr(light_tbl), L, ptr(ints), ptr(tri_tbl), Tp, ptr(tri_boxes),
+            n_chunks, R, depth, W, int(has_refl), int(has_refr),
+            build.stream(device))
+    build.check_launch("whitted", rc)
     launches += 1
     return tuple(outs)
 
@@ -604,17 +726,21 @@ def _descr_depth(descr) -> int:
 
 def whitted_compact(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl,
                     kinds, pat_descrs, prim_pat, depth: int, W: int,
-                    has_refl: bool, has_refr: bool):
+                    has_refl: bool, has_refr: bool, tri_tbl=None,
+                    tri_boxes=None):
     """Whitted evaluation of [R] primary rays -> (r, g, b) [R] tensors.
 
-    ro/rd_comps: 3-tuples of [R] tensors; prim_tbl [P,32], pat_tbl
-    [N,17], light_tbl [L,15] (see pack_*); kinds, pat_descrs, prim_pat
-    mirror the scene structure (SceneData.prim_kinds, pack_patterns'
-    descriptors, SceneData.prim_pattern_static). CPU tensors run the
-    plain version; CUDA tensors launch the kernel (float32 only)."""
+    ro/rd_comps: 3-tuples of [R] tensors; prim_tbl [P+G,32], pat_tbl
+    [N,17], light_tbl [L,15], tri_tbl [Tp,19] and tri_boxes
+    [6,Tp/24+1] (see pack_*; kernel_inputs builds them all); kinds are
+    the P analytic prim kinds, pat_descrs pack_patterns' descriptors,
+    prim_pat the pattern root of each prim-table row. CPU tensors run
+    the plain version; CUDA tensors launch the kernel (float32 only)."""
     if ro_comps[0].device.type == "cpu":
         return whitted_compact_reference(
             ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
-            pat_descrs, prim_pat, depth, W, has_refl, has_refr)
+            pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl,
+            tri_boxes)
     return _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
-                   pat_descrs, prim_pat, depth, W, has_refl, has_refr)
+                   pat_descrs, prim_pat, depth, W, has_refl, has_refr,
+                   tri_tbl, tri_boxes)

@@ -1,5 +1,8 @@
-"""Analytic hit slots on SoA rays (the subset of rray_tpu ops/soa.py that
-the Whitted kernel's plain version needs).
+"""SoA intersection on rays as V3 component tensors (rray_tpu ops/soa.py):
+the analytic hit slots and shadow predicates that the Whitted kernel's
+plain version and the torch fast node share, and the fast node's
+closest hit and shadow any-hit, whose triangle parts go through the
+triangle kernels (kernels/triangles.py, kernels/bvh.py).
 
 Each function takes object-space rays as V3 component tensors and
 returns the prim's hit slots as a list of (t, valid) pairs. The formulas
@@ -13,10 +16,23 @@ Per-prim scalars (ymin, ymax, closed) are Python numbers.
 """
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 
 from ..config import EPSILON
-from .vec import V3
+from ..scene import data as sd
+from .vec import V3, affine_point, affine_vector
+
+
+@dataclasses.dataclass
+class Hit:
+    found: Any   # [R] bool
+    t: Any       # [R]
+    prim: Any    # [R] long
+    cls: Any     # [R] long shade-class id
+    tri_n: Any = None  # (nx, ny, nz) interpolated triangle normal, or None
 
 
 def _sphere_slots(o: V3, d: V3):
@@ -154,3 +170,136 @@ def _plane_occludes_local(o: V3, d: V3, dist):
     oy_dy = o.y * d.y
     return ((torch.abs(d.y) >= EPSILON) & (oy_dy <= 0.0)
             & (-oy_dy < dist * d.y * d.y))
+
+
+def _leaf_slots(scene, kind: int, row: int, ro: V3, rd: V3):
+    """Hit slots of one analytic leaf (local-space closed forms)."""
+    if kind == sd.SPHERE:
+        inv = scene.sph_inv[row]
+        return _sphere_slots(affine_point(inv, ro), affine_vector(inv, rd))
+    if kind == sd.PLANE:
+        inv = scene.pla_inv[row]
+        return _plane_slots(affine_point(inv, ro), affine_vector(inv, rd))
+    if kind == sd.CUBE:
+        inv = scene.cub_inv[row]
+        return _cube_slots(affine_point(inv, ro), affine_vector(inv, rd))
+    if kind == sd.CYLINDER:
+        inv = scene.cyl_inv[row]
+        return _cylinder_slots(affine_point(inv, ro), affine_vector(inv, rd),
+                               scene.cyl_min[row], scene.cyl_max[row],
+                               scene.cyl_closed[row])
+    if kind == sd.CONE:
+        inv = scene.con_inv[row]
+        return _cone_slots(affine_point(inv, ro), affine_vector(inv, rd),
+                           scene.con_min[row], scene.con_max[row],
+                           scene.con_closed[row])
+    raise ValueError(f"no slot form for prim kind {kind}")
+
+
+def _leaf_occludes(scene, kind: int, row: int, ro: V3, rd: V3, dist):
+    """Does this leaf have a hit with 0 <= t < dist? Spheres and planes
+    use their sqrt- and divide-free interval forms."""
+    if kind == sd.SPHERE:
+        inv = scene.sph_inv[row]
+        return _sphere_occludes_local(affine_point(inv, ro),
+                                      affine_vector(inv, rd), dist)
+    if kind == sd.PLANE:
+        inv = scene.pla_inv[row]
+        return _plane_occludes_local(affine_point(inv, ro),
+                                     affine_vector(inv, rd), dist)
+    hit = torch.zeros_like(ro.x, dtype=torch.bool)
+    for t, valid in _leaf_slots(scene, kind, row, ro, rd):
+        hit = hit | (valid & (t >= 0.0) & (t < dist))
+    return hit
+
+
+def _tri_comps(scene, normals: bool):
+    tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
+    if normals:
+        tabs += (scene.tri_n1, scene.tri_n2, scene.tri_n3)
+    return tuple(tbl[:, j].contiguous() for tbl in tabs for j in range(3))
+
+
+def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
+    """Closest triangle hit with t < t_init (rray_tpu soa.py
+    _pallas_triangle_best): the BVH kernel for meshes of at least
+    settings.bvh_min_tris triangles, the linear chunk kernel below that.
+    Returns (t, prim, cls, (nx, ny, nz)); the kernels select the
+    winner's prim id and shade class as float payload columns (exact
+    below 2^24)."""
+    from ..kernels import bvh, triangles
+
+    rays = (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z)
+    aux = (scene.tri_prim.to(ro.x.dtype), scene.tri_class.to(ro.x.dtype))
+    tri = _tri_comps(scene, normals=True)
+    if scene.counts[6] >= settings.bvh_min_tris:
+        outs = bvh.bvh_closest_triangle(*rays, tri, dist=t_init, aux=aux,
+                                        leaf=settings.bvh_leaf)
+    else:
+        outs = triangles.closest_triangle(*rays, tri, t_init=t_init, aux=aux)
+    t, _, _, _, nx, ny, nz, prim, cls = outs
+    return t, prim.long(), cls.long(), (nx, ny, nz)
+
+
+def _triangle_any(scene, ro: V3, rd: V3, settings, distance):
+    """Bounded triangle any-hit (rray_tpu soa.py _pallas_triangle_any)
+    -> bool [R]."""
+    from ..kernels import bvh, triangles
+
+    rays = (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z)
+    tri = _tri_comps(scene, normals=False)
+    if scene.counts[6] >= settings.bvh_min_tris:
+        t = bvh.bvh_closest_triangle(*rays, tri, dist=distance, any_hit=True,
+                                     leaf=settings.bvh_leaf)[0]
+        return t < distance
+    return triangles.any_triangle(*rays, tri, distance) != 0
+
+
+def analytic_closest(scene, ro: V3, rd: V3):
+    """Closest analytic hit -> (t, prim, cls) [R]: every slot merged by a
+    running strict `<`, so the lowest prim wins ties; t = +inf on a
+    miss."""
+    inf = torch.full_like(ro.x, float("inf"))
+    best_t = inf
+    best_prim = torch.zeros_like(ro.x, dtype=torch.long)
+    best_cls = torch.zeros_like(ro.x, dtype=torch.long)
+    for pid, (kind, row) in enumerate(zip(scene.prim_kinds,
+                                          scene.prim_rows_static)):
+        if kind == sd.TRIANGLE:
+            continue
+        for t, valid in _leaf_slots(scene, kind, row, ro, rd):
+            t = torch.where(valid & (t >= 0.0), t, inf)
+            better = t < best_t
+            best_t = torch.where(better, t, best_t)
+            best_prim = torch.where(better, pid, best_prim)
+            best_cls = torch.where(better, scene.prim_class_static[pid],
+                                   best_cls)
+    return best_t, best_prim, best_cls
+
+
+def closest_hit_soa(scene, ro: V3, rd: V3, settings) -> Hit:
+    """First t >= 0 hit across all primitives: the analytic closest hit,
+    then the triangle kernel seeded with its t, merged by `ct < best_t`
+    (analytic prims win ties against triangles)."""
+    best_t, best_prim, best_cls = analytic_closest(scene, ro, rd)
+    tri_n = None
+    if scene.counts[6]:
+        ct, cp, ccls, cn = _triangle_best(scene, ro, rd, settings, best_t)
+        better = ct < best_t
+        best_t = torch.where(better, ct, best_t)
+        best_prim = torch.where(better, cp, best_prim)
+        best_cls = torch.where(better, ccls, best_cls)
+        tri_n = tuple(torch.where(better, c, 0.0) for c in cn)
+    return Hit(found=torch.isfinite(best_t), t=best_t, prim=best_prim,
+               cls=best_cls, tri_n=tri_n)
+
+
+def any_hit_soa(scene, ro: V3, rd: V3, distance, settings):
+    """Shadow test: any hit with 0 <= t < distance (scene.rs:234-245)."""
+    hit = torch.zeros_like(ro.x, dtype=torch.bool)
+    for kind, row in zip(scene.prim_kinds, scene.prim_rows_static):
+        if kind != sd.TRIANGLE:
+            hit = hit | _leaf_occludes(scene, kind, row, ro, rd, distance)
+    if scene.counts[6]:
+        hit = hit | _triangle_any(scene, ro, rd, settings, distance)
+    return hit

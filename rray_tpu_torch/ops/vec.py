@@ -51,3 +51,16 @@ class V3:
     def reflect(self, n: "V3") -> "V3":
         """v - 2 (v.n) n (tuple.rs:114-117)."""
         return self - n * (2.0 * self.dot(n))
+
+
+def affine_point(m, p: V3) -> V3:
+    """Apply a [3,4] affine (tensor, rows indexed statically) to points."""
+    return V3(m[0, 0] * p.x + m[0, 1] * p.y + m[0, 2] * p.z + m[0, 3],
+              m[1, 0] * p.x + m[1, 1] * p.y + m[1, 2] * p.z + m[1, 3],
+              m[2, 0] * p.x + m[2, 1] * p.y + m[2, 2] * p.z + m[2, 3])
+
+
+def affine_vector(m, v: V3) -> V3:
+    return V3(m[0, 0] * v.x + m[0, 1] * v.y + m[0, 2] * v.z,
+              m[1, 0] * v.x + m[1, 1] * v.y + m[1, 2] * v.z,
+              m[2, 0] * v.x + m[2, 1] * v.y + m[2, 2] * v.z)

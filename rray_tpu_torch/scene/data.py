@@ -10,9 +10,10 @@ exact because per-level normalization only rescales directions.
 
 The tables are torch tensors on the caller's device, in a plain
 dataclass; structural facts (counts, prim kinds, pattern node types,
-light kinds) are plain Python fields. This slice compiles analytic
-leaves and groups: CSG nodes and triangles raise NotImplementedError
-naming the ROADMAP item that will carry them.
+light kinds) are plain Python fields. The port compiles analytic
+leaves, triangles (Morton-ordered, mesh triangles collapsed to one shade
+class) and groups; CSG nodes raise NotImplementedError naming the
+ROADMAP item that will carry them.
 """
 from __future__ import annotations
 
@@ -194,9 +195,9 @@ class SceneData:
     """All device tensors for one compiled scene (leaves may be size 0).
 
     Field meanings follow rray_tpu's SceneData: per-prim tables indexed
-    by prim id (DFS order), per-type analytic tables, triangle tables
-    (empty until meshes are ported), CSG sides (empty until CSG is
-    ported), then the structural Python fields."""
+    by prim id (DFS order), per-type analytic tables, world-space
+    triangle tables, CSG sides (empty until CSG is ported), then the
+    structural Python fields."""
 
     prim_inv: Any       # [P,3,4] composed world->object affine
     prim_nmat: Any      # [P,3,3] object-normal -> world (unnormalized)
@@ -270,12 +271,13 @@ class SceneData:
 
 _KIND_TO_TYPE = {
     "sphere": SPHERE, "plane": PLANE, "cube": CUBE, "cylinder": CYLINDER,
-    "cone": CONE, "torus": TORUS,
+    "cone": CONE, "torus": TORUS, "triangle": TRIANGLE,
+    "smooth_triangle": TRIANGLE,
 }
 
 
 def _walk(shape: Shape, parent_world: np.ndarray, leaves):
-    """DFS fold of the scene graph into leaves (shape, world).
+    """DFS fold of the scene graph into leaves (shape, world, material).
 
     `hidden` is honored only where the reference's builder consults it:
     top-level objects (scene_builder_yaml.rs:401) and group children
@@ -290,10 +292,38 @@ def _walk(shape: Shape, parent_world: np.ndarray, leaves):
         raise NotImplementedError(
             "CSG nodes are not ported yet (ROADMAP B1e and queue A 9)")
     if shape.kind not in _KIND_TO_TYPE:
-        raise NotImplementedError(
-            f"{shape.kind} leaves are not ported yet (ROADMAP B1d: "
-            "in-kernel mesh, then B2-B4)")
-    leaves.append((shape, world))
+        raise ValueError(f"unknown shape kind {shape.kind!r}")
+    leaves.append((shape, world, shape.material or Material()))
+
+
+def _spread_bits(v: np.ndarray) -> np.ndarray:
+    """Spread 10-bit ints so bits land every 3 positions (Morton)."""
+    v = v.astype(np.uint64)
+    v = (v | (v << 16)) & np.uint64(0x030000FF)
+    v = (v | (v << 8)) & np.uint64(0x0300F00F)
+    v = (v | (v << 4)) & np.uint64(0x030C30C3)
+    v = (v | (v << 2)) & np.uint64(0x09249249)
+    return v
+
+
+def _morton_sort(tri_pids, leaves):
+    """Order triangle prim ids along a Morton curve of world centroids
+    (rray_tpu scene/data.py _morton_sort: same codes, stable argsort)."""
+    if len(tri_pids) < 2:
+        return tri_pids
+    cents = []
+    for pid in tri_pids:
+        s, world, _ = leaves[pid]
+        A, b = world[:3, :3], world[:3, 3]
+        cents.append(np.mean([A @ np.asarray(p) + b
+                              for p in (s.p1, s.p2, s.p3)], axis=0))
+    cents = np.asarray(cents)
+    lo = cents.min(axis=0)
+    span = np.maximum(cents.max(axis=0) - lo, 1e-12)
+    q = np.clip(((cents - lo) / span * 1023.0), 0, 1023).astype(np.uint32)
+    code = (_spread_bits(q[:, 0]) | (_spread_bits(q[:, 1]) << np.uint64(1))
+            | (_spread_bits(q[:, 2]) << np.uint64(2)))
+    return [tri_pids[i] for i in np.argsort(code, kind="stable")]
 
 
 def _tensor(x, dtype, device):
@@ -348,7 +378,8 @@ def compile_scene(objects, lights, dtype=torch.float32,
             _walk(obj, mu.identity(), leaves)
     P = len(leaves)
 
-    # Deduplicate pattern roots by host-object identity.
+    # Deduplicate pattern roots by host-object identity (OBJ meshes share
+    # one material across thousands of triangles).
     pattern_roots: list[Pattern] = []
     pattern_index: dict[int, int] = {}
 
@@ -367,16 +398,13 @@ def compile_scene(objects, lights, dtype=torch.float32,
              "transparency", "ior")}
     pat_ids = np.zeros(P, np.int32)
     by_type: dict[int, list[int]] = {t: [] for t in range(7)}
-    materials = []
-    for pid, (shape, world) in enumerate(leaves):
+    for pid, (shape, world, m) in enumerate(leaves):
         t = _KIND_TO_TYPE[shape.kind]
         prim_type[pid] = t
         prim_row[pid] = len(by_type[t])
         by_type[t].append(pid)
         prim_inv[pid] = mu.affine(mu.inverse(world))
         prim_nmat[pid] = mu.normal_matrix(world)
-        m = shape.material or Material()
-        materials.append(m)
         mats["ambient"][pid] = m.ambient
         mats["diffuse"][pid] = m.diffuse
         mats["specular"][pid] = m.specular
@@ -402,11 +430,50 @@ def compile_scene(objects, lights, dtype=torch.float32,
             np.array([s.closed for s in shapes], bool), torch.bool, device)
     tables["tor_r"] = f([leaves[p][0].minor_radius for p in by_type[TORUS]])
 
-    # Every analytic leaf is its own shade class.
-    cls_table = np.zeros((max(P, 1), CLS_COLS))
-    for pid, (shape, _) in enumerate(leaves):
-        m = materials[pid]
-        row = cls_table[pid]
+    # Triangles: world-space vertices (t/u/v are invariant under the
+    # fold); vertex normals ride the normal matrix unnormalized, so the
+    # smooth interpolation (smooth_triangle.rs:99-101) stays exact. Flat
+    # triangles store n1 = n2 = n3 = their unit normal e2 x e1
+    # (triangle.rs:55). Rows follow the Morton order of world centroids.
+    tris = _morton_sort(by_type[TRIANGLE], leaves)
+    T = len(tris)
+    tri = {k: np.zeros((T, 3)) for k in ("p1", "e1", "e2", "n1", "n2", "n3")}
+    tri_smooth = np.zeros(T, bool)
+    for row, pid in enumerate(tris):
+        prim_row[pid] = row
+        s, world, _ = leaves[pid]
+        A, b = world[:3, :3], world[:3, 3]
+        p1w, p2w, p3w = (A @ np.asarray(p) + b for p in (s.p1, s.p2, s.p3))
+        e1, e2 = p2w - p1w, p3w - p1w
+        tri["p1"][row], tri["e1"][row], tri["e2"][row] = p1w, e1, e2
+        if s.kind == "smooth_triangle":
+            tri_smooth[row] = True
+            for k, n in (("n1", s.n1), ("n2", s.n2), ("n3", s.n3)):
+                tri[k][row] = prim_nmat[pid] @ np.asarray(n)
+        else:
+            n = np.cross(e2, e1)
+            norm = np.linalg.norm(n)
+            n = n / norm if norm > 0 else n
+            tri["n1"][row] = tri["n2"][row] = tri["n3"][row] = n
+
+    # Shade classes: each analytic leaf is its own class; a mesh's
+    # triangles (same material object and composed transform) collapse
+    # to one.
+    prim_class = np.zeros(P, np.int32)
+    class_index: dict = {}
+    class_rep: list[int] = []
+    for pid, (shape, world, m) in enumerate(leaves):
+        key = (("tri", id(m), world.tobytes())
+               if prim_type[pid] == TRIANGLE else ("leaf", pid))
+        if key not in class_index:
+            class_index[key] = len(class_rep)
+            class_rep.append(pid)
+        prim_class[pid] = class_index[key]
+    M = len(class_rep)
+    cls_table = np.zeros((max(M, 1), CLS_COLS))
+    for ci, pid in enumerate(class_rep):
+        shape, _, m = leaves[pid]
+        row = cls_table[ci]
         row[CLS_INV:CLS_INV + 12] = prim_inv[pid].reshape(12)
         row[CLS_NMAT:CLS_NMAT + 9] = prim_nmat[pid].reshape(9)
         row[CLS_TYPE] = prim_type[pid]
@@ -425,7 +492,7 @@ def compile_scene(objects, lights, dtype=torch.float32,
         elif shape.kind == "torus":
             row[CLS_TORR] = shape.minor_radius
 
-    empty3 = f(np.zeros((0, 3)))
+    materials = [m for _, _, m in leaves]
     return SceneData(
         prim_inv=f(prim_inv), prim_nmat=f(prim_nmat),
         prim_type=i32(prim_type), prim_row=i32(prim_row),
@@ -434,13 +501,12 @@ def compile_scene(objects, lights, dtype=torch.float32,
         mat_shininess=f(mats["shininess"]),
         mat_reflective=f(mats["reflective"]),
         mat_transparency=f(mats["transparency"]), mat_ior=f(mats["ior"]),
-        pattern_id=i32(pat_ids), prim_class=i32(np.arange(P)),
+        pattern_id=i32(pat_ids), prim_class=i32(prim_class),
         cls_table=f(cls_table),
         **tables,
-        tri_p1=empty3, tri_e1=empty3, tri_e2=empty3,
-        tri_n1=empty3, tri_n2=empty3, tri_n3=empty3,
-        tri_smooth=_tensor(np.zeros(0, bool), torch.bool, device),
-        tri_prim=i32([]), tri_class=i32([]),
+        **{f"tri_{k}": f(v) for k, v in tri.items()},
+        tri_smooth=_tensor(tri_smooth, torch.bool, device),
+        tri_prim=i32(tris), tri_class=i32(prim_class[tris]),
         csg_side=i32(np.zeros((0, max(P, 1)))),
         lights=tuple(_compile_light(l, dtype, device) for l in lights),
         patterns=tuple(_compile_pattern(p, dtype, device)
@@ -453,7 +519,7 @@ def compile_scene(objects, lights, dtype=torch.float32,
         prim_rows_static=tuple(int(r) for r in prim_row),
         csg_member_static=(False,) * P,
         csg_side_static=(),
-        n_classes=P,
-        prim_class_static=tuple(range(P)),
+        n_classes=M,
+        prim_class_static=tuple(int(c) for c in prim_class),
         prim_pattern_static=tuple(int(i) for i in pat_ids),
     )

@@ -1,14 +1,18 @@
-"""rray_tpu_torch's CUDA kernel on the card. Marked `cuda`: skipped where
-torch.cuda.is_available() is False; on a GPU machine run with
-`python -m pytest tests/test_torch_cuda.py -q -m cuda`."""
+"""rray_tpu_torch's CUDA kernels on the card. Marked `cuda`: skipped where
+torch.cuda.is_available() is False; on a GPU machine (no JAX there, so
+without tests/conftest.py) run with
+`python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py`."""
 import os
 
+import numpy as np
 import pytest
 import torch
 
+import torch_mesh_scenes as ms
+from rray_tpu_torch import api
 from rray_tpu_torch.config import RenderSettings
 from rray_tpu_torch.io.yaml_loader import load_scene_file
-from rray_tpu_torch.kernels import whitted
+from rray_tpu_torch.kernels import bvh, triangles, whitted
 from rray_tpu_torch.render.camera import Camera, all_rays_soa, compile_camera
 from rray_tpu_torch.scene.data import compile_scene
 
@@ -25,7 +29,7 @@ def cuda():
 
 def _args(name, device, cap=4, w=160, h=120):
     cam_spec, lights, shapes = load_scene_file(
-        os.path.join(BASE, "examples", name))
+        name if os.path.isabs(name) else os.path.join(BASE, "examples", name))
     scene = compile_scene(shapes, lights, dtype=torch.float32, device=device)
     cam = Camera(w, h, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
@@ -65,3 +69,89 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     strided = tuple(torch.zeros(12, device=cuda)[::2] for _ in range(3))
     with pytest.raises(ValueError, match="contiguous"):
         whitted.whitted_compact(strided, strided, *rest)
+
+
+@pytest.mark.parametrize("reflective", [0.0, 0.3])
+def test_mesh_kernel_matches_plain_version(cuda, reflective, tmp_path):
+    """Stage d: the in-kernel mesh, at depth 0 and along the chain."""
+    path = ms.write_scene(str(tmp_path), "mesh", reflective=reflective)
+    cam_spec, lights, shapes = load_scene_file(path)
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device=cuda)
+    cam = Camera(160, 120, cam_spec["fov"])
+    cam.transform = cam_spec["transform"]
+    ro, rd = all_rays_soa(compile_camera(cam, torch.float32, cuda))
+    rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
+    inputs = whitted.kernel_inputs(scene, RenderSettings())
+    kern = torch.stack(whitted.whitted_compact(*rays, **inputs))
+    plain = torch.stack(whitted.whitted_compact_reference(*rays, **inputs))
+    torch.cuda.synchronize()
+    diff = (kern - plain).abs().amax(0)
+    assert bool(torch.isfinite(kern).all())
+    assert float((diff <= 1e-6).double().mean()) >= 0.999
+
+
+def _seeded(T, device, seed=1):
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-2.0, 2.0, (3, T))
+    cols = [*(centers + rng.uniform(-0.3, 0.3, (3, T))),
+            *rng.uniform(-0.6, 0.6, (6, T)), *rng.normal(size=(9, T))]
+    R = 4096
+    o = rng.uniform(-1, 1, (3, R)) + np.array([[0.0], [0.0], [-8.0]])
+    d = rng.uniform(-0.3, 0.3, (3, R)) + np.array([[0.0], [0.0], [1.0]])
+    d /= np.linalg.norm(d, axis=0)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=device)
+    return ((tuple(t(c) for c in o), tuple(t(c) for c in d)),
+            tuple(t(c) for c in cols), t(rng.uniform(4.0, 12.0, R)))
+
+
+@pytest.mark.parametrize("kind", ["closest", "any", "bvh", "bvh_any"])
+def test_triangle_kernels_match_plain_versions(cuda, kind):
+    use_bvh = kind.startswith("bvh")
+    rays, cols, bound = _seeded(1536 if use_bvh else 200, cuda)
+    aux = (torch.arange(cols[0].shape[0], dtype=torch.float32, device=cuda),)
+    if kind == "any":
+        before = triangles.any_launches
+        kern = triangles.any_triangle(*rays, cols[:9], bound)
+        plain = triangles.any_triangle_reference(*rays, cols[:9], bound)
+        assert triangles.any_launches == before + 1
+        assert float((kern == plain).double().mean()) >= 0.999
+        return
+    if kind == "bvh_any":
+        kern = bvh.bvh_closest_triangle(*rays, cols[:9], dist=bound,
+                                        any_hit=True, leaf=128)
+        plain = bvh.bvh_closest_triangle_reference(*rays, cols[:9],
+                                                   dist=bound, any_hit=True)
+        assert float((kern[0] == plain[0]).double().mean()) >= 0.999
+        return
+    fn = bvh.bvh_closest_triangle if use_bvh else triangles.closest_triangle
+    ref = (bvh.bvh_closest_triangle_reference if use_bvh
+           else triangles.closest_triangle_reference)
+    seed = {"dist": bound} if use_bvh else {"t_init": bound}
+    for extra in ({}, seed):
+        kern = fn(*rays, cols, aux=aux, **extra)
+        plain = ref(*rays, cols, aux=aux, **extra)
+        torch.cuda.synchronize()
+        same = kern[3] == plain[3]
+        assert float(same.double().mean()) >= 0.999
+        assert bool(torch.isfinite(kern[0]).any())
+        for a, b in zip(kern, plain):
+            both = torch.isinf(a) & torch.isinf(b)
+            assert bool(((a.float() - b.float()).abs() <= 1e-5)
+                        [same & ~both].all())
+
+
+@pytest.mark.parametrize("grid,lat_lon", [(True, (6, 6)), (False, (40, 40))])
+def test_fast_node_launches_triangle_kernels(cuda, grid, lat_lon, tmp_path):
+    """Nine mesh groups (B2 + B3) and a 3120-triangle mesh (B4) leave the
+    whitted kernel for the fast node, which launches the triangle
+    kernels on the main path."""
+    path = ms.write_scene(str(tmp_path), "fast", lat_lon=lat_lon, grid=grid)
+    counts = (triangles.closest_launches, triangles.any_launches,
+              bvh.launches)
+    image = api.render_scene_from_file(path, 64, 48, "", device="cuda")
+    assert np.isfinite(image).all()
+    if grid:
+        assert triangles.closest_launches > counts[0]
+        assert triangles.any_launches > counts[1]
+    else:
+        assert bvh.launches >= counts[2] + 2

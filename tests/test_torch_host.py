@@ -150,7 +150,10 @@ def test_scene_from_numpy_gives_port_tables(path, dtype):
 
 def test_port_imports_no_jax():
     code = ("import sys; import rray_tpu_torch, rray_tpu_torch.api, "
-            "rray_tpu_torch.cli, rray_tpu_torch.kernels.whitted; "
+            "rray_tpu_torch.cli, rray_tpu_torch.kernels.whitted, "
+            "rray_tpu_torch.kernels.triangles, rray_tpu_torch.kernels.bvh, "
+            "rray_tpu_torch.kernels.build, rray_tpu_torch.ops.soa, "
+            "rray_tpu_torch.render.shade_soa, rray_tpu_torch.io.native; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'rray_tpu.')) or m == 'rray_tpu'); "
             "assert not bad, bad")

@@ -14,6 +14,7 @@ import torch
 import torch_parity as tp
 from rray_tpu_torch import api
 from rray_tpu_torch.kernels import whitted
+from rray_tpu_torch.render import integrator
 
 
 def test_example1_depth0_matches_pallas_kernel():
@@ -60,9 +61,14 @@ def test_applicable_gating():
     torus = compile_scene(shapes + [Shape("torus", material=shapes[0].material)],
                           lights)
     assert "B1e" in whitted.unsupported(torus)
+    # More than 16 prims leave the kernel for the torch fast node, which
+    # takes opaque scenes: glass with its transparency zeroed.
+    for shape in shapes:
+        shape.material.transparency = 0.0
     many = compile_scene(shapes * 5, lights)
     assert len(many.prim_kinds) == 20
-    assert "queue A" in whitted.unsupported(many)
+    assert "more than 16" in whitted.unsupported(many)
+    assert integrator.route(many) == "fast"
 
 
 def test_int_table_layout():

@@ -1,13 +1,16 @@
-"""The CUDA kernel's device code against the plain version, on the CPU.
+"""The CUDA kernels' device code against the plain versions, on the CPU.
 
-kernels/csrc/whitted_device.cuh holds everything one CUDA thread runs
-(trace_ray<W> and the node, slot, shadow and pattern functions); it
-needs only two function-qualifier macros and the C math library, so it
-also compiles as host C++. Built here with g++ and -ffp-contract=off
-(the host analogue of the kernel's --fmad=false), it is held against
-`whitted_compact_reference` on camera rays. This checks the kernel's
-arithmetic and control flow wherever there is no card; the CUDA build
-itself is checked on the card by chip_smoke.py."""
+kernels/csrc/whitted_device.cuh holds everything one thread of the
+whitted kernel runs (trace_ray<W> and the node, slot, shadow, pattern
+and mesh-fold functions), and mesh_device.cuh what one thread of the
+triangle and BVH kernels runs (Möller–Trumbore, the chunk folds, the
+heap walk, the output writer). They need only two function-qualifier
+macros and the C math library, so they also compile as host C++. Built
+here with g++ and -ffp-contract=off (the host analogue of the kernels'
+--fmad=false), they are held against the plain versions on camera rays
+and seeded rays. This checks the kernels' arithmetic and control flow
+wherever there is no card; the CUDA build itself is checked on the card
+by chip_smoke.py."""
 import ctypes
 import os
 import shutil
@@ -17,9 +20,10 @@ import numpy as np
 import pytest
 import torch
 
+import torch_mesh_scenes as ms
 from rray_tpu_torch.config import RenderSettings
 from rray_tpu_torch.io.yaml_loader import load_scene_file
-from rray_tpu_torch.kernels import whitted
+from rray_tpu_torch.kernels import bvh, triangles, whitted
 from rray_tpu_torch.render.camera import Camera, all_rays_soa, compile_camera
 from rray_tpu_torch.scene.data import compile_scene
 
@@ -44,17 +48,56 @@ static void run(const SceneView& s, const float* const* rays, float* const* out,
   }
 }
 extern "C" void trace_all(const float* const* rays, float* const* out,
-                          const float* prims, int P, const float* pats, int N,
-                          const float* lights, int L, const int* ints, int R,
-                          int depth, int W, int refl, int refr) {
+                          const float* prims, int P, int G, const float* pats,
+                          int N, const float* lights, int L, const int* ints,
+                          const float* tris, int T, const float* tboxes,
+                          int n_chunks, int R, int depth, int W, int refl,
+                          int refr) {
   SceneView s;
   s.prims = prims; s.pats = pats; s.lights = lights; s.kinds = ints;
-  s.roots = ints + P; s.ptype = ints + 2 * P; s.pa = s.ptype + N;
-  s.pb = s.pa + N; s.P = P; s.L = L;
+  s.roots = ints + P; s.ptype = ints + 2 * P + G; s.pa = s.ptype + N;
+  s.pb = s.pa + N; s.tris = tris; s.tboxes = tboxes; s.P = P; s.L = L;
+  s.T = T; s.n_chunks = n_chunks;
   switch (W) {
     case 1: run<1>(s, rays, out, R, depth, refl, refr); break;
     case 4: run<4>(s, rays, out, R, depth, refl, refr); break;
     case 32: run<32>(s, rays, out, R, depth, refl, refr); break;
+  }
+}
+// The triangle kernels' bodies (triangles.cu, bvh.cu), one ray at a time.
+extern "C" void closest_all(const float* const* rays, const float* bound,
+                            const float* tris, int ncols, int T,
+                            const float* boxes, int n_chunks, int chunk,
+                            int normals, int n_aux, float* fout, int* iout,
+                            int R) {
+  for (int i = 0; i < R; ++i) {
+    TriHit h = closest_chunks(tris, ncols, T, boxes, n_chunks, chunk,
+                              v3(rays[0][i], rays[1][i], rays[2][i]),
+                              v3(rays[3][i], rays[4][i], rays[5][i]),
+                              bound ? bound[i] : INFINITY);
+    write_hit(h, tris, ncols, normals, n_aux, fout, iout, R, i);
+  }
+}
+extern "C" void any_all(const float* const* rays, const float* dist,
+                        const float* tris, int ncols, int T,
+                        const float* boxes, int n_chunks, int chunk, int* hit,
+                        int R) {
+  for (int i = 0; i < R; ++i)
+    hit[i] = any_chunks(tris, ncols, T, boxes, n_chunks, chunk,
+                        v3(rays[0][i], rays[1][i], rays[2][i]),
+                        v3(rays[3][i], rays[4][i], rays[5][i]), dist[i]);
+}
+extern "C" void bvh_all(const float* const* rays, const float* dist,
+                        const float* tris, int ncols, int T,
+                        const float* nodes, const float* subs, int Lp,
+                        int leaf, int subl, int any_hit, int normals,
+                        int n_aux, float* fout, int* iout, int R) {
+  for (int i = 0; i < R; ++i) {
+    TriHit h = bvh_walk(tris, ncols, T, nodes, subs, Lp, leaf, subl,
+                        v3(rays[0][i], rays[1][i], rays[2][i]),
+                        v3(rays[3][i], rays[4][i], rays[5][i]),
+                        dist ? dist[i] : INFINITY, any_hit != 0);
+    write_hit(h, tris, ncols, normals, n_aux, fout, iout, R, i);
   }
 }
 """
@@ -74,46 +117,70 @@ def host_lib(tmp_path_factory):
     return ctypes.CDLL(str(d / "libharness.so"))
 
 
-def _host_trace(lib, rays, prim_tbl, pat_tbl, light_tbl, kinds, descrs,
-                prim_pat, depth, W, refl, refr):
+def _c(a):
+    return ctypes.c_void_p(None if a is None else a.ctypes.data)
+
+
+def _np(t):
+    return None if t is None else np.ascontiguousarray(t.numpy())
+
+
+def _ptrs(xs):
+    return (ctypes.c_void_p * len(xs))(*(x.ctypes.data for x in xs))
+
+
+def _host_trace(lib, rays, prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs,
+                prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
+                tri_boxes=None):
     R = rays[0].shape[0]
-    arrs = [np.ascontiguousarray(r.numpy()) for r in rays]
+    arrs = [_np(r) for r in rays]
     outs = [np.empty(R, np.float32) for _ in range(3)]
-    tables = [np.ascontiguousarray(t.numpy()) for t in (prim_tbl, pat_tbl,
-                                                        light_tbl)]
-    ints = np.asarray(whitted.int_table(kinds, descrs, prim_pat,
+    tables = [_np(t) for t in (prim_tbl, pat_tbl, light_tbl, tri_tbl,
+                               tri_boxes)]
+    ints = np.asarray(whitted.int_table(kinds, pat_descrs, prim_pat,
                                         pat_tbl.shape[0]), np.int32)
-    ptrs = lambda xs: (ctypes.c_void_p * len(xs))(
-        *(x.ctypes.data for x in xs))
-    c = lambda a: ctypes.c_void_p(a.ctypes.data)
-    lib.trace_all(ptrs(arrs), ptrs(outs), c(tables[0]),
-                  ctypes.c_int(len(kinds)), c(tables[1]),
-                  ctypes.c_int(pat_tbl.shape[0]), c(tables[2]),
-                  ctypes.c_int(light_tbl.shape[0]), c(ints), ctypes.c_int(R),
-                  ctypes.c_int(depth), ctypes.c_int(W), ctypes.c_int(refl),
-                  ctypes.c_int(refr))
+    T = 0 if tri_tbl is None else tri_tbl.shape[0]
+    n_chunks = 0 if tri_boxes is None else tri_boxes.shape[1] - 1
+    i = ctypes.c_int
+    lib.trace_all(_ptrs(arrs), _ptrs(outs), _c(tables[0]), i(len(kinds)),
+                  i(len(prim_pat) - len(kinds)), _c(tables[1]),
+                  i(pat_tbl.shape[0]), _c(tables[2]),
+                  i(light_tbl.shape[0]), _c(ints), _c(tables[3]), i(T),
+                  _c(tables[4]), i(n_chunks), i(R), i(depth), i(W),
+                  i(has_refl), i(has_refr))
     return np.stack(outs)
 
 
+# Mesh scenes of the in-kernel mesh (stage d): smooth, reflective (the
+# width-1 chain replays the fold per level), flat with analytic spheres.
+MESH_SCENES = {"mesh": dict(lat_lon=(11, 11)),
+               "mesh_reflective": dict(lat_lon=(11, 11), reflective=0.3),
+               "mesh_flat_spheres": dict(lat_lon=(6, 6), smooth=False,
+                                         spheres=3)}
+
+
+def _scene_path(name, tmp):
+    if name in MESH_SCENES:
+        return ms.write_scene(tmp, name, **MESH_SCENES[name])
+    return os.path.join(BASE, "examples", name)
+
+
 @pytest.mark.parametrize("name,cap", [("example1.yaml", 4), ("glass.yaml", 4),
-                                      ("glass.yaml", 32)])
-def test_device_code_matches_plain_version(host_lib, name, cap):
-    cam_spec, lights, shapes = load_scene_file(
-        os.path.join(BASE, "examples", name))
+                                      ("glass.yaml", 32), ("mesh", 4),
+                                      ("mesh_reflective", 4),
+                                      ("mesh_flat_spheres", 4)])
+def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
+    cam_spec, lights, shapes = load_scene_file(_scene_path(name, tmp_path))
     scene = compile_scene(shapes, lights, dtype=torch.float32)
+    assert whitted.applicable(scene)
     cam = Camera(96, 72, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
     ro, rd = all_rays_soa(compile_camera(cam, torch.float32))
     rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
-    pat_tbl, descrs = whitted.pack_patterns(scene)
-    depth, W = whitted.wavefront_shape(
-        scene, RenderSettings(wavefront_capacity=cap))
-    args = (whitted.pack_prims(scene), pat_tbl, whitted.pack_lights(scene),
-            scene.prim_kinds, descrs, scene.prim_pattern_static, depth, W,
-            scene.has_reflective, scene.has_transparent)
+    args = whitted.kernel_inputs(scene, RenderSettings(wavefront_capacity=cap))
     plain = np.stack([c.numpy() for c in whitted.whitted_compact_reference(
-        rays[:3], rays[3:], *args)])
-    host = _host_trace(host_lib, rays, *args)
+        rays[:3], rays[3:], **args)])
+    host = _host_trace(host_lib, rays, **args)
     # Same operations in the same order; glibc's powf/sqrtf-based rsqrt
     # and PyTorch's vectorized pow/rsqrt may differ by an ulp, which the
     # shininess exponent can grow to ~1e-7 (measured max 1.3e-7). A
@@ -122,3 +189,81 @@ def test_device_code_matches_plain_version(host_lib, name, cap):
     diff = np.abs(host - plain).max(axis=0)
     assert np.isfinite(host).all()
     assert float((diff <= 1e-6).mean()) >= 0.999, diff.max()
+
+
+def _seeded_mesh(T, seed, normals):
+    """Clustered random triangles in front of seeded rays (float32)."""
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(-2.0, 2.0, (3, T))
+    cols = [*(centers + rng.uniform(-0.3, 0.3, (3, T))),
+            *rng.uniform(-0.6, 0.6, (6, T))]
+    if normals:
+        cols += list(rng.normal(size=(9, T)))
+    R = 512
+    o = rng.uniform(-1, 1, (3, R)) + np.array([[0.0], [0.0], [-8.0]])
+    d = rng.uniform(-0.3, 0.3, (3, R)) + np.array([[0.0], [0.0], [1.0]])
+    d /= np.linalg.norm(d, axis=0)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    bound = t(rng.uniform(4.0, 12.0, R))
+    return tuple(t(c) for c in (*o, *d)), tuple(t(c) for c in cols), bound
+
+
+@pytest.mark.parametrize("kind", ["closest", "closest_bounded", "any", "bvh",
+                                  "bvh_bounded", "bvh_any"])
+def test_triangle_device_code_matches_plain_versions(host_lib, kind):
+    """mesh_device.cuh's chunk folds and heap walk (with the kernels'
+    output writer) against kernels/triangles.py and kernels/bvh.py."""
+    use_bvh = kind.startswith("bvh")
+    T = 1536 if use_bvh else 200
+    rays, cols, bound = _seeded_mesh(T, 3 if use_bvh else 2,
+                                     normals=not kind.endswith("any"))
+    R = rays[0].shape[0]
+    aux = () if kind.endswith("any") else (torch.arange(T, dtype=torch.float32),)
+    bound = bound if kind != "closest" and kind != "bvh" else None
+    tbl = _np(triangles.pack_table(cols, aux))
+    ray_arrs = [_np(r) for r in rays]
+    i = ctypes.c_int
+    if kind == "any":
+        chunk = triangles.chunk_size(T)
+        boxes = _np(triangles.chunk_boxes(cols, chunk))
+        hit = np.empty(R, np.int32)
+        host_lib.any_all(_ptrs(ray_arrs), _c(_np(bound)), _c(tbl),
+                         i(tbl.shape[1]), i(T), _c(boxes),
+                         i(boxes.shape[1] - 1), i(chunk), _c(hit), i(R))
+        plain = triangles.any_triangle(rays[:3], rays[3:], cols, bound)
+        # Same arithmetic; only the box cull is extra on the device side.
+        assert (hit == plain.numpy()).mean() >= 0.999
+        return
+    n_float = 3 + (3 if len(cols) == 18 else 0) + len(aux)
+    fout = np.empty((n_float, R), np.float32)
+    iout = np.empty(R, np.int32)
+    if use_bvh:
+        leaf = bvh.auto_leaf(T, 128)
+        nodes, subs, Lp = bvh.build_tree(cols[0:3], cols[3:6], cols[6:9],
+                                         leaf, 64)
+        host_lib.bvh_all(_ptrs(ray_arrs), _c(_np(bound)), _c(tbl),
+                         i(tbl.shape[1]), i(T), _c(_np(nodes)), _c(_np(subs)),
+                         i(Lp), i(leaf), i(64), i(kind == "bvh_any"),
+                         i(len(cols) == 18), i(len(aux)), _c(fout), _c(iout),
+                         i(R))
+        plain = bvh.bvh_closest_triangle(rays[:3], rays[3:], cols, dist=bound,
+                                         aux=aux, any_hit=kind == "bvh_any")
+    else:
+        chunk = triangles.chunk_size(T)
+        boxes = _np(triangles.chunk_boxes(cols, chunk))
+        host_lib.closest_all(_ptrs(ray_arrs), _c(_np(bound)), _c(tbl),
+                             i(tbl.shape[1]), i(T), _c(boxes),
+                             i(boxes.shape[1] - 1), i(chunk),
+                             i(len(cols) == 18), i(len(aux)), _c(fout),
+                             _c(iout), i(R))
+        plain = triangles.closest_triangle(rays[:3], rays[3:], cols,
+                                           t_init=bound, aux=aux)
+    want = np.stack([p.numpy() for k, p in enumerate(plain) if k != 3])
+    # The same expressions in the same order with no transcendental:
+    # equal bit for bit wherever the device-side box culls keep the
+    # winner; a cull flipped by a rounding at a box face may change a
+    # ray's result (none measured; 0.1% of rays allowed).
+    same = (iout == plain[3].numpy()) & (
+        (fout == want) | (np.isinf(fout) & np.isinf(want))).all(0)
+    assert np.isfinite(fout[0]).any()
+    assert same.mean() >= 0.999, same.mean()
