@@ -9,21 +9,29 @@ It builds the port's CUDA kernels from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it, drives the main path
 (rray_tpu_torch.api.render_scene_from_file, what the CLI calls) at
-800x600 over the example scenes and four mesh scenes, and times kernels
-and plain versions (CUDA events; each kernel's own device time with
-torch.profiler). It prints the card, one line per
-phase, a JSON line describing the kernels, and last a JSON line naming
-the device. Any failure exits non-zero before the last line; without
-CUDA it exits 1 at once.
+800x600 over the example scenes, four mesh scenes and four area-light
+scenes (config 3, examples/area_light.yaml, also at aa=3), counting each
+kernel's launches per scene, and times kernels and plain versions (CUDA
+events; each kernel's own device time with torch.profiler). It prints
+the card, one line per phase, a JSON line describing the kernels, and
+last a JSON line naming the device. Any failure exits non-zero before
+the last line; without CUDA it exits 1 at once.
 
-The mesh scenes are written as YAML + OBJ into a temporary directory
-(UV spheres, as benchmarks/bench_mesh.py makes them; the camera, light
-and checker floor of rray_tpu's mesh benchmark cells):
+The generated scenes are written as YAML + OBJ into a temporary
+directory by rray_tpu_torch/io/mesh_scenes.py, the writer the CPU tests
+use (UV-sphere meshes; the camera, light and checker floor of rray_tpu's
+mesh benchmark cells; the area scenes swap the point light for config
+3's area light, level 5):
 
     mesh4   one 220-triangle sphere             whitted kernel, depth 0
     mesh4r  the same over a reflective floor    whitted kernel, depth 5
     mesh9   nine 60-triangle spheres, 9 colours fast node: triangle kernels
     mesh4b  one 3120-triangle sphere            fast node: BVH kernel
+    area4   mesh4 under the area light          whitted kernel, stages c+d
+    area21  20 spheres (5x4) over a reflective  fast node + area-shadow
+            floor: 21 analytic prims            kernel, depth 5
+    area4b  mesh4b under the area light         fast node: BVH any-hit
+                                                per shadow sample
 """
 from __future__ import annotations
 
@@ -41,7 +49,8 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 WIDTH, HEIGHT = 800, 600
 DEVICE = "cuda"
 EXAMPLES = (("glass", "examples/glass.yaml"),
-            ("example1", "examples/example1.yaml"))
+            ("example1", "examples/example1.yaml"),
+            ("area", "examples/area_light.yaml"))
 # Whole images, kernel vs plain version in float32 on the card: at most
 # this fraction of pixels may differ by more than PIX_TOL in some
 # channel (rsqrtf/powf ulps can flip a shadow or n1/n2 boundary
@@ -58,19 +67,32 @@ MAX_TOL = 1.0 / 255.0
 IDX_SHARE = 0.999
 HIT_TOL = 1e-5
 ANY_SHARE = 0.9999
+# The area-shadow kernel vs its plain version: the same fraction on at
+# least this share of origins (both count integer-exact draws; only a
+# sqrtf or division ulp at a shadow boundary could flip a sample).
+AREA_SHARE = 0.9999
 # Timing windows: at least this much device time per window, in turns
 # plain, kernel, kernel, plain.
 WINDOW_MS = 200.0
 # The card's peaks for the least-time bound (NVIDIA's H100 SXM data
-# sheet): HBM bandwidth and FP32 rate outside the tensor cores.
+# sheet): HBM bandwidth, the FP32 rate outside the tensor cores, and the
+# INT32 rate (half the FP32 rate on Hopper) for the jitter hash.
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FLOP_PER_S = 67e12
+PEAK_INT_PER_S = 33.5e12
 # Float operations per test, counted from the device code: a ray-prim
 # slot test is the world->object affine of origin and direction (36)
 # plus the slot form (~24, sphere/plane); a shadow occlusion test the
 # same affine plus ~20; a ray-triangle test is Moller-Trumbore (~50:
 # 9+5 cross/det, 1 div, 3+6 u, 9+6 q/v, 6 t, ~11 compares and sums).
 OPS_PRIM, OPS_OCCLUDE, OPS_TRI = 60, 56, 50
+# An area-light shadow sample, counted from jitter_device.cuh and
+# area_sample: the hash base per origin (3 fmix32 of 8 integer ops, 3
+# products, 3 xors: 30), two draws per sample (xor, product, fmix32,
+# shift: 11 integer ops and a convert each), and the sample's segment
+# (ur/vr 2 adds, 2 divides, 2 products; position 12; segment 3; length
+# 5 + sqrt; 1/max 2; direction 3: ~30 float ops).
+OPS_HASH_BASE, OPS_SAMPLE_INT, OPS_SAMPLE_FP = 30, 24, 30
 # Rays per step of the least-work count ([RAY_STEP, T] temporaries).
 RAY_STEP = 8192
 
@@ -80,102 +102,17 @@ def fail(msg: str):
     sys.exit(1)
 
 
-# ---------------------------------------------------------------------------
-# Mesh scenes (a copy of benchmarks/bench_mesh.py::uv_sphere_obj, so this
-# script imports nothing of rray_tpu).
-# ---------------------------------------------------------------------------
-
-def uv_sphere_obj(n_lat=40, n_lon=40):
-    """OBJ text of a smooth UV sphere (~2 * n_lat * n_lon triangles)."""
-    import numpy as np
-
-    lines = []
-    for i in range(n_lat + 1):
-        theta = np.pi * i / n_lat
-        for j in range(n_lon):
-            phi = 2 * np.pi * j / n_lon
-            x = np.sin(theta) * np.cos(phi)
-            y = np.cos(theta)
-            z = np.sin(theta) * np.sin(phi)
-            lines.append(f"v {x} {y} {z}")
-            lines.append(f"vn {x} {y} {z}")
-
-    def vid(i, j):
-        return i * n_lon + (j % n_lon) + 1
-
-    for i in range(n_lat):
-        for j in range(n_lon):
-            a, b = vid(i, j), vid(i + 1, j)
-            c, d = vid(i + 1, j + 1), vid(i, j + 1)
-            if i > 0:
-                lines.append(f"f {a}//{a} {b}//{b} {d}//{d}")
-            if i < n_lat - 1:
-                lines.append(f"f {b}//{b} {c}//{c} {d}//{d}")
-    return "\n".join(lines)
-
-
-SCENE_HEAD = """camera:
-  fov: 60
-  from: [0, 1.5, -4]
-  to: [0, 0.7, 0]
-  up: [0, 1, 0]
-lights:
-  - type: point
-    position: [-10, 10, -10]
-    color: [1, 1, 1]
-scene:
-  - type: plane
-    material:
-      pattern:
-        type: checker
-        color_a: [1, 1, 1]
-        color_b: [0.2, 0.2, 0.2]
-      specular: 0
-      reflective: {reflective}
-"""
-MESH_ENTRY = """  - type: obj_file
-    obj_file: {obj}
-    transforms:
-      - type: scale
-        amount: [{s}, {s}, {s}]
-      - type: translate
-        amount: [{x}, {y}, {z}]
-    material:
-      pattern:
-        type: solid
-        color: [{r}, {g}, {b}]
-"""
-NINE = [(0.9, 0.2, 0.2), (0.2, 0.9, 0.2), (0.2, 0.2, 0.9), (0.9, 0.9, 0.2),
-        (0.9, 0.2, 0.9), (0.2, 0.9, 0.9), (0.6, 0.4, 0.2), (0.4, 0.2, 0.6),
-        (0.8, 0.8, 0.8)]
-MESH_SCENES = (  # name, (n_lat, n_lon), floor reflective, nine-mesh grid
-    ("mesh4", (11, 11), 0.0, False),
-    ("mesh4r", (11, 11), 0.3, False),
-    ("mesh9", (6, 6), 0.0, True),
-    ("mesh4b", (40, 40), 0.0, False),
-)
-
-
-def write_mesh_scenes(tmp):
-    paths = {}
-    for name, lat_lon, reflective, grid in MESH_SCENES:
-        obj = os.path.join(tmp, f"{name}.obj")
-        with open(obj, "w") as f:
-            f.write(uv_sphere_obj(*lat_lon))
-        text = SCENE_HEAD.format(reflective=reflective)
-        if grid:
-            for k, (r, g, b) in enumerate(NINE):
-                text += MESH_ENTRY.format(obj=obj, s=0.3,
-                                          x=(k % 3 - 1) * 0.9, y=0.5,
-                                          z=(k // 3 - 1) * 0.9, r=r, g=g,
-                                          b=b)
-        else:
-            text += MESH_ENTRY.format(obj=obj, s=1.0, x=0, y=1, z=0, r=0.7,
-                                      g=0.5, b=0.2)
-        paths[name] = os.path.join(tmp, f"{name}.yaml")
-        with open(paths[name], "w") as f:
-            f.write(text)
-    return paths
+# The generated scenes: rray_tpu_torch/io/mesh_scenes.py write_scene
+# arguments, by name.
+SCENES = {
+    "mesh4": dict(lat_lon=(11, 11)),
+    "mesh4r": dict(lat_lon=(11, 11), reflective=0.3),
+    "mesh9": dict(lat_lon=(6, 6), grid=True),
+    "mesh4b": dict(lat_lon=(40, 40)),
+    "area4": dict(lat_lon=(11, 11), area_level=5),
+    "area21": dict(lat_lon=None, spheres=20, reflective=0.3, area_level=5),
+    "area4b": dict(lat_lon=(40, 40), area_level=5),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -189,7 +126,9 @@ def card_state():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def camera_scene(path, torch):
+def camera_scene(path, torch, aa=1):
+    """(compiled scene, camera rays) at WIDTH*aa x HEIGHT*aa, as the main
+    path sizes its camera."""
     from rray_tpu_torch.io.yaml_loader import load_scene_file
     from rray_tpu_torch.render.camera import (Camera, all_rays_soa,
                                               compile_camera)
@@ -197,7 +136,7 @@ def camera_scene(path, torch):
 
     cam_spec, lights, shapes = load_scene_file(path)
     scene = compile_scene(shapes, lights, dtype=torch.float32, device=DEVICE)
-    cam = Camera(WIDTH, HEIGHT, cam_spec["fov"])
+    cam = Camera(WIDTH * aa, HEIGHT * aa, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
     return scene, all_rays_soa(compile_camera(cam, torch.float32, DEVICE))
 
@@ -310,6 +249,22 @@ def compare_hits(torch, kern, plain, n_aux, what):
     return worst
 
 
+def compare_fractions(torch, kern, plain, what):
+    """Area-shadow fractions: equal on at least AREA_SHARE of origins ->
+    max |diff|."""
+    if not bool(torch.isfinite(kern).all()):
+        fail(f"{what}: the kernel produced non-finite values")
+    share = float((kern == plain).double().mean())
+    max_abs = float((kern - plain).abs().max())
+    if share < AREA_SHARE:
+        fail(f"{what}: fractions equal on {share:.6f} of origins (limit "
+             f"{AREA_SHARE}), max |diff| {max_abs:.3e}")
+    print(f"parity {what}: fractions equal on {share:.6f} of origins, max "
+          f"|kernel - plain| {max_abs:.3e}, mean fraction "
+          f"{float(plain.mean()):.4f}")
+    return max_abs
+
+
 def compare_flags(torch, kern, plain, what):
     share = float((kern == plain).double().mean())
     if share < ANY_SHARE:
@@ -349,83 +304,188 @@ def triangle_tests(torch, rays, geom, bound):
     return total
 
 
-def bound_ms(n_bytes, n_ops):
+def area_tests(torch, over, L, level, seed, blocked, geom=None):
+    """Least work of an area light's samples at shadow origins `over`
+    (3 [R] tensors) for light row L (corner, uvec, vvec at 6-14):
+    (samples, blocked samples, ray-triangle tests). A blocked sample
+    needs one occlusion test, an open one a test of every analytic prim
+    and of every mesh triangle whose own AABB its segment enters before
+    the light. `blocked(over, dirs, dist)` is the plain shadow predicate
+    (the sample geometry is the kernels' area_sample)."""
+    from rray_tpu_torch.kernels import analytic
+    from rray_tpu_torch.ops import jitter
+    from rray_tpu_torch.ops.vec import V3
+
+    hb = jitter.point_base(seed, *over)
+    n_blocked = tri = 0
+    for k in range(level * level):
+        d, dist = analytic.area_sample(L[6:15], hb, k, level, V3(*over))
+        dirs = (d.x, d.y, d.z)
+        occ = blocked(over, dirs, dist)
+        n_blocked += int(occ.sum())
+        if geom is not None:
+            tri += triangle_tests(torch, (tuple(over), dirs), geom,
+                                  torch.where(occ, -math.inf, dist))
+    return over[0].shape[0] * level * level, n_blocked, tri
+
+
+def bound_ms(n_bytes, n_ops, n_int=0):
     """The least time the card could take: the larger of bytes over its
-    memory rate and operations over its FP32 rate -> (ms, which bounds
-    it, a line giving both terms)."""
+    memory rate and operations over their rate (float at the FP32 rate,
+    integer at the INT32 rate) -> (ms, which bounds it, a line giving
+    both terms)."""
     by_bytes = n_bytes / PEAK_BYTES_PER_S * 1e3
-    by_ops = n_ops / PEAK_FLOP_PER_S * 1e3
+    by_ops = (n_ops / PEAK_FLOP_PER_S + n_int / PEAK_INT_PER_S) * 1e3
     return (max(by_bytes, by_ops),
             "bytes" if by_bytes >= by_ops else "operations",
             f"bytes {by_bytes:.6f} ms, operations {by_ops:.6f} ms")
 
 
 @contextlib.contextmanager
-def plain_triangle_kernels():
-    """Route the fast node's triangle calls to the plain versions on the
-    card, to render its plain image (kernel calls made meanwhile would
-    not count: none are)."""
-    from rray_tpu_torch.kernels import bvh, triangles
+def plain_kernels():
+    """Route the fast node's kernel calls (triangle, BVH, area shadow) to
+    the plain versions on the card, to render its plain image (kernel
+    calls made meanwhile would not count: none are)."""
+    from rray_tpu_torch.kernels import analytic, bvh, triangles
 
     def plain(fn):
         return lambda *a, **k: fn(*a, **{key: v for key, v in k.items()
                                          if key != "leaf"}, chunk=128)
 
     saved = (triangles.closest_triangle, triangles.any_triangle,
-             bvh.bvh_closest_triangle)
+             bvh.bvh_closest_triangle, analytic.area_shadow_fraction)
     triangles.closest_triangle = plain(triangles.closest_triangle_reference)
     triangles.any_triangle = plain(triangles.any_triangle_reference)
     bvh.bvh_closest_triangle = plain(bvh.bvh_closest_triangle_reference)
+    analytic.area_shadow_fraction = analytic.area_shadow_fraction_reference
     try:
         yield
     finally:
         (triangles.closest_triangle, triangles.any_triangle,
-         bvh.bvh_closest_triangle) = saved
+         bvh.bvh_closest_triangle, analytic.area_shadow_fraction) = saved
 
 
 # ---------------------------------------------------------------------------
 # Phases.
 # ---------------------------------------------------------------------------
 
-def whitted_phase(torch, name, path, results):
+def whitted_phase(torch, name, path, results, aa=1):
     """The whitted kernel against its plain version on one scene's camera
-    rays; the primary level's tests for the bound."""
+    rays at WIDTH*aa x HEIGHT*aa; the primary level's tests for the
+    bound (every area-light sample included)."""
     from rray_tpu_torch.config import RenderSettings
     from rray_tpu_torch.kernels import triangles, whitted
     from rray_tpu_torch.ops import soa
+    from rray_tpu_torch.ops.vec import V3
 
-    scene, (ro, rd) = camera_scene(path, torch)
+    scene, (ro, rd) = camera_scene(path, torch, aa)
     rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
     inputs = whitted.kernel_inputs(scene, RenderSettings())
     kern = whitted.whitted_compact(*rays, **inputs)
     plain = whitted.whitted_compact_reference(*rays, **inputs)
     torch.cuda.synchronize()
     max_abs = compare_images(torch, kern, plain, name)
-    print(f"parity whitted {name} {WIDTH}x{HEIGHT} (depth {inputs['depth']},"
-          f" W {inputs['W']}, {scene.counts[6]} triangles): max |kernel - "
-          f"plain| {max_abs:.3e}")
+    print(f"parity whitted {name} {WIDTH * aa}x{HEIGHT * aa} (depth "
+          f"{inputs['depth']}, W {inputs['W']}, {scene.counts[6]} triangles, "
+          f"light levels {inputs['light_levels']}): max |kernel - plain| "
+          f"{max_abs:.3e}")
     # Least work, primary level only: every ray tests every analytic
-    # prim; every hit tests every analytic occluder per light; every mesh
-    # triangle whose AABB a ray enters before its closest hit.
+    # prim; every hit tests every analytic occluder per point light and,
+    # per area-light sample, one occluder when the sample is blocked and
+    # every analytic prim and entered triangle when it is open; every
+    # mesh triangle whose AABB a ray enters before its closest hit.
     R, P = ro.x.shape[0], len(inputs["kinds"])
     t_an = soa.analytic_closest(scene, ro, rd)[0]
-    tests_tri, t_hit = 0, t_an
+    tests_tri, t_hit, geom, mesh = 0, t_an, None, None
     if scene.counts[6]:
         cols = inputs["tri_tbl"].unbind(1)
         T = scene.counts[6]
         geom = tuple(c[:T].contiguous() for c in cols[:9])
+        mesh = (cols[:18], cols[18])
         t_mesh = triangles.closest_triangle(*rays, geom, t_init=t_an)[0]
         t_hit = torch.minimum(t_an, t_mesh)
         tests_tri = triangle_tests(torch, rays, geom, t_hit)
-    hits = int(torch.isfinite(t_hit).sum())
-    L = inputs["light_tbl"].shape[0]
-    n_ops = (R * P * OPS_PRIM + hits * L * P * OPS_OCCLUDE
+    found = torch.isfinite(t_hit)
+    hits = int(found.sum())
+    levels = inputs["light_levels"]
+    n_ops = (R * P * OPS_PRIM + hits * levels.count(0) * P * OPS_OCCLUDE
              + tests_tri * OPS_TRI)
-    n_bytes = 4 * (9 * R + sum(t.numel() for k, t in inputs.items()
-                               if k.endswith("_tbl")))
+    n_int = 0
+    if any(levels):
+        prims, lights = inputs["prim_tbl"].tolist(), \
+            inputs["light_tbl"].tolist()
+        seeds = inputs["seeds"][0].tolist()
+        over = whitted._node(
+            inputs["kinds"], inputs["pat_descrs"], inputs["prim_pat"],
+            inputs["has_refl"], inputs["has_refr"], prims,
+            inputs["pat_tbl"].tolist(), lights, levels, seeds, mesh,
+            V3(ro.x, ro.y, ro.z), V3(rd.x, rd.y, rd.z))[1]
+        over = (over.x[found], over.y[found], over.z[found])
+        blocked = lambda o, dirs, dist: whitted._blocked(
+            inputs["kinds"], prims, mesh, V3(*o), *dirs, dist)
+        for li, level in enumerate(levels):
+            if level == 0:
+                continue
+            samples, n_blocked, tri = area_tests(
+                torch, over, lights[li], level, seeds[li], blocked, geom)
+            n_int += hits * OPS_HASH_BASE + samples * OPS_SAMPLE_INT
+            n_ops += (samples * OPS_SAMPLE_FP
+                      + (samples - n_blocked) * P * OPS_OCCLUDE
+                      + n_blocked * OPS_OCCLUDE + tri * OPS_TRI)
+            print(f"work whitted {name} light {li}: {samples} samples at "
+                  f"{hits} hits, {n_blocked} blocked, {tri} triangle tests")
+    n_bytes = 4 * (9 * R + inputs["seeds"].numel()
+                   + sum(t.numel() for k, t in inputs.items()
+                         if k.endswith("_tbl")))
     results.setdefault("whitted", {})[name] = dict(
-        rays=rays, inputs=inputs, plain=plain, max_abs=max_abs,
-        bound=bound_ms(n_bytes, n_ops))
+        rays=rays, inputs=inputs, plain=plain, max_abs=max_abs, aa=aa,
+        bound=bound_ms(n_bytes, n_ops, n_int))
+
+
+def area_phase(torch, name, path, results):
+    """The area-shadow kernel (B5) against its plain version on the
+    inputs the fast node gives it at the primary level of one scene: its
+    first call's origins, seed, light and prim rows."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.kernels import analytic
+    from rray_tpu_torch.ops import jitter
+    from rray_tpu_torch.render import integrator
+
+    scene, (ro, rd) = camera_scene(path, torch)
+    calls = []
+    kernel = analytic.area_shadow_fraction
+    analytic.area_shadow_fraction = lambda *a: calls.append(a) or kernel(*a)
+    try:
+        integrator._fast_node_eval(
+            scene, ro, rd, RenderSettings(),
+            jitter.seed_table(0, 0, len(scene.lights))[0].tolist())
+    finally:
+        analytic.area_shadow_fraction = kernel
+    if not calls:
+        fail(f"{name}: the fast node made no area-shadow call")
+    args = calls[0]
+    fn = functools.partial(analytic.area_shadow_fraction, *args)
+    plain_fn = functools.partial(analytic.area_shadow_fraction_reference,
+                                 *args)
+    kern, plain = fn(), plain_fn()
+    torch.cuda.synchronize()
+    err = compare_fractions(torch, kern, plain, f"area_shadow_fraction {name}")
+    # Least work: every origin's hash base, every sample's draws and
+    # segment, one occlusion test for a blocked sample and P for an open
+    # one. Bytes: origins in, fraction out, the light and prim rows.
+    over, _, _, params, kinds, level = args
+    R, P, n = over[0].shape[0], len(kinds), level * level
+    samples = R * n
+    n_blocked = int(torch.round(plain * n).sum())
+    n_ops = (samples * OPS_SAMPLE_FP + (samples - n_blocked) * P * OPS_OCCLUDE
+             + n_blocked * OPS_OCCLUDE)
+    n_int = R * OPS_HASH_BASE + samples * OPS_SAMPLE_INT
+    n_bytes = 4 * (4 * R + params.numel() + 9 + P)
+    print(f"work area_shadow_fraction {name}: {R} origins, {P} prims, "
+          f"{samples} samples, {n_blocked} blocked")
+    results.setdefault("area_shadow_fraction", []).append(dict(
+        what=name, fn=fn, plain_fn=plain_fn, max_abs=err,
+        bound=bound_ms(n_bytes, n_ops, n_int)))
 
 
 def triangle_phase(torch, name, path, results):
@@ -512,29 +572,55 @@ def triangle_phase(torch, name, path, results):
         bound=bound_ms(n_bytes, tests * OPS_TRI)))
 
 
+# The main path's runs: (scene, aa, the kernels that scene's path must
+# launch).
+RUNS = (("glass", 1, ("whitted_compact",)),
+        ("example1", 1, ("whitted_compact",)),
+        ("example1", 2, ("whitted_compact",)),
+        ("mesh4", 1, ("whitted_compact",)),
+        ("mesh4r", 1, ("whitted_compact",)),
+        ("mesh9", 1, ("closest_triangle", "any_triangle")),
+        ("mesh4b", 1, ("bvh_closest_triangle",)),
+        ("area", 1, ("whitted_compact",)),
+        ("area", 3, ("whitted_compact",)),
+        ("area4", 1, ("whitted_compact",)),
+        ("area21", 1, ("area_shadow_fraction",)),
+        ("area4b", 1, ("bvh_closest_triangle",)))
+
+
+def launch_counts(reset=False):
+    """Every kernel wrapper's launch count (set to 0 first if `reset`)."""
+    from rray_tpu_torch.kernels import analytic, bvh, triangles, whitted
+
+    if reset:
+        whitted.launches = analytic.launches = bvh.launches = 0
+        triangles.closest_launches = triangles.any_launches = 0
+    return {"whitted_compact": whitted.launches,
+            "closest_triangle": triangles.closest_launches,
+            "any_triangle": triangles.any_launches,
+            "bvh_closest_triangle": bvh.launches,
+            "area_shadow_fraction": analytic.launches}
+
+
 def main_path(torch, np, scene_paths):
-    """The main path as the CLI drives it, counts from zero -> images and
-    the launch counts."""
+    """The main path as the CLI drives it, each scene's run with the
+    launch counts set to 0 just before it and read just after -> images
+    and the launch counts summed over the runs."""
     from PIL import Image
 
     from rray_tpu_torch import api
-    from rray_tpu_torch.kernels import bvh, triangles, whitted
 
-    runs = [("glass", scene_paths["glass"], 1),
-            ("example1", scene_paths["example1"], 1),
-            ("example1", scene_paths["example1"], 2)]
-    runs += [(name, scene_paths[name], 1) for name, *_ in MESH_SCENES]
-    whitted.launches = 0
-    triangles.closest_launches = triangles.any_launches = 0
-    bvh.launches = 0
-    images = {}
+    images, total = {}, launch_counts(reset=True)
     with tempfile.TemporaryDirectory() as tmp:
-        for name, path, aa in runs:
+        for name, aa, expect in RUNS:
             png = os.path.join(tmp, f"{name}_aa{aa}.png")
+            launch_counts(reset=True)
             t0 = time.perf_counter()
-            image = api.render_scene_from_file(path, WIDTH, HEIGHT, png,
-                                               aa=aa, device=DEVICE)
+            image = api.render_scene_from_file(scene_paths[name], WIDTH,
+                                               HEIGHT, png, aa=aa,
+                                               device=DEVICE)
             wall = time.perf_counter() - t0
+            counts = launch_counts()
             shape = np.asarray(Image.open(png)).shape
             if shape != (HEIGHT, WIDTH, 4):
                 fail(f"{png}: PNG shape {shape}")
@@ -542,27 +628,43 @@ def main_path(torch, np, scene_paths):
                 fail(f"{name} aa={aa}: non-finite image")
             images[(name, aa)] = image
             print(f"main path {name} {WIDTH}x{HEIGHT} aa={aa}: PNG {shape}, "
-                  f"{wall * 1e3:.1f} ms wall, PNG write included "
+                  f"{wall * 1e3:.1f} ms wall, PNG write included, launches "
+                  f"{json.dumps({k: n for k, n in counts.items() if n})} "
                   f"[{card_state()}]")
-    counts = {"whitted_compact": whitted.launches,
-              "closest_triangle": triangles.closest_launches,
-              "any_triangle": triangles.any_launches,
-              "bvh_closest_triangle": bvh.launches}
-    print(f"main path kernel launches: {json.dumps(counts)}")
-    for kname, n in counts.items():
-        if n < 1:
-            fail(f"the main path launched {kname} {n} times")
-    return images, counts
+            for kname in expect:
+                if counts[kname] < 1:
+                    fail(f"the main path on {name} aa={aa} launched {kname} "
+                         f"{counts[kname]} times")
+            total = {k: total[k] + counts[k] for k in total}
+    print(f"main path kernel launches: {json.dumps(total)}")
+    return images, total
 
 
-def frame_breakdown(torch, np, name, path, reps=5):
-    """Where a CLI-path frame's wall time goes (host clock, each phase
-    ended by a synchronize; medians of `reps` calls after a warm-up),
-    and the device's busy share of one frame (torch.profiler)."""
+def whitted_plain_image(torch, np, path, aa):
+    """The main path's image of a whitted-kernel scene with the kernel's
+    plain version in its place (camera rays, downsampled by aa)."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.kernels import whitted
+    from rray_tpu_torch.render import canvas
+
+    scene, (ro, rd) = camera_scene(path, torch, aa)
+    rgb = whitted.whitted_compact_reference(
+        (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z),
+        **whitted.kernel_inputs(scene, RenderSettings()))
+    image = torch.stack(rgb, -1).reshape(HEIGHT * aa, WIDTH * aa, 3)
+    return canvas.downsample(image.cpu().numpy(), aa)
+
+
+def frame_breakdown(torch, np, name, path, aa=1, reps=5):
+    """Where a CLI-path frame's wall time goes at WIDTH x HEIGHT, aa
+    (host clock, each phase ended by a synchronize; medians of `reps`
+    calls after a warm-up), and the device's busy share of one frame
+    (torch.profiler)."""
     from rray_tpu_torch import api
     from rray_tpu_torch.config import RenderSettings
     from rray_tpu_torch.io.yaml_loader import load_scene_file
     from rray_tpu_torch.kernels import whitted
+    from rray_tpu_torch.ops import jitter
     from rray_tpu_torch.render import canvas, integrator
     from rray_tpu_torch.render.camera import (Camera, all_rays_soa,
                                               compile_camera)
@@ -586,7 +688,7 @@ def frame_breakdown(torch, np, name, path, reps=5):
             t0 = mark("load_scene_file (YAML, OBJ)", t0)
             scene = compile_scene(shapes, lights, device=DEVICE)
             t0 = mark("compile_scene", t0)
-            cam = Camera(WIDTH, HEIGHT, cam_spec["fov"])
+            cam = Camera(WIDTH * aa, HEIGHT * aa, cam_spec["fov"])
             cam.transform = cam_spec["transform"]
             ro, rd = all_rays_soa(compile_camera(cam, torch.float32, DEVICE))
             t0 = mark("camera rays", t0)
@@ -598,18 +700,21 @@ def frame_breakdown(torch, np, name, path, reps=5):
                                               (rd.x, rd.y, rd.z), **inputs)
                 t0 = mark("whitted kernel call", t0)
             else:
-                out = integrator.color_at_fast(scene, ro, rd, settings.depth,
-                                               settings)
+                out = integrator.color_at_fast(
+                    scene, ro, rd, settings.depth, settings,
+                    jitter.seed_table(0, settings.depth, len(scene.lights)))
                 rgb = (out.x, out.y, out.z)
                 t0 = mark("fast node (triangle kernels + torch ops)", t0)
-            image = torch.stack(rgb, -1).reshape(HEIGHT, WIDTH, 3)
+            image = torch.stack(rgb, -1).reshape(HEIGHT * aa, WIDTH * aa, 3)
             image = image.cpu().numpy()
             t0 = mark("image to host", t0)
+            image = canvas.downsample(image, aa)
+            t0 = mark("AA downsample (host)", t0)
             canvas.write_png(png, image)
             t0 = mark("write_png", t0)
             mark("frame, by phases", start)
             t0 = time.perf_counter()
-            api.render_scene_from_file(path, WIDTH, HEIGHT, png,
+            api.render_scene_from_file(path, WIDTH, HEIGHT, png, aa=aa,
                                        device=DEVICE)
             mark("render_scene_from_file", t0)
             if rep == 0:  # warm-up
@@ -618,7 +723,7 @@ def frame_breakdown(torch, np, name, path, reps=5):
                       torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            api.render_scene_from_file(path, WIDTH, HEIGHT, png,
+            api.render_scene_from_file(path, WIDTH, HEIGHT, png, aa=aa,
                                        device=DEVICE)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
@@ -627,11 +732,11 @@ def frame_breakdown(torch, np, name, path, reps=5):
               for e in prof.key_averages()]
     busy = sum(ms for ms, _ in device)
     for key, vals in phases.items():
-        print(f"where the time goes {name} {WIDTH}x{HEIGHT}: {key} "
+        print(f"where the time goes {name} {WIDTH}x{HEIGHT} aa={aa}: {key} "
               f"{float(np.median(vals)):.3f} ms (median of {len(vals)})")
     top = ", ".join(f"{key} {ms:.3f} ms" for ms, key in
                     sorted(device, reverse=True)[:5] if ms > 0)
-    print(f"where the time goes {name}: device busy {busy:.3f} ms of a "
+    print(f"where the time goes {name} aa={aa}: device busy {busy:.3f} ms of a "
           f"{wall:.1f} ms profiled frame ({100 * busy / wall:.1f}%); top "
           f"device time: {top} [{card_state()}]")
 
@@ -645,7 +750,9 @@ def main() -> int:
     import numpy as np
 
     from rray_tpu_torch import api
+    from rray_tpu_torch.io import mesh_scenes
     from rray_tpu_torch.kernels import build, whitted
+    from rray_tpu_torch.render import canvas
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -665,32 +772,47 @@ def main() -> int:
 
     tmp = tempfile.TemporaryDirectory()
     scene_paths = {name: os.path.join(ROOT, path) for name, path in EXAMPLES}
-    scene_paths.update(write_mesh_scenes(tmp.name))
+    scene_paths.update({name: mesh_scenes.write_scene(tmp.name, name, **kw)
+                        for name, kw in SCENES.items()})
 
     results = {}
-    for name in ("glass", "example1", "mesh4", "mesh4r"):
-        whitted_phase(torch, name, scene_paths[name], results)
+    for name, aa in (("glass", 1), ("example1", 1), ("mesh4", 1),
+                     ("mesh4r", 1), ("area", 3), ("area4", 1)):
+        whitted_phase(torch, name, scene_paths[name], results, aa)
     for name in ("mesh9", "mesh4b"):
         triangle_phase(torch, name, scene_paths[name], results)
+    area_phase(torch, "area21", scene_paths["area21"], results)
 
     images, counts = main_path(torch, np, scene_paths)
     # Main-path images against the plain versions': the whitted kernel's
-    # scenes against whitted_compact_reference, the fast node's against
-    # the same node with the plain triangle versions.
-    for name in ("glass", "example1", "mesh4", "mesh4r"):
-        img = torch.from_numpy(images[(name, 1)]).to(DEVICE).reshape(-1, 3)
-        compare_images(torch, img.unbind(-1),
-                       results["whitted"][name]["plain"], f"main path {name}")
-    for name in ("mesh9", "mesh4b"):
-        with plain_triangle_kernels():
+    # scenes against whitted_compact_reference (area at aa=3 against the
+    # plain image of the 4.32 M rays above, downsampled), the fast node's
+    # against the same node with the plain kernel versions.
+    for name, aa in (("glass", 1), ("example1", 1), ("mesh4", 1),
+                     ("mesh4r", 1), ("area", 3), ("area4", 1)):
+        res = results["whitted"][name]
+        plain = torch.stack(res["plain"], -1).reshape(HEIGHT * aa,
+                                                      WIDTH * aa, 3)
+        plain = torch.from_numpy(canvas.downsample(plain.cpu().numpy(), aa))
+        img = torch.from_numpy(images[(name, aa)])
+        compare_images(torch, img.to(DEVICE).unbind(-1),
+                       plain.to(DEVICE).unbind(-1),
+                       f"main path {name} aa={aa}")
+    plain = whitted_plain_image(torch, np, scene_paths["area"], 1)
+    diff = compare_images(
+        torch, torch.from_numpy(images[("area", 1)]).to(DEVICE).unbind(-1),
+        torch.from_numpy(plain).to(DEVICE).unbind(-1), "main path area aa=1")
+    print(f"parity main path area aa=1: max |kernel - plain| {diff:.3e}")
+    for name in ("mesh9", "mesh4b", "area21", "area4b"):
+        with plain_kernels():
             plain = api.render_scene_from_file(scene_paths[name], WIDTH,
                                                HEIGHT, "", device=DEVICE)
         diff = compare_images(
             torch, torch.from_numpy(images[(name, 1)]).to(DEVICE).unbind(-1),
             torch.from_numpy(plain).to(DEVICE).unbind(-1), f"main path {name}")
         print(f"parity main path {name}: max |kernels - plain| {diff:.3e}")
-    for name in ("mesh4", "mesh4b"):
-        frame_breakdown(torch, np, name, scene_paths[name])
+    for name, aa in (("mesh4", 1), ("mesh4b", 1), ("area", 3)):
+        frame_breakdown(torch, np, name, scene_paths[name], aa)
     tmp.cleanup()
 
     # Times on the card, in turns.
@@ -702,20 +824,21 @@ def main() -> int:
                                      *res["rays"], **res["inputs"])
         res["ms"], res["call_ms"], res["plain_ms"] = timed_turns(
             torch, f"whitted_compact {name}", "whitted_kernel", fn, plain_fn)
-        n = WIDTH * HEIGHT
-        print(f"time whitted_compact {name} {WIDTH}x{HEIGHT}: kernel "
-              f"{res['ms']:.4f} ms/frame ({n / res['ms'] * 1e3:.4g} primary "
-              f"rays/s), call {res['call_ms']:.4f} ms, plain "
+        w, h = WIDTH * res["aa"], HEIGHT * res["aa"]
+        print(f"time whitted_compact {name} {w}x{h}: kernel "
+              f"{res['ms']:.4f} ms/frame ({w * h / res['ms'] * 1e3:.4g} "
+              f"primary rays/s), call {res['call_ms']:.4f} ms, plain "
               f"{res['plain_ms']:.4f} ms/frame, bound {res['bound'][0]:.5f} "
               f"ms ({res['bound'][2]}) [{card}]")
     device_names = {"closest_triangle": "closest_kernel",
                     "any_triangle": "any_kernel",
-                    "bvh_closest_triangle": "bvh_kernel"}
-    for kname in ("closest_triangle", "any_triangle", "bvh_closest_triangle"):
+                    "bvh_closest_triangle": "bvh_kernel",
+                    "area_shadow_fraction": "area_kernel"}
+    for kname, dname in device_names.items():
         for res in results[kname]:
             res["ms"], res["call_ms"], res["plain_ms"] = timed_turns(
-                torch, f"{kname} {res['what']}", device_names[kname],
-                res["fn"], res["plain_fn"])
+                torch, f"{kname} {res['what']}", dname, res["fn"],
+                res["plain_fn"])
             print(f"time {kname} {res['what']} {WIDTH}x{HEIGHT}: kernel "
                   f"{res['ms']:.5f} ms, call {res['call_ms']:.5f} ms, plain "
                   f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.5f} ms "
@@ -724,7 +847,8 @@ def main() -> int:
     sources = {"whitted_compact": ("whitted.cu", "whitted.py:1464"),
                "closest_triangle": ("triangles.cu", "triangles.py:385"),
                "any_triangle": ("triangles.cu", "triangles.py:320"),
-               "bvh_closest_triangle": ("bvh.cu", "bvh.py:558")}
+               "bvh_closest_triangle": ("bvh.cu", "bvh.py:558"),
+               "area_shadow_fraction": ("area.cu", "analytic.py:144")}
     for kname, (src, tpu) in sources.items():
         if kname == "whitted_compact":
             res = results["whitted"]["glass"]

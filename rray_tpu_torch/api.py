@@ -37,16 +37,16 @@ def render_scene(camera_spec, lights, shapes, width: int, height: int,
                  aa: int = 1, settings: RenderSettings = None, seed: int = 0,
                  dtype=torch.float32, device="cuda") -> np.ndarray:
     """Render a loaded scene -> linear float image [height, width, 3]
-    (already AA-downsampled). `seed` is the sampling seed of area lights
-    (ROADMAP B1c); the point-light scenes of this slice draw no random
-    numbers."""
+    (already AA-downsampled). `seed` keys the area lights' jitter draws,
+    as rray_tpu's `seed` does (the same seed gives the same image);
+    point lights draw no random numbers."""
     dev = _device(device)
     settings = settings or RenderSettings()
     scene = compile_scene(shapes, lights, dtype=dtype, device=dev)
     cam = Camera(width * aa, height * aa, camera_spec["fov"])
     cam.transform = camera_spec["transform"]
     t0 = time.perf_counter()
-    image = render(scene, compile_camera(cam, dtype, dev), settings)
+    image = render(scene, compile_camera(cam, dtype, dev), settings, seed)
     image = image.cpu().numpy()
     dt = time.perf_counter() - t0
     log.info("rendered %dx%d (aa=%d) on %s: %.3fs, %.3g primary rays/s",

@@ -1,14 +1,14 @@
-"""Mesh scenes for the rray_tpu_torch mesh tests, written as YAML + OBJ
-files (the form the CLI reads): a checker floor, a point light at
-(-10, 10, -10) and the camera of rray_tpu's mesh benchmark cells
-(benchmarks/bench_suite.py config4), with procedural UV-sphere meshes
-(benchmarks/bench_mesh.py::uv_sphere_obj)."""
-import os
-import sys
+"""Generated scenes as YAML + OBJ files (the form the CLI reads): a checker
+floor, a point light at (-10, 10, -10) or config 3's area light, the
+camera of rray_tpu's mesh benchmark cells (benchmarks/bench_suite.py
+config4), procedural UV-sphere meshes (a copy of
+benchmarks/bench_mesh.py::uv_sphere_obj) and a grid of small analytic
+spheres. The tests and chip_smoke.py render the same scenes from here."""
+from __future__ import annotations
 
-BASE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, os.path.join(BASE, "benchmarks"))
-from bench_mesh import uv_sphere_obj  # noqa: E402
+import os
+
+import numpy as np
 
 FLOOR = """  - type: plane
     material:
@@ -30,13 +30,14 @@ MESH = """  - type: obj_file
 SPHERE = """  - type: sphere
     transforms:
       - type: scale
-        amount: [0.2, 0.2, 0.2]
+        amount: [0.25, 0.25, 0.25]
       - type: translate
-        amount: [{x}, 0.2, {z}]
+        amount: [{x}, 0.25, {z}]
     material:
       pattern:
         type: solid
-        color: [0.3, 0.6, 0.9]
+        color: [{r}, {g}, {b}]
+      specular: 0.3
 """
 HEADER = """camera:
   fov: 60
@@ -44,14 +45,50 @@ HEADER = """camera:
   to: [0, 0.7, 0]
   up: [0, 1, 0]
 lights:
-  - type: point
+{light}scene:
+"""
+POINT_LIGHT = """  - type: point
     position: [-10, 10, -10]
     color: [1, 1, 1]
-scene:
+"""
+# The area light of examples/area_light.yaml (rray_tpu BASELINE config 3).
+AREA_LIGHT = """  - type: area
+    corner: [-5, 5, -5]
+    uvec: [1.5, 0, 0]
+    vvec: [0, 1.5, 0]
+    level: {level}
+    color: [1, 1, 1]
 """
 NINE_COLORS = [(0.9, 0.2, 0.2), (0.2, 0.9, 0.2), (0.2, 0.2, 0.9),
                (0.9, 0.9, 0.2), (0.9, 0.2, 0.9), (0.2, 0.9, 0.9),
                (0.6, 0.4, 0.2), (0.4, 0.2, 0.6), (0.8, 0.8, 0.8)]
+
+
+def uv_sphere_obj(n_lat=40, n_lon=40):
+    """OBJ text of a smooth UV sphere (~2 * n_lat * n_lon triangles)."""
+    lines = []
+    for i in range(n_lat + 1):
+        theta = np.pi * i / n_lat
+        for j in range(n_lon):
+            phi = 2 * np.pi * j / n_lon
+            x = np.sin(theta) * np.cos(phi)
+            y = np.cos(theta)
+            z = np.sin(theta) * np.sin(phi)
+            lines.append(f"v {x} {y} {z}")
+            lines.append(f"vn {x} {y} {z}")
+
+    def vid(i, j):
+        return i * n_lon + (j % n_lon) + 1
+
+    for i in range(n_lat):
+        for j in range(n_lon):
+            a, b = vid(i, j), vid(i + 1, j)
+            c, d = vid(i + 1, j + 1), vid(i, j + 1)
+            if i > 0:
+                lines.append(f"f {a}//{a} {b}//{b} {d}//{d}")
+            if i < n_lat - 1:
+                lines.append(f"f {b}//{b} {c}//{c} {d}//{d}")
+    return "\n".join(lines)
 
 
 def _transforms(*ts):
@@ -60,14 +97,15 @@ def _transforms(*ts):
 
 
 def write_scene(tmp, name, lat_lon=(11, 11), reflective=0.0, grid=False,
-                spheres=0, smooth=True):
+                spheres=0, smooth=True, area_level=0):
     """Write `name`.yaml (+ OBJ) under `tmp` and return its path.
 
     One mesh of uv_sphere_obj(*lat_lon) at (0, 1, 0), or none when
     lat_lon is None; grid=True places nine meshes of nine colours on a
-    3x3 grid at scale 0.3 instead; `spheres` adds that many small
-    analytic spheres; smooth=False drops the vertex normals (flat
-    triangles)."""
+    3x3 grid at scale 0.3 instead; `spheres` adds that many analytic
+    spheres of radius 0.25 on the floor, five to a row, 0.6 apart;
+    smooth=False drops the vertex normals (flat triangles); area_level > 0
+    swaps the point light for config 3's area light at that level."""
     body = FLOOR.format(reflective=reflective)
     if lat_lon is not None:
         obj = os.path.join(tmp, f"{name}.obj")
@@ -91,8 +129,12 @@ def write_scene(tmp, name, lat_lon=(11, 11), reflective=0.0, grid=False,
                                 transforms=_transforms(
                                     ("translate", (0, 1, 0))))
     for k in range(spheres):
-        body += SPHERE.format(x=(k % 6 - 2.5) * 0.5, z=(k // 6 - 1) * 0.5)
+        r, g, b = NINE_COLORS[k % len(NINE_COLORS)]
+        body += SPHERE.format(x=(k % 5 - 2) * 0.6, z=(k // 5 - 1.5) * 0.6,
+                              r=r, g=g, b=b)
     path = os.path.join(tmp, f"{name}.yaml")
     with open(path, "w") as f:
-        f.write(HEADER + body)
+        light = (AREA_LIGHT.format(level=area_level) if area_level
+                 else POINT_LIGHT)
+        f.write(HEADER.format(light=light) + body)
     return path

@@ -25,9 +25,9 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-_UNITS = ("whitted.cu", "triangles.cu", "bvh.cu")
+_UNITS = ("whitted.cu", "triangles.cu", "bvh.cu", "area.cu")
 _SOURCES = _UNITS + ("vec_device.cuh", "mesh_device.cuh",
-                     "whitted_device.cuh")
+                     "whitted_device.cuh", "jitter_device.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "rray_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -108,8 +108,8 @@ def load_library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.whitted_compact_launch.restype = i32
         lib.whitted_compact_launch.argtypes = (
-            [ptr] * 9 + [ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, i32,
-                         ptr, i32] + [i32] * 5 + [ptr])
+            [ptr] * 9 + [ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, ptr,
+                         i32, ptr, i32] + [i32] * 5 + [ptr])
         lib.closest_triangle_launch.restype = i32
         lib.closest_triangle_launch.argtypes = (
             [ptr] * 7 + [ptr, i32, i32, ptr] + [i32] * 4 + [ptr, ptr, i32,
@@ -121,6 +121,9 @@ def load_library():
         lib.bvh_closest_launch.argtypes = (
             [ptr] * 7 + [ptr, i32, i32, ptr, ptr] + [i32] * 6
             + [ptr, ptr, i32, ptr])
+        lib.area_shadow_launch.restype = i32
+        lib.area_shadow_launch.argtypes = (
+            [ptr] * 6 + [i32] * 3 + [ptr, i32, ptr])
         lib.whitted_error_string.restype = ctypes.c_char_p
         lib.whitted_error_string.argtypes = [i32]
         _LIB = lib

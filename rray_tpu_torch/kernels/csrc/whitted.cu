@@ -3,8 +3,8 @@
 // (pallas_call body `_kernel`, node `_node_row`): the whole compact
 // Whitted wavefront for scenes of analytic sphere/plane/cube/cylinder/cone
 // prims and opaque triangle meshes of at most 1024 triangles, with point
-// lights and cheap pattern trees (stages a, b and d of the TPU kernel;
-// area lights and CSG/torus/noise/texture are later work).
+// and area lights and cheap pattern trees (stages a, b, c and d of the
+// TPU kernel; CSG/torus/noise/texture are later work).
 //
 // What bounds it on an H100: compute and divergence, not memory. A ray
 // reads 24 B (origin, direction) and writes 12 B (RGB), and then runs
@@ -21,7 +21,8 @@
 //   * the small scene tables (prims and one row per mesh material group
 //     [P + G <= 24, 32], pattern nodes [N, 17], lights [L, 15], and the
 //     int tables that replace the TPU kernel's trace-time statics: prim
-//     kinds, pattern roots, pattern node types and children) are staged
+//     kinds, pattern roots, pattern node types and children, light
+//     levels, and the area lights' jitter seeds [depth + 1, L]) are staged
 //     into shared memory once per block; the mesh table ([<= 1032, 19]
 //     rows, 78 KB, more than the 48 KB of static shared memory) and its
 //     chunk boxes stay in global memory behind the read-only cache, where
@@ -29,6 +30,10 @@
 //   * the path state (W rows x 7 floats, 2W children) lives in the
 //     thread's registers/local memory for all depth+1 levels; W is a
 //     template parameter (1, 2, 4, 8, 16, 32);
+//   * an area light's level^2 shadow samples (stage c) run as a loop in
+//     the thread: the jitter draws are hashed in registers from the seed
+//     and the shadow origin's bits (jitter_device.cuh), as the TPU kernel
+//     recomputes them, so no [2n, R] draw array is read;
 //   * no tensor cores, TMA or wgmma: the work is scalar and branchy.
 // Speed is not tuned yet; this kernel is the simple, correct first port.
 //
@@ -60,6 +65,7 @@ __global__ void whitted_kernel(const float* __restrict__ rox,
                                const float* __restrict__ pats, int N,
                                const float* __restrict__ lights, int L,
                                const int* __restrict__ ints,
+                               const int* __restrict__ seeds, int n_seeds,
                                const float* __restrict__ tris, int T,
                                const float* __restrict__ tboxes, int n_chunks,
                                int R, int depth, bool has_refl,
@@ -68,15 +74,17 @@ __global__ void whitted_kernel(const float* __restrict__ rox,
   const int n_prim = (P + G) * rray::P_COLS;
   const int n_pat = N * rray::PAT_COLS;
   const int n_light = L * rray::L_COLS;
-  const int n_int = 2 * P + G + 3 * N;
+  const int n_int = 2 * P + G + 3 * N + L;
   float* s_prims = smem;
   float* s_pats = s_prims + n_prim;
   float* s_lights = s_pats + n_pat;
   int* s_ints = reinterpret_cast<int*>(s_lights + n_light);
+  int* s_seeds = s_ints + n_int;
   for (int k = threadIdx.x; k < n_prim; k += blockDim.x) s_prims[k] = prims[k];
   for (int k = threadIdx.x; k < n_pat; k += blockDim.x) s_pats[k] = pats[k];
   for (int k = threadIdx.x; k < n_light; k += blockDim.x) s_lights[k] = lights[k];
   for (int k = threadIdx.x; k < n_int; k += blockDim.x) s_ints[k] = ints[k];
+  for (int k = threadIdx.x; k < n_seeds; k += blockDim.x) s_seeds[k] = seeds[k];
   __syncthreads();
 
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
@@ -90,6 +98,8 @@ __global__ void whitted_kernel(const float* __restrict__ rox,
   s.ptype = s_ints + 2 * P + G;
   s.pa = s.ptype + N;
   s.pb = s.pa + N;
+  s.levels = s.pb + N;
+  s.seeds = s_seeds;
   s.tris = tris;
   s.tboxes = tboxes;
   s.P = P;
@@ -111,26 +121,30 @@ constexpr int kThreads = 128;
 
 // Launches the kernel on `stream` and returns cudaGetLastError() (0 on
 // success). All pointers are device pointers; `ints` holds kinds[P],
-// pattern roots[P + G], node types[N], child a rows[N], child b rows[N];
-// `tris`/`tboxes` may be null when T = 0 (no mesh).
+// pattern roots[P + G], node types[N], child a rows[N], child b rows[N],
+// light levels[L] (0: point light); `seeds` is the [depth + 1, L] jitter
+// seed table (read only for area lights); `tris`/`tboxes` may be null
+// when T = 0 (no mesh). The tables must fit the 48 KB of shared memory a
+// block gets without opt-in (kernels/whitted.py checks).
 extern "C" int whitted_compact_launch(
     const float* rox, const float* roy, const float* roz, const float* rdx,
     const float* rdy, const float* rdz, float* out_r, float* out_g,
     float* out_b, const float* prims, int P, int G, const float* pats, int N,
-    const float* lights, int L, const int* ints, const float* tris, int T,
-    const float* tboxes, int n_chunks, int R, int depth, int W, int has_refl,
-    int has_refr, void* stream) {
+    const float* lights, int L, const int* ints, const int* seeds,
+    const float* tris, int T, const float* tboxes, int n_chunks, int R,
+    int depth, int W, int has_refl, int has_refr, void* stream) {
   if (R <= 0) return 0;
+  const int n_seeds = (depth + 1) * L;
   const size_t smem =
       sizeof(float) * ((P + G) * rray::P_COLS + N * rray::PAT_COLS +
-                       L * rray::L_COLS + 2 * P + G + 3 * N);
+                       L * rray::L_COLS + 2 * P + G + 3 * N + L + n_seeds);
   const dim3 grid((R + kThreads - 1) / kThreads);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define RRAY_LAUNCH(w)                                                       \
   whitted_kernel<w><<<grid, kThreads, smem, s>>>(                            \
       rox, roy, roz, rdx, rdy, rdz, out_r, out_g, out_b, prims, P, G, pats,  \
-      N, lights, L, ints, tris, T, tboxes, n_chunks, R, depth,               \
-      has_refl != 0, has_refr != 0)
+      N, lights, L, ints, seeds, n_seeds, tris, T, tboxes, n_chunks, R,      \
+      depth, has_refl != 0, has_refr != 0)
   switch (W) {
     case 1: RRAY_LAUNCH(1); break;
     case 2: RRAY_LAUNCH(2); break;

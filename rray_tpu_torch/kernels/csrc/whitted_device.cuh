@@ -12,6 +12,7 @@
 // host C++ (tests/test_torch_whitted_cuh.py).
 #pragma once
 
+#include "jitter_device.cuh"
 #include "mesh_device.cuh"
 
 namespace rray {
@@ -20,6 +21,7 @@ constexpr int P_COLS = 32;    // prim row: see kernels/whitted.py P_COLS
 constexpr int PAT_COLS = 17;  // pattern node row
 constexpr int L_COLS = 15;    // light row
 constexpr int T_COLS = 19;    // mesh row: p1 e1 e2 n1 n2 n3, group id
+constexpr int A_COLS = 16;    // occluder row: affine 0-11, extras 12-14
 constexpr int MESH_CHUNK = 24;
 constexpr int MAX_PATTERN_DEPTH = 8;
 constexpr float EPS_OFF = 1e-3f;  // f32 over/under offset
@@ -38,6 +40,8 @@ struct SceneView {
   const int* ptype;     // [N] PType
   const int* pa;        // [N] child a row (-1: none)
   const int* pb;        // [N] child b row
+  const int* levels;    // [L] area-light level (0: point light)
+  const int* seeds;     // [depth + 1, L] jitter seed per level and light
   const float* tris;    // [T, T_COLS] mesh rows (T = 0: no mesh)
   const float* tboxes;  // [6, n_chunks + 1] chunk boxes, then the whole
   int P, L, T, n_chunks;
@@ -126,10 +130,12 @@ RRAY_DEVICE void cap_slots(V3 o, V3 d, float ymin, float ymax,
   }
 }
 
-RRAY_DEVICE int cylinder_slots(V3 o, V3 d, const float* p, float* t,
+// `ex` points at a prim's ymin, ymax, closed (prim rows: p + 21; the
+// area-shadow kernel's 16-column rows: p + 12).
+RRAY_DEVICE int cylinder_slots(V3 o, V3 d, const float* ex, float* t,
                                       bool* ok) {
-  float ymin = p[21], ymax = p[22];
-  bool closed = p[23] != 0.0f;
+  float ymin = ex[0], ymax = ex[1];
+  bool closed = ex[2] != 0.0f;
   float a = d.x * d.x + d.z * d.z;
   bool body_possible = fabsf(a) > EPSILON;
   float b = 2.0f * (o.x * d.x + o.z * d.z);
@@ -155,10 +161,10 @@ RRAY_DEVICE int cylinder_slots(V3 o, V3 d, const float* p, float* t,
   return 4;
 }
 
-RRAY_DEVICE int cone_slots(V3 o, V3 d, const float* p, float* t,
+RRAY_DEVICE int cone_slots(V3 o, V3 d, const float* ex, float* t,
                                   bool* ok) {
-  float ymin = p[21], ymax = p[22];
-  bool closed = p[23] != 0.0f;
+  float ymin = ex[0], ymax = ex[1];
+  bool closed = ex[2] != 0.0f;
   float a = d.x * d.x - d.y * d.y + d.z * d.z;
   float b = 2.0f * (o.x * d.x - o.y * d.y + o.z * d.z);
   float c = o.x * o.x - o.y * o.y + o.z * o.z;
@@ -190,15 +196,16 @@ RRAY_DEVICE int cone_slots(V3 o, V3 d, const float* p, float* t,
   return 5;
 }
 
-// Hit slots of prim p (kind k) on the object-space ray; at most 5.
-RRAY_DEVICE int prim_slots(int k, const float* p, V3 o, V3 d, float* t,
+// Hit slots of a prim of kind k (extras at ex) on the object-space ray;
+// at most 5.
+RRAY_DEVICE int prim_slots(int k, const float* ex, V3 o, V3 d, float* t,
                                   bool* ok) {
   switch (k) {
     case SPHERE: return sphere_slots(o, d, t, ok);
     case PLANE: return plane_slots(o, d, t, ok);
     case CUBE: return cube_slots(o, d, t, ok);
-    case CYLINDER: return cylinder_slots(o, d, p, t, ok);
-    default: return cone_slots(o, d, p, t, ok);
+    case CYLINDER: return cylinder_slots(o, d, ex, t, ok);
+    default: return cone_slots(o, d, ex, t, ok);
   }
 }
 
@@ -222,19 +229,58 @@ RRAY_DEVICE bool plane_occludes(V3 o, V3 d, float dist) {
          (-oy_dy < dist * d.y * d.y);
 }
 
-// Does prim p block [0, dist) on the world-space shadow ray?
-RRAY_DEVICE bool occludes(int k, const float* p, V3 over, V3 dir,
-                                 float dist) {
+// Does prim p (world->object affine at p[0..11], extras at ex) block
+// [0, dist) on the world-space shadow ray?
+RRAY_DEVICE bool occludes(int k, const float* p, const float* ex, V3 over,
+                                 V3 dir, float dist) {
   V3 o = affine_pt(p, over);
   V3 d = affine_vec(p, dir);
   if (k == SPHERE) return sphere_occludes(o, d, dist);
   if (k == PLANE) return plane_occludes(o, d, dist);
   float t[5];
   bool ok[5];
-  int n = prim_slots(k, p, o, d, t, ok);
+  int n = prim_slots(k, ex, o, d, t, ok);
   bool hit = false;
   for (int s = 0; s < n; ++s) hit = hit || (ok[s] && t[s] >= 0.0f && t[s] < dist);
   return hit;
+}
+
+// Sample k of an area light's lv x lv jittered grid (light.rs:47-65;
+// rray_tpu whitted.py:1149-1163): the segment from `over` to the sample
+// as a unit direction, and its length. cuv holds corner, uvec, vvec.
+RRAY_DEVICE float area_sample(const float* cuv, uint32_t hb, int k, int lv,
+                              V3 over, V3* dir) {
+  float ur = ((float)(k % lv) + draw_unit(hb, 2u * k)) / (float)lv;
+  float vr = ((float)(k / lv) + draw_unit(hb, 2u * k + 1u)) / (float)lv;
+  float sx = cuv[0] + cuv[3] * ur + cuv[6] * vr - over.x;
+  float sy = cuv[1] + cuv[4] * ur + cuv[7] * vr - over.y;
+  float sz = cuv[2] + cuv[5] * ur + cuv[8] * vr - over.z;
+  float dist = sqrtf(sx * sx + sy * sy + sz * sz);
+  float inv = 1.0f / fmaxf(dist, 1e-30f);
+  *dir = v3(sx * inv, sy * inv, sz * inv);
+  return dist;
+}
+
+// The area-shadow kernel's per-origin body (area.cu): how many of the
+// lv^2 samples of the light (cuv: corner, uvec, vvec) some prim blocks;
+// prims are [P, A_COLS] rows of the given kinds,
+// and the first occluder ends a sample's test.
+RRAY_DEVICE float area_count(const float* cuv, const float* params,
+                             const int* kinds, int P, int lv, int seed,
+                             V3 over) {
+  const uint32_t hb = point_base(seed, over.x, over.y, over.z);
+  float cnt = 0.0f;
+  for (int k = 0; k < lv * lv; ++k) {
+    V3 dir;
+    float dist = area_sample(cuv, hb, k, lv, over, &dir);
+    bool occ = false;
+    for (int j = 0; j < P && !occ; ++j) {
+      const float* p = params + j * A_COLS;
+      occ = occludes(kinds[j], p, p + 12, over, dir, dist);
+    }
+    cnt = cnt + (occ ? 1.0f : 0.0f);
+  }
+  return cnt;
 }
 
 // ---- normals and patterns -----------------------------------------------
@@ -267,37 +313,38 @@ RRAY_DEVICE V3 local_normal(int k, const float* p, V3 lp) {
 RRAY_DEVICE bool even(float v) { return fmodf(v, 2.0f) == 0.0f; }
 
 // Cheap pattern tree at pattern-space points. D bounds the recursion;
-// the wrapper rejects trees deeper than MAX_PATTERN_DEPTH.
+// the wrapper rejects trees deeper than MAX_PATTERN_DEPTH. (The D == 0
+// end is an `if constexpr`, not an explicit specialization: that would
+// be a non-inline definition in every unit that includes this header.)
 template <int D>
 RRAY_NOINLINE V3 eval_pattern(const SceneView& s, int node, V3 pts) {
-  const float* g = s.pats + node * PAT_COLS;
-  int type = s.ptype[node];
-  if (type == SOLID) return v3(g[12], g[13], g[14]);
-  V3 p = affine_pt(g, pts);
-  V3 a = eval_pattern<D - 1>(s, s.pa[node], p);
-  V3 b = eval_pattern<D - 1>(s, s.pb[node], p);
-  if (type == GRADIENT) {
-    float frac = p.x - floorf(p.x);
-    return add(a, scale(sub(b, a), frac));
+  if constexpr (D == 0) {
+    return v3(0.0f, 0.0f, 0.0f);  // unreachable: depth checked by the wrapper
+  } else {
+    const float* g = s.pats + node * PAT_COLS;
+    int type = s.ptype[node];
+    if (type == SOLID) return v3(g[12], g[13], g[14]);
+    V3 p = affine_pt(g, pts);
+    V3 a = eval_pattern<D - 1>(s, s.pa[node], p);
+    V3 b = eval_pattern<D - 1>(s, s.pb[node], p);
+    if (type == GRADIENT) {
+      float frac = p.x - floorf(p.x);
+      return add(a, scale(sub(b, a), frac));
+    }
+    if (type == BLEND) {
+      float sc = g[15];
+      return add(scale(a, 1.0f - sc), scale(b, sc));
+    }
+    bool cond;
+    if (type == STRIPE) {
+      cond = even(floorf(p.x));
+    } else if (type == RING) {
+      cond = even(floorf(sqrtf(p.x * p.x + p.z * p.z)));
+    } else {  // CHECKER
+      cond = even(floorf(p.x) + floorf(p.y) + floorf(p.z));
+    }
+    return cond ? a : b;
   }
-  if (type == BLEND) {
-    float sc = g[15];
-    return add(scale(a, 1.0f - sc), scale(b, sc));
-  }
-  bool cond;
-  if (type == STRIPE) {
-    cond = even(floorf(p.x));
-  } else if (type == RING) {
-    cond = even(floorf(sqrtf(p.x * p.x + p.z * p.z)));
-  } else {  // CHECKER
-    cond = even(floorf(p.x) + floorf(p.y) + floorf(p.z));
-  }
-  return cond ? a : b;
-}
-
-template <>
-RRAY_NOINLINE V3 eval_pattern<0>(const SceneView&, int, V3) {
-  return v3(0.0f, 0.0f, 0.0f);  // unreachable: depth checked by the wrapper
 }
 
 // ---- one Whitted node (rray_tpu whitted.py _node_row) --------------------
@@ -307,7 +354,47 @@ struct Node {
   float refl_w, refr_w;
 };
 
-RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
+// Is [0, dist) on the shadow ray from `over` blocked by an analytic prim
+// (first occluder ends the test) or, failing that, by the mesh?
+RRAY_DEVICE bool blocked(const SceneView& s, V3 over, V3 dir, float dist) {
+  bool occ = false;
+  for (int j = 0; j < s.P && !occ; ++j) {
+    const float* p = s.prims + j * P_COLS;
+    occ = occludes(s.kinds[j], p, p + 21, over, dir, dist);
+  }
+  if (!occ && s.T > 0)
+    occ = any_chunks(s.tris, T_COLS, s.T, s.tboxes, s.n_chunks, MESH_CHUNK,
+                     over, dir, dist);
+  return occ;
+}
+
+// Shadowed fraction of light li at `over`: binary for a point light; for
+// an area light of level lv the share of its lv^2 jittered samples that
+// are blocked, cnt * float(1/n) as rray_tpu whitted.py:1164 scales it.
+// All path rows of a level draw with seeds[level, li].
+RRAY_DEVICE float shadow_frac(const SceneView& s, int li, int level,
+                              V3 over) {
+  const float* L = s.lights + li * L_COLS;
+  const int lv = s.levels[li];
+  if (lv == 0) {
+    V3 to = v3(L[0] - over.x, L[1] - over.y, L[2] - over.z);
+    float dist = sqrtf(dot(to, to));
+    V3 dir = scale(to, 1.0f / fmaxf(dist, 1e-30f));
+    return blocked(s, over, dir, dist) ? 1.0f : 0.0f;
+  }
+  const int n = lv * lv;
+  const uint32_t hb = point_base(s.seeds[level * s.L + li], over.x, over.y,
+                                 over.z);
+  float cnt = 0.0f;
+  for (int k = 0; k < n; ++k) {
+    V3 dir;
+    float dist = area_sample(L + 6, hb, k, lv, over, &dir);
+    cnt = cnt + (blocked(s, over, dir, dist) ? 1.0f : 0.0f);
+  }
+  return cnt * (float)(1.0 / n);
+}
+
+RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
                                   bool has_refl, bool has_refr) {
   // Closest hit: per-prim minimum, then a strict < across prims, so the
   // lowest prim id wins ties.
@@ -317,7 +404,7 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
   bool ok[5];
   for (int i = 0; i < s.P; ++i) {
     const float* p = s.prims + i * P_COLS;
-    int n = prim_slots(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d), t, ok);
+    int n = prim_slots(s.kinds[i], p + 21, affine_pt(p, o), affine_vec(p, d), t, ok);
     float tp = INFINITY;
     for (int k = 0; k < n; ++k)
       tp = fminf(tp, (ok[k] && t[k] >= 0.0f) ? t[k] : INFINITY);
@@ -371,7 +458,7 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
     float bts = -INFINITY, btl = -INFINITY, ior_s = 1.0f, ior_l = 1.0f;
     for (int i = 0; i < s.P; ++i) {
       const float* p = s.prims + i * P_COLS;
-      int n = prim_slots(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d), t, ok);
+      int n = prim_slots(s.kinds[i], p + 21, affine_pt(p, o), affine_vec(p, d), t, ok);
       int cnt_s = 0, cnt_l = 0;
       float last_s = -INFINITY, last_l = -INFINITY;
       for (int k = 0; k < n; ++k) {
@@ -400,21 +487,13 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d,
   // Pattern at the over point, on the winner's object space.
   V3 base = eval_pattern<MAX_PATTERN_DEPTH>(s, s.roots[win], affine_pt(pw, over));
 
-  // Phong per point light with binary shadows (light.rs:98-140).
+  // Phong per light (light.rs:98-140), shaded from the light's position
+  // (an area light's centre), with its shadowed fraction.
   float amb = pw[24], dif = pw[25], spe = pw[26], shi = pw[27];
   V3 surface = v3(0.0f, 0.0f, 0.0f);
   for (int li = 0; li < s.L; ++li) {
     const float* L = s.lights + li * L_COLS;
-    V3 to = v3(L[0] - over.x, L[1] - over.y, L[2] - over.z);
-    float dist = sqrtf(dot(to, to));
-    V3 dir = scale(to, 1.0f / fmaxf(dist, 1e-30f));
-    bool occ = false;
-    for (int j = 0; j < s.P && !occ; ++j)
-      occ = occludes(s.kinds[j], s.prims + j * P_COLS, over, dir, dist);
-    if (!occ && s.T > 0)
-      occ = any_chunks(s.tris, T_COLS, s.T, s.tboxes, s.n_chunks, MESH_CHUNK,
-                       over, dir, dist);
-    float unshadow = 1.0f - (occ ? 1.0f : 0.0f);
+    float unshadow = 1.0f - shadow_frac(s, li, level, over);
     V3 effective = v3(base.x * L[3], base.y * L[4], base.z * L[5]);
     V3 lightv = normalize(v3(L[0] - over.x, L[1] - over.y, L[2] - over.z));
     V3 ambient = scale(effective, amb);
@@ -497,7 +576,7 @@ RRAY_DEVICE void trace_ray(const SceneView& s, V3 ro, V3 rd, int depth,
       if (w == 0.0f) continue;  // dead path row: contributes nothing
       V3 o = v3(st[r].c[0], st[r].c[1], st[r].c[2]);
       V3 d = v3(st[r].c[3], st[r].c[4], st[r].c[5]);
-      Node nd = node_eval(s, o, d, has_refl, has_refr);
+      Node nd = node_eval(s, o, d, level, has_refl, has_refr);
       acc_r = acc_r + nd.surface.x * w;
       acc_g = acc_g + nd.surface.y * w;
       acc_b = acc_b + nd.surface.z * w;

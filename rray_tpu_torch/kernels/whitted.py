@@ -6,7 +6,9 @@ This is the port of rray_tpu's Pallas kernel
 `_node_row`), stages a (core: analytic prims, point lights, cheap
 patterns, depth 0 and the width-1 reflection/refraction chain), b
 (compact wavefront: W path rows per pixel, 2W children, stable top-W by
-weight) and d (the in-kernel mesh: up to 1024 triangles folded after
+weight), c (area lights: level^2 jittered shadow samples per light,
+drawn from the point-keyed hash of ops/jitter.py with one seed per level
+and light) and d (the in-kernel mesh: up to 1024 triangles folded after
 the analytic prims, for closest hits and shadows, with materials and
 patterns per material group). The CUDA source is kernels/csrc/whitted.cu:
 one thread runs one primary ray's whole tree with its path state in
@@ -24,11 +26,11 @@ from __future__ import annotations
 import torch
 
 from ..config import EPSILON, hit_match_tol, offset_eps
-from ..ops import soa
+from ..ops import jitter, soa
 from ..ops.vec import V3
 from ..scene import data as sd
 from . import triangles
-from .analytic import OCCLUSION_KINDS, _occludes
+from .analytic import OCCLUSION_KINDS, _occludes, area_sample
 
 CHEAP_PATTERNS = ("solid", "stripe", "gradient", "ring", "checker", "blend")
 # Pattern node codes shared with csrc/whitted.cu.
@@ -42,6 +44,7 @@ MAX_PRIMS = 16
 MAX_PATTERN_ROWS = 256
 MAX_LIGHTS = 64
 MAX_PATTERN_DEPTH = 8
+SMEM_BYTES = 48 * 1024
 # The in-kernel mesh (rray_tpu whitted.py:297-307): at most 1024
 # triangles, culled in Morton-ordered chunks of 24, at most 8 (shade
 # class, pattern) material groups. Triangle rows: p1 e1 e2 (0-8), vertex
@@ -83,8 +86,6 @@ def unported(scene) -> str | None:
         return "CSG scenes: ROADMAP B1e"
     if sd.TORUS in scene.prim_kinds:
         return "tori: ROADMAP B1e"
-    if any(light.kind != "point" for light in scene.lights):
-        return "area lights: ROADMAP B1c and B5"
     if not all(tree_cheap(p) for p in scene.patterns):
         return "noise, perturbed and image patterns: ROADMAP B1e"
     return None
@@ -119,8 +120,8 @@ def unsupported(scene) -> str | None:
 def applicable(scene) -> bool:
     """Can this scene's Whitted evaluation run as the kernel? Analytic
     sphere/plane/cube/cylinder/cone prims (at most 16), opaque meshes of
-    at most 1024 triangles in at most 8 material groups, point lights
-    and cheap pattern trees."""
+    at most 1024 triangles in at most 8 material groups, point and area
+    lights and cheap pattern trees."""
     return unsupported(scene) is None
 
 
@@ -259,9 +260,16 @@ def pack_lights(scene, dtype=None):
     return torch.stack(rows)
 
 
-def kernel_inputs(scene, settings):
+def light_levels(scene):
+    """Per-light sample level: an area light's level (level^2 samples),
+    0 for a point light (rray_tpu whitted.py light_meta)."""
+    return tuple(int(light.level) if light.kind == "area" else 0
+                 for light in scene.lights)
+
+
+def kernel_inputs(scene, settings, seed: int = 0):
     """Keyword arguments of `whitted_compact` (all but the rays) for a
-    scene the kernel takes."""
+    scene the kernel takes; `seed` keys the area lights' jitter."""
     pat_tbl, descrs = pack_patterns(scene)
     depth, W = wavefront_shape(scene, settings)
     inputs = dict(
@@ -272,10 +280,25 @@ def kernel_inputs(scene, settings):
         prim_pat=tuple(scene.prim_pattern_static[i]
                        for i in prim_rows(scene)),
         depth=depth, W=W, has_refl=scene.has_reflective,
-        has_refr=scene.has_transparent)
+        has_refr=scene.has_transparent, light_levels=light_levels(scene),
+        seeds=jitter.seed_table(seed, depth, len(scene.lights)).to(
+            scene.device))
     if scene.counts[6]:
         inputs["tri_tbl"], inputs["tri_boxes"] = pack_tris(scene)
     return inputs
+
+
+def _light_args(light_tbl, light_levels, seeds, depth: int):
+    """Checks one level per light and the [depth + 1, L] int32 seed table
+    -> (levels as a tuple, seeds)."""
+    L = light_tbl.shape[0]
+    levels = tuple(light_levels)
+    if len(levels) != L or any(lv < 0 for lv in levels):
+        raise ValueError(f"light levels {levels} for {L} lights")
+    if tuple(seeds.shape) != (depth + 1, L) or seeds.dtype != torch.int32:
+        raise ValueError(f"seeds {tuple(seeds.shape)} {seeds.dtype}, "
+                         f"expected ({depth + 1}, {L}) int32")
+    return levels, seeds
 
 
 # ---------------------------------------------------------------------------
@@ -381,12 +404,50 @@ def _eval_pattern(descr, pat, pts: V3) -> V3:
               torch.where(cond, a.z, b.z))
 
 
+def _blocked(kinds, prims, mesh, over: V3, dx, dy, dz, dist):
+    """Is [0, dist) on the shadow ray from `over` blocked by an analytic
+    prim or the mesh? The predicate reads the 16-col analytic layout
+    (extras at 12-14); the 32-col prim rows keep them at 21-23."""
+    occ = torch.zeros_like(dist, dtype=torch.bool)
+    for kind, p in zip(kinds, prims):
+        occ = occ | _occludes(kind, lambda j, p=p: p[j + 9 if j >= 12 else j],
+                              over.x, over.y, over.z, dx, dy, dz, dist)
+    if mesh is not None:
+        occ = occ | (triangles.any_triangle_reference(
+            (over.x, over.y, over.z), (dx, dy, dz), mesh[0], dist) != 0)
+    return occ
+
+
+def _shadow_frac(kinds, prims, mesh, L, level: int, seed: int, over: V3):
+    """Shadowed fraction of light row L at `over` (rray_tpu whitted.py
+    :1138-1164): binary for a point light (level 0); for an area light
+    the blocked share of its level^2 jittered samples, drawn with the
+    hash base point_base(seed, over) and scaled as cnt * float(1/n)."""
+    dtype = over.x.dtype
+    if level == 0:
+        to = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z)
+        dist = to.norm()
+        direction = to * (1.0 / torch.clamp_min(dist, 1e-30))
+        return _blocked(kinds, prims, mesh, over, direction.x, direction.y,
+                        direction.z, dist).to(dtype)
+    n = level * level
+    hb = jitter.point_base(seed, over.x, over.y, over.z)
+    cnt = torch.zeros_like(over.x)
+    for s in range(n):
+        direction, dist = area_sample(L[6:15], hb, s, level, over)
+        cnt = cnt + _blocked(kinds, prims, mesh, over, direction.x,
+                             direction.y, direction.z, dist).to(dtype)
+    return cnt * _scalar(1.0 / n, dtype)
+
+
 def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
-          lights, mesh, o: V3, d: V3):
+          lights, levels, seeds, mesh, o: V3, d: V3):
     """One Whitted node over a batch of rays (rray_tpu whitted.py
     _node_row, the slice's part of it). `prims` holds the P = len(kinds)
-    analytic rows, then one row per mesh material group; `mesh` is None
-    or (the triangle table's 18 geometry columns, its group-id column).
+    analytic rows, then one row per mesh material group; `levels` the
+    per-light sample level (0: point light) and `seeds` this level's
+    per-light jitter seeds; `mesh` is None or (the triangle table's 18
+    geometry columns, its group-id column).
 
     Returns (surface, over, under, reflectv, refr_dir, refl_w, refr_w)."""
     dtype = o.x.dtype
@@ -492,27 +553,13 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
     sel = torch.where(found[:, None], mats[win.clamp_min(0)], 0.0)
     amb, dif, spe, shi, reflective, transparency = sel.unbind(1)[:6]
 
-    # Phong per point light with binary shadows (light.rs:98-140). The
-    # shadow predicate reads the 16-col analytic layout (extras at
-    # 12-14); these 32-col rows keep them at 21-23.
+    # Phong per light (light.rs:98-140), shaded from the light's position
+    # (an area light's centre, light.rs:41-45), with its shadowed
+    # fraction.
     surface = V3(zero, zero, zero)
-    for L in lights:
-        to = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z)
-        dist = to.norm()
-        direction = to * (1.0 / torch.clamp_min(dist, 1e-30))
-        occ = torch.zeros_like(found)
-        for i, kind in enumerate(kinds):
-            p = prims[i]
-            occ = occ | _occludes(kind, lambda j, p=p: p[j + 9 if j >= 12
-                                                          else j],
-                                  over.x, over.y, over.z, direction.x,
-                                  direction.y, direction.z, dist)
-        if mesh is not None:
-            occ = occ | (triangles.any_triangle_reference(
-                (over.x, over.y, over.z),
-                (direction.x, direction.y, direction.z), mesh[0],
-                dist) != 0)
-        unshadow = 1.0 - occ.to(dtype)
+    for L, level, seed in zip(lights, levels, seeds):
+        unshadow = 1.0 - _shadow_frac(kinds, prims, mesh, L, level, seed,
+                                      over)
         effective = V3(base.x * L[3], base.y * L[4], base.z * L[5])
         lightv = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z).normalize()
         ambient = effective * amb
@@ -567,10 +614,12 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
 def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
                               light_tbl, kinds, pat_descrs, prim_pat,
                               depth: int, W: int, has_refl: bool,
-                              has_refr: bool, tri_tbl=None, tri_boxes=None):
+                              has_refr: bool, tri_tbl=None, tri_boxes=None,
+                              *, light_levels, seeds):
     """Plain PyTorch version of the kernel -> (r, g, b) [R] tensors.
     `tri_boxes` only culls in the kernel; the plain version tests every
-    triangle (padding rows included: they never hit).
+    triangle (padding rows included: they never hit). Level l's area
+    lights draw with seeds[l].
 
     Every level evaluates all W path rows of every pixel at once
     ([W*R] tensors). A row of weight 0 contributes nothing, as the
@@ -581,6 +630,8 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
     dtype = ro_comps[0].dtype
     prims, pat, lights = prim_tbl.tolist(), pat_tbl.tolist(), \
         light_tbl.tolist()
+    levels, seeds = _light_args(light_tbl, light_levels, seeds, depth)
+    seeds = seeds.tolist()
     mesh = None
     if tri_tbl is not None:
         cols = tri_tbl.unbind(1)
@@ -604,7 +655,7 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
         w = rows[6]
         surface, over, under, reflectv, refr_dir, refl_w, refr_w = _node(
             kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
-            lights, mesh, V3(rows[0], rows[1], rows[2]),
+            lights, levels, seeds[level], mesh, V3(rows[0], rows[1], rows[2]),
             V3(rows[3], rows[4], rows[5]))
         for c, v in enumerate((surface.x, surface.y, surface.z)):
             contrib = torch.where(w != 0.0, v * w, 0.0).reshape(W, R)
@@ -633,12 +684,13 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
 # The CUDA kernel's wrapper.
 # ---------------------------------------------------------------------------
 
-def int_table(kinds, pat_descrs, prim_pat, n_rows: int):
+def int_table(kinds, pat_descrs, prim_pat, n_rows: int, levels=()):
     """The kernel's int table: analytic prim kinds[P], the pattern root
     row of every prim-table row[P + G], then per pattern row its node
     type[N], child a row[N], child b row[N] (-1 where a node has no
-    child) — the statics that rray_tpu's kernel unrolls at trace time,
-    as data the CUDA kernel interprets."""
+    child), then each light's sample level[L] (0: point light) — the
+    statics that rray_tpu's kernel unrolls at trace time, as data the
+    CUDA kernel interprets."""
     ptype = [0] * n_rows
     pa = [-1] * n_rows
     pb = [-1] * n_rows
@@ -658,12 +710,12 @@ def int_table(kinds, pat_descrs, prim_pat, n_rows: int):
     for descr in pat_descrs:
         walk(descr)
     roots = [pat_descrs[prim_pat[i]][1] for i in range(len(prim_pat))]
-    return list(kinds) + roots + ptype + pa + pb
+    return list(kinds) + roots + ptype + pa + pb + list(levels)
 
 
 def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
-            tri_boxes=None):
+            tri_boxes=None, *, light_levels, seeds):
     global launches
     from . import build
 
@@ -688,6 +740,13 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
         raise ValueError("pattern or light tables past the kernel's bounds")
     if depth < 0:
         raise ValueError(f"depth={depth}")
+    levels, seeds = _light_args(light_tbl, light_levels, seeds, depth)
+    build.check_arg("seeds", seeds, (depth + 1, L), device, torch.int32)
+    smem = 4 * (prim_tbl.numel() + pat_tbl.numel() + light_tbl.numel()
+                + 2 * P + G + 3 * N + L + seeds.numel())
+    if smem > SMEM_BYTES:
+        raise ValueError(f"{smem} bytes of scene tables (depth {depth}, {L} "
+                         f"lights) past the kernel's {SMEM_BYTES}")
     Tp = n_chunks = 0
     if tri_tbl is not None:
         Tp, n_chunks = tri_tbl.shape[0], tri_boxes.shape[1] - 1
@@ -701,7 +760,7 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             raise ValueError("the in-kernel mesh takes no refraction")
     elif G or P == 0:
         raise ValueError(f"{P} prims and {G} group rows without a mesh")
-    ints = torch.tensor(int_table(kinds, pat_descrs, prim_pat, N),
+    ints = torch.tensor(int_table(kinds, pat_descrs, prim_pat, N, levels),
                         dtype=torch.int32, device=device)
     outs = [torch.empty(R, dtype=torch.float32, device=device)
             for _ in range(3)]
@@ -710,7 +769,8 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
         rc = build.load_library().whitted_compact_launch(
             *(ptr(c) for c in tuple(ro_comps) + tuple(rd_comps)),
             *(ptr(o) for o in outs), ptr(prim_tbl), P, G, ptr(pat_tbl), N,
-            ptr(light_tbl), L, ptr(ints), ptr(tri_tbl), Tp, ptr(tri_boxes),
+            ptr(light_tbl), L, ptr(ints), ptr(seeds), ptr(tri_tbl), Tp,
+            ptr(tri_boxes),
             n_chunks, R, depth, W, int(has_refl), int(has_refr),
             build.stream(device))
     build.check_launch("whitted", rc)
@@ -727,20 +787,20 @@ def _descr_depth(descr) -> int:
 def whitted_compact(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl,
                     kinds, pat_descrs, prim_pat, depth: int, W: int,
                     has_refl: bool, has_refr: bool, tri_tbl=None,
-                    tri_boxes=None):
+                    tri_boxes=None, *, light_levels, seeds):
     """Whitted evaluation of [R] primary rays -> (r, g, b) [R] tensors.
 
     ro/rd_comps: 3-tuples of [R] tensors; prim_tbl [P+G,32], pat_tbl
     [N,17], light_tbl [L,15], tri_tbl [Tp,19] and tri_boxes
     [6,Tp/24+1] (see pack_*; kernel_inputs builds them all); kinds are
     the P analytic prim kinds, pat_descrs pack_patterns' descriptors,
-    prim_pat the pattern root of each prim-table row. CPU tensors run
-    the plain version; CUDA tensors launch the kernel (float32 only)."""
-    if ro_comps[0].device.type == "cpu":
-        return whitted_compact_reference(
-            ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
+    prim_pat the pattern root of each prim-table row; light_levels each
+    light's sample level (0: point light) and seeds the [depth+1, L]
+    int32 jitter seeds (ops/jitter.py seed_table). CPU tensors run the
+    plain version; CUDA tensors launch the kernel (float32 only)."""
+    args = (ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl,
             tri_boxes)
-    return _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
-                   pat_descrs, prim_pat, depth, W, has_refl, has_refr,
-                   tri_tbl, tri_boxes)
+    fn = (whitted_compact_reference if ro_comps[0].device.type == "cpu"
+          else _launch)
+    return fn(*args, light_levels=light_levels, seeds=seeds)

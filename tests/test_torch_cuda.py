@@ -8,11 +8,11 @@ import numpy as np
 import pytest
 import torch
 
-import torch_mesh_scenes as ms
 from rray_tpu_torch import api
 from rray_tpu_torch.config import RenderSettings
+from rray_tpu_torch.io import mesh_scenes as ms
 from rray_tpu_torch.io.yaml_loader import load_scene_file
-from rray_tpu_torch.kernels import bvh, triangles, whitted
+from rray_tpu_torch.kernels import analytic, bvh, triangles, whitted
 from rray_tpu_torch.render.camera import Camera, all_rays_soa, compile_camera
 from rray_tpu_torch.scene.data import compile_scene
 
@@ -34,23 +34,19 @@ def _args(name, device, cap=4, w=160, h=120):
     cam = Camera(w, h, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
     ro, rd = all_rays_soa(compile_camera(cam, torch.float32, device))
-    pat_tbl, descrs = whitted.pack_patterns(scene)
-    depth, W = whitted.wavefront_shape(
-        scene, RenderSettings(wavefront_capacity=cap))
-    return ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z), whitted.pack_prims(scene),
-            pat_tbl, whitted.pack_lights(scene), scene.prim_kinds, descrs,
-            scene.prim_pattern_static, depth, W, scene.has_reflective,
-            scene.has_transparent)
+    return (((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z)),
+            whitted.kernel_inputs(scene,
+                                  RenderSettings(wavefront_capacity=cap)))
 
 
 @pytest.mark.parametrize("name,cap", [("example1.yaml", 4), ("glass.yaml", 1),
                                       ("glass.yaml", 4), ("glass.yaml", 32)])
 def test_kernel_matches_plain_version(cuda, name, cap):
-    args = _args(name, cuda, cap)
+    rays, inputs = _args(name, cuda, cap)
     before = whitted.launches
-    kern = torch.stack(whitted.whitted_compact(*args))
+    kern = torch.stack(whitted.whitted_compact(*rays, **inputs))
     assert whitted.launches == before + 1
-    plain = torch.stack(whitted.whitted_compact_reference(*args))
+    plain = torch.stack(whitted.whitted_compact_reference(*rays, **inputs))
     torch.cuda.synchronize()
     # --fmad=false: the kernel rounds as the plain version does; only
     # rsqrtf/powf ulps may differ (measured: bit-identical at 800x600).
@@ -60,15 +56,15 @@ def test_kernel_matches_plain_version(cuda, name, cap):
 
 
 def test_wrapper_refuses_what_the_kernel_does_not_take(cuda):
-    rays_o, rays_d, *rest = _args("glass.yaml", cuda, 4, 8, 6)
+    (rays_o, rays_d), inputs = _args("glass.yaml", cuda, 4, 8, 6)
     f64 = tuple(c.double() for c in rays_o)
     with pytest.raises(TypeError, match="float32"):
-        whitted.whitted_compact(f64, rays_d, *rest)
+        whitted.whitted_compact(f64, rays_d, **inputs)
     with pytest.raises(ValueError, match="W=3"):
-        whitted.whitted_compact(rays_o, rays_d, *rest[:7], 3, *rest[8:])
+        whitted.whitted_compact(rays_o, rays_d, **{**inputs, "W": 3})
     strided = tuple(torch.zeros(12, device=cuda)[::2] for _ in range(3))
     with pytest.raises(ValueError, match="contiguous"):
-        whitted.whitted_compact(strided, strided, *rest)
+        whitted.whitted_compact(strided, strided, **inputs)
 
 
 @pytest.mark.parametrize("reflective", [0.0, 0.3])
@@ -155,3 +151,82 @@ def test_fast_node_launches_triangle_kernels(cuda, grid, lat_lon, tmp_path):
         assert triangles.any_launches > counts[1]
     else:
         assert bvh.launches >= counts[2] + 2
+
+
+def _area_scene(tmp_path, device, **kw):
+    path = ms.write_scene(str(tmp_path), "area", **kw)
+    cam_spec, lights, shapes = load_scene_file(path)
+    return path, compile_scene(shapes, lights, dtype=torch.float32,
+                               device=device)
+
+
+@pytest.mark.parametrize("spheres,level,n_origins", [
+    (20, 1, 50000), (20, 3, 50000), (20, 5, 50000), (800, 2, 4096)])
+def test_area_shadow_kernel_matches_plain_version(cuda, spheres, level,
+                                                  n_origins, tmp_path):
+    """B5 on 21 analytic prims, and on 801: past the 722 parameter rows
+    that area.cu stages in shared memory it reads them from global
+    memory. The same blocked count as the plain version on at least
+    99.99% of origins (an rsqrtf- or sqrtf-free predicate; the draws are
+    integer-exact)."""
+    _, scene = _area_scene(tmp_path, cuda, lat_lon=None, spheres=spheres,
+                           reflective=0.3, area_level=level)
+    rng = np.random.default_rng(level)
+    pts = rng.uniform(-2.0, 2.0, (3, n_origins))
+    pts[1] = np.abs(pts[1]) * 0.5
+    over = tuple(torch.tensor(c, dtype=torch.float32, device=cuda)
+                 for c in pts)
+    light = scene.lights[0]
+    args = (over, -12345, torch.cat([light.corner, light.uvec, light.vvec]),
+            analytic.occlusion_params(scene, range(len(scene.prim_kinds))),
+            scene.prim_kinds, level)
+    assert len(scene.prim_kinds) == spheres + 1
+    before = analytic.launches
+    kern = analytic.area_shadow_fraction(*args)
+    assert analytic.launches == before + 1
+    plain = analytic.area_shadow_fraction_reference(*args)
+    torch.cuda.synchronize()
+    assert float((kern == plain).double().mean()) >= 0.9999
+    assert 0.01 < float(plain.mean()) < 0.99
+
+
+@pytest.mark.parametrize("name,kw", [
+    ("area_light", None),
+    ("area_mesh", dict(lat_lon=(11, 11), area_level=5)),
+    ("area_reflective", dict(lat_lon=None, spheres=4, reflective=0.3,
+                             area_level=3))])
+def test_area_whitted_kernel_matches_plain_version(cuda, name, kw, tmp_path):
+    """Stage c: area lights in the whitted kernel (with the mesh, and
+    along the reflective chain with one seed per level)."""
+    if kw is None:
+        path = os.path.join(BASE, "examples", "area_light.yaml")
+        cam_spec, lights, shapes = load_scene_file(path)
+        scene = compile_scene(shapes, lights, dtype=torch.float32,
+                              device=cuda)
+    else:
+        path, scene = _area_scene(tmp_path, cuda, **kw)
+        cam_spec, _, _ = load_scene_file(path)
+    cam = Camera(160, 120, cam_spec["fov"])
+    cam.transform = cam_spec["transform"]
+    ro, rd = all_rays_soa(compile_camera(cam, torch.float32, cuda))
+    rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
+    inputs = whitted.kernel_inputs(scene, RenderSettings(), seed=3)
+    assert any(inputs["light_levels"])
+    kern = torch.stack(whitted.whitted_compact(*rays, **inputs))
+    plain = torch.stack(whitted.whitted_compact_reference(*rays, **inputs))
+    torch.cuda.synchronize()
+    diff = (kern - plain).abs().amax(0)
+    assert bool(torch.isfinite(kern).all())
+    assert float((diff <= 1e-6).double().mean()) >= 0.999
+
+
+def test_fast_node_launches_area_shadow_kernel(cuda, tmp_path):
+    """21 analytic prims under an area light leave the whitted kernel for
+    the fast node, whose shadows launch B5 on the main path."""
+    path = ms.write_scene(str(tmp_path), "area21", lat_lon=None, spheres=20,
+                          reflective=0.3, area_level=5)
+    before = analytic.launches
+    image = api.render_scene_from_file(path, 64, 48, "", device="cuda",
+                                       seed=4)
+    assert np.isfinite(image).all()
+    assert analytic.launches > before

@@ -21,19 +21,20 @@ from PIL import Image
 
 import rray_tpu.api as jax_api
 import torch_mesh_parity as mp
-import torch_mesh_scenes as ms
 from rray_tpu import RenderSettings as JaxSettings
 from rray_tpu.ops.vec import V3 as JV3
 from rray_tpu.render import integrator as jax_integrator
 from rray_tpu_torch import api
 from rray_tpu_torch.config import RenderSettings
+from rray_tpu_torch.io import mesh_scenes as ms
 from rray_tpu_torch.io.yaml_loader import load_scene_file
 from rray_tpu_torch.kernels import whitted
+from rray_tpu_torch.ops import jitter
 from rray_tpu_torch.ops.vec import V3
 from rray_tpu_torch.render import canvas, integrator
 from rray_tpu_torch.scene.data import compile_scene
 
-BASE = ms.BASE
+BASE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # Three fast-node scenes: a 1104-triangle mesh (the BVH
 # kernel's path) over a reflective floor at depth 2, nine material
 # groups (the linear triangle kernels), 17 analytic spheres.
@@ -61,8 +62,9 @@ def test_fast_node_matches_xla_f64(name, tmp_path):
         jscene, *_jax_rays(o, d), depth, JaxSettings(pallas="off",
                                                      depth=depth),
         jax.random.PRNGKey(0))
-    out = integrator.color_at_fast(tscene, *_port_rays(o, d), depth,
-                                   RenderSettings(depth=depth))
+    out = integrator.color_at_fast(
+        tscene, *_port_rays(o, d), depth, RenderSettings(depth=depth),
+        jitter.seed_table(0, depth, len(tscene.lights)))
     for a, b in zip((out.x, out.y, out.z), (ref.x, ref.y, ref.z)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=0,
                                    atol=1e-9)

@@ -12,11 +12,11 @@ import torch
 import rray_tpu.io.yaml_loader as jax_yaml
 import rray_tpu_torch.io.yaml_loader as torch_yaml
 import torch_mesh_parity as mp
-import torch_mesh_scenes as ms
 from rray_tpu import compile_scene as jax_compile_scene
 from rray_tpu.kernels import bvh as jax_bvh
 from rray_tpu.kernels import triangles as jax_triangles
 from rray_tpu.kernels import whitted as jax_whitted
+from rray_tpu_torch.io import mesh_scenes as ms
 from rray_tpu_torch.kernels import bvh, triangles, whitted
 from rray_tpu_torch.scene.convert import scene_from_numpy, scene_to_numpy
 from rray_tpu_torch.scene.data import compile_scene

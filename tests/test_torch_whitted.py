@@ -14,6 +14,7 @@ import torch
 import torch_parity as tp
 from rray_tpu_torch import api
 from rray_tpu_torch.kernels import whitted
+from rray_tpu_torch.ops import jitter
 from rray_tpu_torch.render import integrator
 
 
@@ -44,10 +45,28 @@ def test_cpu_tensors_never_launch_the_kernel():
     assert whitted.launches == before
 
 
-@pytest.mark.parametrize("name,item", [("area_light.yaml", "B1c"),
+TORUS_SCENE = """camera:
+  fov: 60
+  from: [0, 1.5, -5]
+  to: [0, 1, 0]
+  up: [0, 1, 0]
+lights:
+  - type: point
+    position: [-10, 10, -10]
+    color: [1, 1, 1]
+scene:
+  - type: torus
+    minor_radius: 0.35
+"""
+
+
+@pytest.mark.parametrize("name,item", [("torus", "B1e"),
                                        ("csg_showcase.yaml", "B1e")])
-def test_unported_scenes_raise(name, item):
+def test_unported_scenes_raise(name, item, tmp_path):
     path = os.path.join(tp.BASE, "examples", name)
+    if name == "torus":
+        path = tmp_path / "torus.yaml"
+        path.write_text(TORUS_SCENE)
     with pytest.raises(NotImplementedError, match=item):
         api.render_scene_from_file(path, 8, 6, "", device="cpu")
 
@@ -90,8 +109,10 @@ def test_cuda_only_wrapper_checks_run_before_launch():
     args = (whitted.pack_prims(tscene), pat, whitted.pack_lights(tscene),
             tscene.prim_kinds, descrs, tscene.prim_pattern_static, 0, 1,
             False, False)
+    lights = dict(light_levels=whitted.light_levels(tscene),
+                  seeds=jitter.seed_table(0, 0, len(tscene.lights)))
     with pytest.raises(TypeError, match="float32"):
-        whitted._launch(rays, rays, *args)
+        whitted._launch(rays, rays, *args, **lights)
     rays32 = tuple(torch.zeros(8) for _ in range(3))
     with pytest.raises(ValueError, match="W=3"):
-        whitted._launch(rays32, rays32, *args[:7], 3, False, False)
+        whitted._launch(rays32, rays32, *args[:7], 3, False, False, **lights)

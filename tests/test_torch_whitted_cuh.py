@@ -1,10 +1,12 @@
 """The CUDA kernels' device code against the plain versions, on the CPU.
 
 kernels/csrc/whitted_device.cuh holds everything one thread of the
-whitted kernel runs (trace_ray<W> and the node, slot, shadow, pattern
-and mesh-fold functions), and mesh_device.cuh what one thread of the
+whitted kernel runs (trace_ray<W> and the node, slot, shadow, area
+sample, pattern and mesh-fold functions) and the area-shadow kernel's
+per-origin body (area_count), mesh_device.cuh what one thread of the
 triangle and BVH kernels runs (Möller–Trumbore, the chunk folds, the
-heap walk, the output writer). They need only two function-qualifier
+heap walk, the output writer), and jitter_device.cuh the area lights'
+jitter hash. They need only two function-qualifier
 macros and the C math library, so they also compile as host C++. Built
 here with g++ and -ffp-contract=off (the host analogue of the kernels'
 --fmad=false), they are held against the plain versions on camera rays
@@ -20,10 +22,11 @@ import numpy as np
 import pytest
 import torch
 
-import torch_mesh_scenes as ms
 from rray_tpu_torch.config import RenderSettings
+from rray_tpu_torch.io import mesh_scenes as ms
 from rray_tpu_torch.io.yaml_loader import load_scene_file
-from rray_tpu_torch.kernels import bvh, triangles, whitted
+from rray_tpu_torch.kernels import analytic, bvh, triangles, whitted
+from rray_tpu_torch.ops import jitter
 from rray_tpu_torch.render.camera import Camera, all_rays_soa, compile_camera
 from rray_tpu_torch.scene.data import compile_scene
 
@@ -50,18 +53,33 @@ static void run(const SceneView& s, const float* const* rays, float* const* out,
 extern "C" void trace_all(const float* const* rays, float* const* out,
                           const float* prims, int P, int G, const float* pats,
                           int N, const float* lights, int L, const int* ints,
-                          const float* tris, int T, const float* tboxes,
-                          int n_chunks, int R, int depth, int W, int refl,
-                          int refr) {
+                          const int* seeds, const float* tris, int T,
+                          const float* tboxes, int n_chunks, int R, int depth,
+                          int W, int refl, int refr) {
   SceneView s;
   s.prims = prims; s.pats = pats; s.lights = lights; s.kinds = ints;
   s.roots = ints + P; s.ptype = ints + 2 * P + G; s.pa = s.ptype + N;
-  s.pb = s.pa + N; s.tris = tris; s.tboxes = tboxes; s.P = P; s.L = L;
-  s.T = T; s.n_chunks = n_chunks;
+  s.pb = s.pa + N; s.levels = s.pb + N; s.seeds = seeds; s.tris = tris;
+  s.tboxes = tboxes; s.P = P; s.L = L; s.T = T; s.n_chunks = n_chunks;
   switch (W) {
     case 1: run<1>(s, rays, out, R, depth, refl, refr); break;
     case 4: run<4>(s, rays, out, R, depth, refl, refr); break;
     case 32: run<32>(s, rays, out, R, depth, refl, refr); break;
+  }
+}
+// The area-shadow kernel's body (area.cu) and the jitter hash.
+extern "C" void area_all(const float* const* over, const float* light,
+                         const float* params, const int* kinds, int P,
+                         int level, int seed, float* count, int R) {
+  for (int i = 0; i < R; ++i)
+    count[i] = area_count(light, params, kinds, P, level, seed,
+                          v3(over[0][i], over[1][i], over[2][i]));
+}
+extern "C" void jitter_all(const float* const* pts, int seed, int n,
+                           unsigned* base, float* draws, int R) {
+  for (int i = 0; i < R; ++i) {
+    base[i] = point_base(seed, pts[0][i], pts[1][i], pts[2][i]);
+    for (int k = 0; k < n; ++k) draws[k * R + i] = draw_unit(base[i], k);
   }
 }
 // The triangle kernels' bodies (triangles.cu, bvh.cu), one ray at a time.
@@ -131,32 +149,39 @@ def _ptrs(xs):
 
 def _host_trace(lib, rays, prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs,
                 prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
-                tri_boxes=None):
+                tri_boxes=None, light_levels=None, seeds=None):
     R = rays[0].shape[0]
     arrs = [_np(r) for r in rays]
     outs = [np.empty(R, np.float32) for _ in range(3)]
     tables = [_np(t) for t in (prim_tbl, pat_tbl, light_tbl, tri_tbl,
-                               tri_boxes)]
+                               tri_boxes, seeds)]
     ints = np.asarray(whitted.int_table(kinds, pat_descrs, prim_pat,
-                                        pat_tbl.shape[0]), np.int32)
+                                        pat_tbl.shape[0], light_levels),
+                      np.int32)
     T = 0 if tri_tbl is None else tri_tbl.shape[0]
     n_chunks = 0 if tri_boxes is None else tri_boxes.shape[1] - 1
     i = ctypes.c_int
     lib.trace_all(_ptrs(arrs), _ptrs(outs), _c(tables[0]), i(len(kinds)),
                   i(len(prim_pat) - len(kinds)), _c(tables[1]),
                   i(pat_tbl.shape[0]), _c(tables[2]),
-                  i(light_tbl.shape[0]), _c(ints), _c(tables[3]), i(T),
+                  i(light_tbl.shape[0]), _c(ints), _c(tables[5]),
+                  _c(tables[3]), i(T),
                   _c(tables[4]), i(n_chunks), i(R), i(depth), i(W),
                   i(has_refl), i(has_refr))
     return np.stack(outs)
 
 
 # Mesh scenes of the in-kernel mesh (stage d): smooth, reflective (the
-# width-1 chain replays the fold per level), flat with analytic spheres.
+# width-1 chain replays the fold per level), flat with analytic spheres;
+# and under config 3's area light (stage c): with a mesh (c + d), and
+# analytic spheres over a reflective floor (per-level seeds).
 MESH_SCENES = {"mesh": dict(lat_lon=(11, 11)),
                "mesh_reflective": dict(lat_lon=(11, 11), reflective=0.3),
                "mesh_flat_spheres": dict(lat_lon=(6, 6), smooth=False,
-                                         spheres=3)}
+                                         spheres=3),
+               "area_mesh": dict(lat_lon=(6, 5), area_level=3),
+               "area_reflective": dict(lat_lon=None, spheres=4,
+                                       reflective=0.3, area_level=2)}
 
 
 def _scene_path(name, tmp):
@@ -168,7 +193,9 @@ def _scene_path(name, tmp):
 @pytest.mark.parametrize("name,cap", [("example1.yaml", 4), ("glass.yaml", 4),
                                       ("glass.yaml", 32), ("mesh", 4),
                                       ("mesh_reflective", 4),
-                                      ("mesh_flat_spheres", 4)])
+                                      ("mesh_flat_spheres", 4),
+                                      ("area_light.yaml", 4), ("area_mesh", 4),
+                                      ("area_reflective", 4)])
 def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
     cam_spec, lights, shapes = load_scene_file(_scene_path(name, tmp_path))
     scene = compile_scene(shapes, lights, dtype=torch.float32)
@@ -177,7 +204,8 @@ def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
     cam.transform = cam_spec["transform"]
     ro, rd = all_rays_soa(compile_camera(cam, torch.float32))
     rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
-    args = whitted.kernel_inputs(scene, RenderSettings(wavefront_capacity=cap))
+    args = whitted.kernel_inputs(scene, RenderSettings(wavefront_capacity=cap),
+                                 seed=11)
     plain = np.stack([c.numpy() for c in whitted.whitted_compact_reference(
         rays[:3], rays[3:], **args)])
     host = _host_trace(host_lib, rays, **args)
@@ -189,6 +217,11 @@ def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
     diff = np.abs(host - plain).max(axis=0)
     assert np.isfinite(host).all()
     assert float((diff <= 1e-6).mean()) >= 0.999, diff.max()
+    if any(args["light_levels"]):
+        # Stage c: the jitter hash, the sample loop and the fraction are
+        # the plain version's bit for bit (measured on all three area
+        # scenes, specular highlights included).
+        np.testing.assert_array_equal(host, plain)
 
 
 def _seeded_mesh(T, seed, normals):
@@ -267,3 +300,67 @@ def test_triangle_device_code_matches_plain_versions(host_lib, kind):
         (fout == want) | (np.isinf(fout) & np.isinf(want))).all(0)
     assert np.isfinite(fout[0]).any()
     assert same.mean() >= 0.999, same.mean()
+
+
+def _seeded_points(n=2000, seed=5):
+    """Float32 shadow origins around the area scenes' floor and sphere,
+    with zeros, a negative zero and denormals among them."""
+    rng = np.random.default_rng(seed)
+    pts = rng.uniform(-4.0, 4.0, (3, n)).astype(np.float32)
+    pts[1] = np.abs(pts[1]) * 0.5
+    pts[:, :5] = np.array([[0.0, -0.0, 1e-40, -1e-42, 1e-45]] * 3,
+                          np.float32)
+    return [np.ascontiguousarray(c) for c in pts]
+
+
+def test_jitter_device_code_matches_plain_version(host_lib):
+    """jitter_device.cuh's hash base and draws against ops/jitter.py, bit
+    for bit (integer arithmetic; the float conversion is exact)."""
+    pts = _seeded_points()
+    R, n = pts[0].shape[0], 50
+    for seed in (0, -123456789, 2 ** 31 - 1):
+        base = np.empty(R, np.uint32)
+        draws = np.empty((n, R), np.float32)
+        host_lib.jitter_all(_ptrs(pts), ctypes.c_int(seed), ctypes.c_int(n),
+                            _c(base), _c(draws), ctypes.c_int(R))
+        tpts = [torch.from_numpy(c) for c in pts]
+        hb = jitter.point_base(seed, *tpts)
+        np.testing.assert_array_equal(base, hb.numpy().astype(np.uint32))
+        want = torch.stack([jitter.draw_unit(hb, k) for k in range(n)])
+        np.testing.assert_array_equal(draws, want.numpy())
+
+
+@pytest.mark.parametrize("level", [1, 3, 5])
+def test_area_count_device_code_matches_plain_version(host_lib, level):
+    """The area-shadow kernel's body (area_count) against
+    area_shadow_fraction_reference on the shadow fixture's six analytic
+    occluders: the same counts on every origin."""
+    path = _scene_path("area_light.yaml", None)
+    _, lights, shapes = load_scene_file(path)
+    from rray_tpu_torch.scene.data import Shape
+    shapes = shapes + [
+        Shape("cube", transform=np.array(
+            [[1, 0, 0, 2.5], [0, 1, 0, 1], [0, 0, 1, 1], [0, 0, 0, 1.0]])),
+        Shape("cylinder", minimum=0.0, maximum=2.0, closed=True,
+              transform=np.array([[1, 0, 0, -2.5], [0, 1, 0, 0],
+                                  [0, 0, 1, 0], [0, 0, 0, 1.0]])),
+        Shape("cone", minimum=-1.0, maximum=0.0, closed=True,
+              transform=np.array([[1, 0, 0, 0], [0, 1, 0, 2],
+                                  [0, 0, 1, 3], [0, 0, 0, 1.0]]))]
+    scene = compile_scene(shapes, lights, dtype=torch.float32)
+    light = scene.lights[0]
+    lp = torch.cat([light.corner, light.uvec, light.vvec])
+    pids = range(len(scene.prim_kinds))
+    params = analytic.occlusion_params(scene, pids)
+    pts = _seeded_points()
+    R = pts[0].shape[0]
+    count = np.empty(R, np.float32)
+    kinds = np.asarray(scene.prim_kinds, np.int32)
+    host_lib.area_all(_ptrs(pts), _c(_np(lp)), _c(_np(params)), _c(kinds),
+                      ctypes.c_int(len(kinds)), ctypes.c_int(level),
+                      ctypes.c_int(-77), _c(count), ctypes.c_int(R))
+    frac = analytic.area_shadow_fraction_reference(
+        tuple(torch.from_numpy(c) for c in pts), -77, lp, params,
+        scene.prim_kinds, level)
+    np.testing.assert_array_equal(count / (level * level), frac.numpy())
+    assert 0.05 < frac.mean() < 0.95

@@ -1,17 +1,17 @@
 """Shared inputs for the rray_tpu_torch mesh parity tests: mesh scenes
-(tests/torch_mesh_scenes.py) compiled once in rray_tpu and handed to the
-port through scene/convert.py, so both packages compute on the very same
-tables, and the scene camera's rays."""
+(rray_tpu_torch/io/mesh_scenes.py) compiled once in rray_tpu and handed
+to the port through scene/convert.py, so both packages compute on the
+very same tables, and the scene camera's rays."""
 import jax.numpy as jnp
 import numpy as np
 import torch
 
 import rray_tpu.io.yaml_loader as jax_yaml
-import torch_mesh_scenes as ms
 import torch_parity as tp
 from rray_tpu import compile_scene
 from rray_tpu.kernels import whitted as jax_whitted
 from rray_tpu_torch.config import RenderSettings
+from rray_tpu_torch.io import mesh_scenes as ms
 from rray_tpu_torch.io.yaml_loader import load_scene_file
 from rray_tpu_torch.kernels import whitted
 from rray_tpu_torch.render import camera

@@ -13,6 +13,7 @@ from rray_tpu.io.yaml_loader import load_scene_file
 from rray_tpu.kernels import whitted as jax_whitted
 from rray_tpu_torch.config import RenderSettings
 from rray_tpu_torch.kernels import whitted
+from rray_tpu_torch.ops import jitter
 from rray_tpu_torch.scene.convert import scene_from_numpy, scene_to_numpy
 
 BASE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -58,7 +59,8 @@ def port_render_rays(tscene, o, d, depth=5, cap=4):
         tuple(torch.from_numpy(c) for c in d), whitted.pack_prims(tscene),
         pat, whitted.pack_lights(tscene), tscene.prim_kinds, descrs,
         tscene.prim_pattern_static, D, W, tscene.has_reflective,
-        tscene.has_transparent)
+        tscene.has_transparent, light_levels=whitted.light_levels(tscene),
+        seeds=jitter.seed_table(0, D, len(tscene.lights)))
     return np.stack([c.numpy() for c in out]), (D, W)
 
 
