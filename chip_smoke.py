@@ -9,12 +9,14 @@ It builds the port's CUDA kernels from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it, drives the main path
 (rray_tpu_torch.api.render_scene_from_file, what the CLI calls) at
-800x600 over the example scenes, four mesh scenes and four area-light
-scenes (config 3, examples/area_light.yaml, also at aa=3), counting each
-kernel's launches per scene, and times kernels and plain versions (CUDA
-events; each kernel's own device time with torch.profiler). It prints
-the card, one line per phase, a JSON line describing the kernels, and
-last a JSON line naming the device. Any failure exits non-zero before
+800x600 over the example scenes, four mesh scenes, four area-light
+scenes (config 3, examples/area_light.yaml, also at aa=3) and two
+variants of config 5, and config 5 itself (examples/csg_showcase.yaml:
+CSG, a torus, Perlin noise, an image texture) at 1920x1080, aa=5,
+counting each kernel's launches per scene, and times kernels and plain
+versions (CUDA events; each kernel's own device time with
+torch.profiler). It prints the card, one line per phase, a JSON line
+describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before
 the last line; without CUDA it exits 1 at once.
 
 The generated scenes are written as YAML + OBJ into a temporary
@@ -32,6 +34,11 @@ mesh benchmark cells; the area scenes swap the point light for config
             floor: 21 analytic prims            kernel, depth 5
     area4b  mesh4b under the area light         fast node: BVH any-hit
                                                 per shadow sample
+    csg5r   config 5, a perturbed stripe on the whitted kernel, stages c+e,
+            torus, reflective floor, the area   depth 5
+            light
+    tex5r   config 5, the CSG split into its    fast node (textured and
+            operands, reflective floor          reflective), depth 5
 """
 from __future__ import annotations
 
@@ -50,7 +57,13 @@ WIDTH, HEIGHT = 800, 600
 DEVICE = "cuda"
 EXAMPLES = (("glass", "examples/glass.yaml"),
             ("example1", "examples/example1.yaml"),
-            ("area", "examples/area_light.yaml"))
+            ("area", "examples/area_light.yaml"),
+            ("csg", "examples/csg_showcase.yaml"))
+# Config 5 renders at its BASELINE size, the other scenes at 800x600.
+SIZES = {"csg": (1920, 1080)}
+# The aa=5 raster of config 5 (51.84 M rays) is held against the plain
+# version on every CSG_STRIDE-th ray (1.08 M rays).
+CSG_STRIDE = 48
 # Whole images, kernel vs plain version in float32 on the card: at most
 # this fraction of pixels may differ by more than PIX_TOL in some
 # channel (rsqrtf/powf ulps can flip a shadow or n1/n2 boundary
@@ -93,6 +106,19 @@ OPS_PRIM, OPS_OCCLUDE, OPS_TRI = 60, 56, 50
 # (ur/vr 2 adds, 2 divides, 2 products; position 12; segment 3; length
 # 5 + sqrt; 1/max 2; direction 3: ~30 float ops).
 OPS_HASH_BASE, OPS_SAMPLE_INT, OPS_SAMPLE_FP = 30, 24, 30
+# Stage e, counted from quartic_device.cuh, whitted_device.cuh and
+# noise_device.cuh: the torus's slab test against its padded box (3
+# reciprocals, 6 products, 6 sums, 9 min/max: ~30); its quartic where a
+# ray enters the box (coefficients ~30; resolvent and Ferrari ~90, with
+# acos, cos and two cbrt evaluated in double at ~20 each; three Newton
+# steps on four roots at ~20: ~400); a CSG pair compare (the t compare,
+# the parity xor, the and: 3); a Perlin octave (3 floors, 3 quintics of
+# 7, 8 gradient dots of 3, 7 lerps of 3, frequency products: ~90 float;
+# lattice products and 8 hashes of ~15: ~130 integer).
+OPS_TORUS_BOX, OPS_QUARTIC, OPS_CSG_PAIR = 30, 400, 3
+OPS_OCTAVE_FP, OPS_OCTAVE_INT = 90, 130
+# Hit slots per prim kind (sphere, plane, cube, cylinder, cone, torus).
+SLOTS = (2, 1, 2, 4, 5, 4)
 # Rays per step of the least-work count ([RAY_STEP, T] temporaries).
 RAY_STEP = 8192
 
@@ -113,6 +139,11 @@ SCENES = {
     "area21": dict(lat_lon=None, spheres=20, reflective=0.3, area_level=5),
     "area4b": dict(lat_lon=(40, 40), area_level=5),
 }
+# Config 5's variants: mesh_scenes.write_config5 arguments, by name.
+CONFIG5 = {
+    "csg5r": dict(floor_reflective=0.3, area_level=5, perturbed_torus=True),
+    "tex5r": dict(floor_reflective=0.3, split_csg=True),
+}
 
 
 # ---------------------------------------------------------------------------
@@ -126,9 +157,13 @@ def card_state():
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def camera_scene(path, torch, aa=1):
-    """(compiled scene, camera rays) at WIDTH*aa x HEIGHT*aa, as the main
-    path sizes its camera."""
+def size_of(name):
+    return SIZES.get(name, (WIDTH, HEIGHT))
+
+
+def camera_scene(path, torch, aa=1, size=(WIDTH, HEIGHT)):
+    """(compiled scene, camera rays) at size * aa, as the main path sizes
+    its camera."""
     from rray_tpu_torch.io.yaml_loader import load_scene_file
     from rray_tpu_torch.render.camera import (Camera, all_rays_soa,
                                               compile_camera)
@@ -136,7 +171,7 @@ def camera_scene(path, torch, aa=1):
 
     cam_spec, lights, shapes = load_scene_file(path)
     scene = compile_scene(shapes, lights, dtype=torch.float32, device=DEVICE)
-    cam = Camera(WIDTH * aa, HEIGHT * aa, cam_spec["fov"])
+    cam = Camera(size[0] * aa, size[1] * aa, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
     return scene, all_rays_soa(compile_camera(cam, torch.float32, DEVICE))
 
@@ -154,7 +189,10 @@ def window_ms(torch, fn):
     fn()
     stop.record()
     torch.cuda.synchronize()
-    reps = max(1, math.ceil(WINDOW_MS / max(start.elapsed_time(stop), 1e-3)))
+    first = start.elapsed_time(stop)
+    if first >= WINDOW_MS:  # one call fills the window
+        return first, 1
+    reps = math.ceil(WINDOW_MS / max(first, 1e-3))
     start.record()
     for _ in range(reps):
         fn()
@@ -369,26 +407,145 @@ def plain_kernels():
 # Phases.
 # ---------------------------------------------------------------------------
 
-def whitted_phase(torch, name, path, results, aa=1):
+def ext_work(torch, name, inputs, ro, rd):
+    """Least work of a stage-e scene's primary level (no mesh) -> (bytes,
+    float ops, integer ops). Every ray tests every prim: a torus its box,
+    and its quartic where the ray enters the box; the CSG members their
+    slots, then the pair compares of every CSG pass. Every hit evaluates
+    the Perlin octaves of its winner's pattern tree (three per perturbed
+    node) and reads its texel (4 B packed), and per point light or area
+    sample tests its shadow segment: one occlusion test when it is
+    blocked, else every prim as a primary ray does (an occlusion test
+    for a plain prim)."""
+    from rray_tpu_torch.kernels import analytic, whitted
+    from rray_tpu_torch.ops import jitter, soa
+    from rray_tpu_torch.ops.vec import V3
+    from rray_tpu_torch.scene import data as sd
+
+    kinds, prims = inputs["kinds"], inputs["prim_tbl"].tolist()
+    csg = inputs.get("csg", ((), ()))
+    member = csg[0] or (False,) * len(kinds)
+    n_slots = sum(SLOTS[k] for k, m in zip(kinds, member) if m)
+    pair_ops = len(csg[1]) * n_slots * (n_slots - 1) * OPS_CSG_PAIR
+    quartics = []
+
+    def tests(o, d, occ=None):
+        """Float ops per ray of a primary ray's tests, or of a shadow
+        segment's (blocked where `occ`)."""
+        ops = torch.full_like(o.x, float(pair_ops))
+        for k, p, m in zip(kinds, prims, member):
+            if k == sd.TORUS:
+                enter = soa.torus_box_entry(whitted._affine_pt(p, o),
+                                            whitted._affine_vec(p, d), p[31])
+                if occ is not None:
+                    enter = enter & ~occ
+                quartics.append(int(enter.sum()))
+                ops = ops + OPS_TORUS_BOX + OPS_QUARTIC * enter.double()
+            else:
+                ops = ops + (OPS_OCCLUDE if occ is not None and not m
+                             else OPS_PRIM)
+        if occ is not None:
+            ops = torch.where(occ, float(OPS_OCCLUDE), ops)
+        return ops
+
+    def shadow_ops(over, direction, dist):
+        occ = whitted._blocked(kinds, prims, None, over, direction.x,
+                               direction.y, direction.z, dist, csg)
+        return float(tests(over, direction, occ).sum())
+
+    def tree_work(descr):  # (octaves, texel reads) of one evaluation
+        if descr is None:
+            return 0, 0
+        ptype, _, meta, da, db = descr
+        octaves = {"noise": meta, "perturbed": 3 * meta}.get(ptype, 0)
+        sub = [tree_work(c) for c in (da, db)]
+        return (octaves + sum(o for o, _ in sub),
+                int(ptype == "image") + sum(t for _, t in sub))
+
+    o, d = V3(ro.x, ro.y, ro.z), V3(rd.x, rd.y, rd.z)
+    R = ro.x.shape[0]
+    n_ops = float(tests(o, d).sum())
+    best_t, win = whitted.closest_hit(kinds, prims, None, o, d, csg)[:2]
+    found = torch.isfinite(best_t)
+    hits = int(found.sum())
+    octaves = texels = 0
+    for i, root in enumerate(inputs["prim_pat"]):
+        n_i = int((win == i).sum())
+        oc, tx = tree_work(inputs["pat_descrs"][root])
+        octaves += n_i * oc
+        texels += n_i * tx
+    n_ops += octaves * OPS_OCTAVE_FP
+    n_int = octaves * OPS_OCTAVE_INT
+    levels, lights = inputs["light_levels"], inputs["light_tbl"].tolist()
+    seeds = inputs["seeds"][0].tolist()
+    over = whitted._node(
+        kinds, inputs["pat_descrs"], inputs["prim_pat"], inputs["has_refl"],
+        inputs["has_refr"], prims, inputs["pat_tbl"].tolist(), lights,
+        levels, seeds, None, o, d, csg,
+        (inputs["tex_tbl"], inputs["tex_meta"]) if "tex_tbl" in inputs
+        else None)[1]
+    over = V3(over.x[found], over.y[found], over.z[found])
+    samples = 0
+    for L, level, seed in zip(lights, levels, seeds):
+        if level == 0:
+            to = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z)
+            dist = to.norm()
+            direction = to * (1.0 / torch.clamp_min(dist, 1e-30))
+            n_ops += shadow_ops(over, direction, dist)
+            continue
+        hb = jitter.point_base(seed, over.x, over.y, over.z)
+        for k in range(level * level):
+            direction, dist = analytic.area_sample(L[6:15], hb, k, level, over)
+            n_ops += shadow_ops(over, direction, dist)
+        samples += hits * level * level
+        n_int += hits * OPS_HASH_BASE + hits * level * level * OPS_SAMPLE_INT
+        n_ops += hits * level * level * OPS_SAMPLE_FP
+    n_bytes = 4 * (9 * R + inputs["seeds"].numel() + texels
+                   + sum(inputs[k].numel() for k in ("prim_tbl", "pat_tbl",
+                                                     "light_tbl")))
+    print(f"work whitted {name}: {R} rays, {hits} hits, quartics "
+          f"{quartics[0] if quartics else 0} primary and {sum(quartics[1:])} "
+          f"in shadow tests, {octaves} noise octaves, {texels} texel reads, "
+          f"{samples} area samples, CSG member slots per ray {n_slots}")
+    return n_bytes, n_ops, n_int
+
+
+def whitted_phase(torch, name, path, results, aa=1, stride=1):
     """The whitted kernel against its plain version on one scene's camera
-    rays at WIDTH*aa x HEIGHT*aa; the primary level's tests for the
-    bound (every area-light sample included)."""
+    rays at its size times aa (every `stride`-th ray); with stride 1 also
+    the primary level's tests for the bound (every area-light sample
+    included)."""
     from rray_tpu_torch.config import RenderSettings
     from rray_tpu_torch.kernels import triangles, whitted
     from rray_tpu_torch.ops import soa
     from rray_tpu_torch.ops.vec import V3
 
-    scene, (ro, rd) = camera_scene(path, torch, aa)
+    w, h = size_of(name)
+    scene, (ro, rd) = camera_scene(path, torch, aa, (w, h))
+    label = f"{w * aa}x{h * aa}"
+    if stride > 1:
+        ro, rd = (V3(*(c[::stride].contiguous() for c in (v.x, v.y, v.z)))
+                  for v in (ro, rd))
+        label += f", every {stride}th ray ({ro.x.shape[0]} rays)"
     rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
     inputs = whitted.kernel_inputs(scene, RenderSettings())
     kern = whitted.whitted_compact(*rays, **inputs)
     plain = whitted.whitted_compact_reference(*rays, **inputs)
     torch.cuda.synchronize()
-    max_abs = compare_images(torch, kern, plain, name)
-    print(f"parity whitted {name} {WIDTH * aa}x{HEIGHT * aa} (depth "
-          f"{inputs['depth']}, W {inputs['W']}, {scene.counts[6]} triangles, "
-          f"light levels {inputs['light_levels']}): max |kernel - plain| "
-          f"{max_abs:.3e}")
+    max_abs = compare_images(torch, kern, plain, f"{name} {label}")
+    print(f"parity whitted {name} {label} (depth {inputs['depth']}, W "
+          f"{inputs['W']}, {scene.counts[6]} triangles, light levels "
+          f"{inputs['light_levels']}, stage e {whitted.needs_ext(scene)}): "
+          f"max |kernel - plain| {max_abs:.3e}")
+    entry = dict(rays=rays, inputs=inputs, plain=plain, max_abs=max_abs,
+                 aa=aa, size=(w, h), timed=stride == 1)
+    results.setdefault("whitted", {})[
+        name if stride == 1 else f"{name} aa={aa} subset"] = entry
+    if stride > 1:
+        return
+    if whitted.needs_ext(scene):
+        entry["bound"] = bound_ms(*ext_work(torch, name, inputs, ro, rd))
+        return
     # Least work, primary level only: every ray tests every analytic
     # prim; every hit tests every analytic occluder per point light and,
     # per area-light sample, one occluder when the sample is blocked and
@@ -437,9 +594,7 @@ def whitted_phase(torch, name, path, results, aa=1):
     n_bytes = 4 * (9 * R + inputs["seeds"].numel()
                    + sum(t.numel() for k, t in inputs.items()
                          if k.endswith("_tbl")))
-    results.setdefault("whitted", {})[name] = dict(
-        rays=rays, inputs=inputs, plain=plain, max_abs=max_abs, aa=aa,
-        bound=bound_ms(n_bytes, n_ops, n_int))
+    entry["bound"] = bound_ms(n_bytes, n_ops, n_int)
 
 
 def area_phase(torch, name, path, results):
@@ -585,7 +740,10 @@ RUNS = (("glass", 1, ("whitted_compact",)),
         ("area", 3, ("whitted_compact",)),
         ("area4", 1, ("whitted_compact",)),
         ("area21", 1, ("area_shadow_fraction",)),
-        ("area4b", 1, ("bvh_closest_triangle",)))
+        ("area4b", 1, ("bvh_closest_triangle",)),
+        ("csg5r", 1, ("whitted_compact",)),
+        ("tex5r", 1, ()),
+        ("csg", 5, ("whitted_compact",)))
 
 
 def launch_counts(reset=False):
@@ -613,21 +771,21 @@ def main_path(torch, np, scene_paths):
     images, total = {}, launch_counts(reset=True)
     with tempfile.TemporaryDirectory() as tmp:
         for name, aa, expect in RUNS:
+            w, h = size_of(name)
             png = os.path.join(tmp, f"{name}_aa{aa}.png")
             launch_counts(reset=True)
             t0 = time.perf_counter()
-            image = api.render_scene_from_file(scene_paths[name], WIDTH,
-                                               HEIGHT, png, aa=aa,
-                                               device=DEVICE)
+            image = api.render_scene_from_file(scene_paths[name], w, h, png,
+                                               aa=aa, device=DEVICE)
             wall = time.perf_counter() - t0
             counts = launch_counts()
             shape = np.asarray(Image.open(png)).shape
-            if shape != (HEIGHT, WIDTH, 4):
+            if shape != (h, w, 4):
                 fail(f"{png}: PNG shape {shape}")
-            if not np.isfinite(image).all():
-                fail(f"{name} aa={aa}: non-finite image")
+            if not np.isfinite(image).all() or image.max() <= 0.1:
+                fail(f"{name} aa={aa}: non-finite or black image")
             images[(name, aa)] = image
-            print(f"main path {name} {WIDTH}x{HEIGHT} aa={aa}: PNG {shape}, "
+            print(f"main path {name} {w}x{h} aa={aa}: PNG {shape}, "
                   f"{wall * 1e3:.1f} ms wall, PNG write included, launches "
                   f"{json.dumps({k: n for k, n in counts.items() if n})} "
                   f"[{card_state()}]")
@@ -656,7 +814,7 @@ def whitted_plain_image(torch, np, path, aa):
 
 
 def frame_breakdown(torch, np, name, path, aa=1, reps=5):
-    """Where a CLI-path frame's wall time goes at WIDTH x HEIGHT, aa
+    """Where a CLI-path frame's wall time goes at the scene's size, aa
     (host clock, each phase ended by a synchronize; medians of `reps`
     calls after a warm-up), and the device's busy share of one frame
     (torch.profiler)."""
@@ -671,6 +829,7 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
     from rray_tpu_torch.scene.data import compile_scene
 
     settings = RenderSettings()
+    w, h = size_of(name)
     phases = {}
 
     def mark(key, t0):
@@ -688,7 +847,7 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
             t0 = mark("load_scene_file (YAML, OBJ)", t0)
             scene = compile_scene(shapes, lights, device=DEVICE)
             t0 = mark("compile_scene", t0)
-            cam = Camera(WIDTH * aa, HEIGHT * aa, cam_spec["fov"])
+            cam = Camera(w * aa, h * aa, cam_spec["fov"])
             cam.transform = cam_spec["transform"]
             ro, rd = all_rays_soa(compile_camera(cam, torch.float32, DEVICE))
             t0 = mark("camera rays", t0)
@@ -705,7 +864,7 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
                     jitter.seed_table(0, settings.depth, len(scene.lights)))
                 rgb = (out.x, out.y, out.z)
                 t0 = mark("fast node (triangle kernels + torch ops)", t0)
-            image = torch.stack(rgb, -1).reshape(HEIGHT * aa, WIDTH * aa, 3)
+            image = torch.stack(rgb, -1).reshape(h * aa, w * aa, 3)
             image = image.cpu().numpy()
             t0 = mark("image to host", t0)
             image = canvas.downsample(image, aa)
@@ -714,7 +873,7 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
             t0 = mark("write_png", t0)
             mark("frame, by phases", start)
             t0 = time.perf_counter()
-            api.render_scene_from_file(path, WIDTH, HEIGHT, png, aa=aa,
+            api.render_scene_from_file(path, w, h, png, aa=aa,
                                        device=DEVICE)
             mark("render_scene_from_file", t0)
             if rep == 0:  # warm-up
@@ -723,7 +882,7 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
                       torch.profiler.ProfilerActivity.CUDA]
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
-            api.render_scene_from_file(path, WIDTH, HEIGHT, png, aa=aa,
+            api.render_scene_from_file(path, w, h, png, aa=aa,
                                        device=DEVICE)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
@@ -732,13 +891,36 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
               for e in prof.key_averages()]
     busy = sum(ms for ms, _ in device)
     for key, vals in phases.items():
-        print(f"where the time goes {name} {WIDTH}x{HEIGHT} aa={aa}: {key} "
+        print(f"where the time goes {name} {w}x{h} aa={aa}: {key} "
               f"{float(np.median(vals)):.3f} ms (median of {len(vals)})")
     top = ", ".join(f"{key} {ms:.3f} ms" for ms, key in
                     sorted(device, reverse=True)[:5] if ms > 0)
     print(f"where the time goes {name} aa={aa}: device busy {busy:.3f} ms of a "
           f"{wall:.1f} ms profiled frame ({100 * busy / wall:.1f}%); top "
           f"device time: {top} [{card_state()}]")
+
+
+def print_ptxas(log):
+    """Registers, stack and spills of every kernel instantiation, from
+    ptxas -v (stage e: the whitted kernels with ext = 1)."""
+    import re
+
+    props = None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            props = m.group(1)
+            continue
+        m = re.search(r"\d+([a-z_]+_kernel)(I(?:L[ib]\d+E)+E)?",
+                      props or "")
+        if not m:
+            continue
+        name = m.group(1)
+        if m.group(2):
+            args = re.findall(r"L[ib](\d+)E", m.group(2))
+            name += "<" + ", ".join(args) + ">"
+        if "stack frame" in line or "registers" in line:
+            print(f"  ptxas {name}: {line.split(':')[-1].strip()}")
 
 
 def main() -> int:
@@ -752,7 +934,7 @@ def main() -> int:
     from rray_tpu_torch import api
     from rray_tpu_torch.io import mesh_scenes
     from rray_tpu_torch.kernels import build, whitted
-    from rray_tpu_torch.render import canvas
+    from rray_tpu_torch.render import canvas, integrator
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -766,19 +948,27 @@ def main() -> int:
     info = build.last_build
     print(f"build: {info['seconds']:.3f} s, cache hit: {info['cache_hit']}, "
           f"{os.path.relpath(info['path'], ROOT)}")
-    for line in info["log"].splitlines():
-        if "registers" in line or "stack frame" in line:
-            print(f"  {line.strip()}")
+    print_ptxas(info["log"])
 
     tmp = tempfile.TemporaryDirectory()
     scene_paths = {name: os.path.join(ROOT, path) for name, path in EXAMPLES}
     scene_paths.update({name: mesh_scenes.write_scene(tmp.name, name, **kw)
                         for name, kw in SCENES.items()})
+    scene_paths.update({name: mesh_scenes.write_config5(tmp.name, name, **kw)
+                        for name, kw in CONFIG5.items()})
+    for name, want in (("csg", "kernel"), ("csg5r", "kernel"),
+                       ("tex5r", "fast")):
+        scene = camera_scene(scene_paths[name], torch, size=(8, 6))[0]
+        if integrator.route(scene) != want or not whitted.needs_ext(scene):
+            fail(f"{name} routes to {integrator.route(scene)}, not {want}, "
+                 f"or needs no stage e")
 
     results = {}
     for name, aa in (("glass", 1), ("example1", 1), ("mesh4", 1),
-                     ("mesh4r", 1), ("area", 3), ("area4", 1)):
+                     ("mesh4r", 1), ("area", 3), ("area4", 1), ("csg", 1),
+                     ("csg5r", 1)):
         whitted_phase(torch, name, scene_paths[name], results, aa)
+    whitted_phase(torch, "csg", scene_paths["csg"], results, 5, CSG_STRIDE)
     for name in ("mesh9", "mesh4b"):
         triangle_phase(torch, name, scene_paths[name], results)
     area_phase(torch, "area21", scene_paths["area21"], results)
@@ -789,7 +979,7 @@ def main() -> int:
     # plain image of the 4.32 M rays above, downsampled), the fast node's
     # against the same node with the plain kernel versions.
     for name, aa in (("glass", 1), ("example1", 1), ("mesh4", 1),
-                     ("mesh4r", 1), ("area", 3), ("area4", 1)):
+                     ("mesh4r", 1), ("area", 3), ("area4", 1), ("csg5r", 1)):
         res = results["whitted"][name]
         plain = torch.stack(res["plain"], -1).reshape(HEIGHT * aa,
                                                       WIDTH * aa, 3)
@@ -811,20 +1001,23 @@ def main() -> int:
             torch, torch.from_numpy(images[(name, 1)]).to(DEVICE).unbind(-1),
             torch.from_numpy(plain).to(DEVICE).unbind(-1), f"main path {name}")
         print(f"parity main path {name}: max |kernels - plain| {diff:.3e}")
-    for name, aa in (("mesh4", 1), ("mesh4b", 1), ("area", 3)):
-        frame_breakdown(torch, np, name, scene_paths[name], aa)
+    for name, aa, reps in (("mesh4", 1, 5), ("mesh4b", 1, 5), ("area", 3, 5),
+                           ("csg", 5, 3)):
+        frame_breakdown(torch, np, name, scene_paths[name], aa, reps)
     tmp.cleanup()
 
     # Times on the card, in turns.
     kernels = []
     for name, res in results["whitted"].items():
+        if not res["timed"]:
+            continue
         fn = functools.partial(whitted.whitted_compact, *res["rays"],
                                **res["inputs"])
         plain_fn = functools.partial(whitted.whitted_compact_reference,
                                      *res["rays"], **res["inputs"])
         res["ms"], res["call_ms"], res["plain_ms"] = timed_turns(
             torch, f"whitted_compact {name}", "whitted_kernel", fn, plain_fn)
-        w, h = WIDTH * res["aa"], HEIGHT * res["aa"]
+        w, h = (n * res["aa"] for n in res["size"])
         print(f"time whitted_compact {name} {w}x{h}: kernel "
               f"{res['ms']:.4f} ms/frame ({w * h / res['ms'] * 1e3:.4g} "
               f"primary rays/s), call {res['call_ms']:.4f} ms, plain "

@@ -3,12 +3,17 @@ floor, a point light at (-10, 10, -10) or config 3's area light, the
 camera of rray_tpu's mesh benchmark cells (benchmarks/bench_suite.py
 config4), procedural UV-sphere meshes (a copy of
 benchmarks/bench_mesh.py::uv_sphere_obj) and a grid of small analytic
-spheres. The tests and chip_smoke.py render the same scenes from here."""
+spheres; and variants of config 5 (examples/csg_showcase.yaml). The
+tests and chip_smoke.py render the same scenes from here."""
 from __future__ import annotations
 
 import os
 
 import numpy as np
+import yaml
+
+EXAMPLES = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.dirname(os.path.abspath(__file__)))), "examples")
 
 FLOOR = """  - type: plane
     material:
@@ -137,4 +142,52 @@ def write_scene(tmp, name, lat_lon=(11, 11), reflective=0.0, grid=False,
         light = (AREA_LIGHT.format(level=area_level) if area_level
                  else POINT_LIGHT)
         f.write(HEADER.format(light=light) + body)
+    return path
+
+
+# A perturbed stripe for config 5's torus in place of its image: the
+# perturbed node scales its points by 500 so that FastNoiseLite's
+# frequency (0.01) samples many lattice cells across the torus, and the
+# stripe scales them back to a period of 0.25 (noise.rs:26-29).
+PERTURBED_STRIPE = {
+    "type": "perturbed", "scale": 40, "octaves": 3, "persistence": 0.5,
+    "transforms": [{"type": "scale", "amount": [0.002, 0.002, 0.002]}],
+    "pattern_a": {
+        "type": "stripe", "color_a": [0.9, 0.5, 0.1],
+        "color_b": [0.1, 0.3, 0.8],
+        "transforms": [{"type": "scale", "amount": [125, 125, 125]}]}}
+
+
+def write_config5(tmp, name, floor_reflective=0.0, area_level=0,
+                  perturbed_torus=False, split_csg=False):
+    """Write a variant of config 5 (examples/csg_showcase.yaml) as
+    `name`.yaml under `tmp` and return its path: the floor's
+    `reflective`, config 3's area light at `area_level` in place of the
+    point light, PERTURBED_STRIPE on the torus in place of its image,
+    and with `split_csg` the
+    CSG node replaced by its two operands as top-level objects (each
+    under the CSG's transforms). The image path is made absolute."""
+    with open(os.path.join(EXAMPLES, "csg_showcase.yaml")) as f:
+        doc = yaml.safe_load(f)
+    objs = doc["scene"]
+    objs[0]["material"]["reflective"] = floor_reflective
+    if area_level:
+        doc["lights"] = [yaml.safe_load(AREA_LIGHT.format(
+            level=area_level))[0]]
+    csg = next(o for o in objs if o["type"] == "csg")
+    torus = next(o for o in objs if o["type"] == "torus")
+    pattern = torus["material"]["pattern"]
+    if perturbed_torus:
+        torus["material"]["pattern"] = PERTURBED_STRIPE
+    elif pattern["type"] == "image":
+        pattern["file"] = os.path.join(EXAMPLES, pattern["file"])
+    if split_csg:
+        operands = [dict(o, transforms=o.get("transforms", [])
+                         + csg.get("transforms", []))
+                    for o in (csg["left"], csg["right"])]
+        i = objs.index(csg)
+        objs[i:i + 1] = operands
+    path = os.path.join(tmp, f"{name}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f, sort_keys=False)
     return path

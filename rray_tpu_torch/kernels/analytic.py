@@ -28,7 +28,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import jitter, soa
-from ..ops.vec import V3
+from ..ops.vec import V3, div
 from ..scene import data as sd
 
 OCCLUSION_KINDS = (sd.SPHERE, sd.PLANE, sd.CUBE, sd.CYLINDER, sd.CONE)
@@ -105,8 +105,8 @@ def area_sample(cuv, hb, s, level: int, over: V3):
     dtype = over.x.dtype
     r0 = jitter.draw_unit(hb, 2 * s, dtype)
     r1 = jitter.draw_unit(hb, 2 * s + 1, dtype)
-    ur = (s % level + r0) / level
-    vr = (s // level + r1) / level
+    ur = div(s % level + r0, level)
+    vr = div(s // level + r1, level)
     seg = V3(cuv[0] + cuv[3] * ur + cuv[6] * vr - over.x,
              cuv[1] + cuv[4] * ur + cuv[7] * vr - over.y,
              cuv[2] + cuv[5] * ur + cuv[8] * vr - over.z)
@@ -132,7 +132,7 @@ def area_shadow_fraction_reference(over_comps, seed: int, light_params,
                                   over.z, direction.x, direction.y,
                                   direction.z, dist)
         count = count + occ.to(over.x.dtype)
-    return count / (level * level)
+    return div(count, level * level)
 
 
 def _launch(over_comps, seed, light_params, prim_params, kinds, level):
@@ -161,7 +161,7 @@ def _launch(over_comps, seed, light_params, prim_params, kinds, level):
             R, build.stream(device))
     build.check_launch("area_shadow_fraction", rc)
     launches += 1
-    return count / (level * level)
+    return div(count, level * level)
 
 
 def area_shadow_fraction(over_comps, seed: int, light_params, prim_params,

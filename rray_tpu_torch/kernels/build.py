@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels from this package's sources.
 
 The kernels are compiled by `nvcc` into one shared library with a plain
-C interface, loaded with ctypes (no PyTorch headers, so a build takes
-seconds, not minutes). Each .cu file compiles to an object in its own
-`nvcc` process, all started together, and one more `nvcc` links them.
+C interface, loaded with ctypes (no PyTorch headers). Each unit (a .cu
+file and its macro definitions; whitted.cu makes four) compiles to an
+object in its own `nvcc` process, all started together, and one more
+`nvcc` links them.
 The library lands in `build/rray_tpu_torch/` at the repository root,
 named by a hash of the sources and flags, so a changed source rebuilds
 and an unchanged one loads the cached file. Nothing is downloaded and no
@@ -25,9 +26,15 @@ import time
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
-_UNITS = ("whitted.cu", "triangles.cu", "bvh.cu", "area.cu")
-_SOURCES = _UNITS + ("vec_device.cuh", "mesh_device.cuh",
-                     "whitted_device.cuh", "jitter_device.cuh")
+# (source, macro definitions): whitted.cu's stage-e kernels, the bulk of
+# the build, compile in three more units by pairs of widths.
+_UNITS = (("whitted.cu", ()), ("whitted.cu", ("-DRRAY_EXT_W=1",)),
+          ("whitted.cu", ("-DRRAY_EXT_W=4",)),
+          ("whitted.cu", ("-DRRAY_EXT_W=16",)), ("triangles.cu", ()),
+          ("bvh.cu", ()), ("area.cu", ()))
+_SOURCES = ("whitted.cu", "triangles.cu", "bvh.cu", "area.cu",
+            "vec_device.cuh", "mesh_device.cuh", "whitted_device.cuh",
+            "jitter_device.cuh", "quartic_device.cuh", "noise_device.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "rray_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -49,7 +56,7 @@ def _nvcc() -> str:
 
 
 def library_path() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    h = hashlib.sha256((" ".join(NVCC_FLAGS) + repr(_UNITS)).encode())
     for name in _SOURCES:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
@@ -62,9 +69,10 @@ def _compile(path: str) -> str:
     tmp = f"{path}.{os.getpid()}"
     nvcc = _nvcc()
     jobs = []
-    for unit in _UNITS:
-        obj = f"{tmp}.{unit}.o"
-        cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", obj, os.path.join(_CSRC, unit)]
+    for k, (unit, defines) in enumerate(_UNITS):
+        obj = f"{tmp}.{k}.{unit}.o"
+        cmd = [nvcc, *NVCC_FLAGS, *defines, "-c", "-o", obj,
+               os.path.join(_CSRC, unit)]
         jobs.append((cmd, obj, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True)))
@@ -108,8 +116,8 @@ def load_library():
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.whitted_compact_launch.restype = i32
         lib.whitted_compact_launch.argtypes = (
-            [ptr] * 9 + [ptr, i32, i32, ptr, i32, ptr, i32, ptr, ptr, ptr,
-                         i32, ptr, i32] + [i32] * 5 + [ptr])
+            [ptr] * 9 + [ptr, i32, i32, ptr, i32, ptr, i32, ptr, i32, ptr,
+                         ptr, i32, ptr, i32, ptr, i32] + [i32] * 6 + [ptr])
         lib.closest_triangle_launch.restype = i32
         lib.closest_triangle_launch.argtypes = (
             [ptr] * 7 + [ptr, i32, i32, ptr] + [i32] * 4 + [ptr, ptr, i32,

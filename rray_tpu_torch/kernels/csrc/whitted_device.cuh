@@ -1,12 +1,15 @@
 // Per-ray device code of the compact Whitted kernel (see whitted.cu).
 //
-// One call of trace_ray<W> evaluates one primary ray's whole Whitted
-// tree: W path rows per level, 2W children, stable top-W by weight. The
-// arithmetic is a transcript of rray_tpu/kernels/whitted.py::_node_row
-// and _kernel, written in the same operation order as the plain PyTorch
-// version (rray_tpu_torch/kernels/whitted.py). Built with --fmad=false,
-// every product and sum rounds where the plain version's does, so the
-// two agree bit for bit except where rsqrtf/powf differ by an ulp.
+// One call of trace_ray<W, kExt> evaluates one primary ray's whole
+// Whitted tree: W path rows per level, 2W children, stable top-W by
+// weight. The arithmetic is a transcript of
+// rray_tpu/kernels/whitted.py::_node_row and _kernel, written in the same
+// operation order as the plain PyTorch version
+// (rray_tpu_torch/kernels/whitted.py). Built with --fmad=false, every
+// product and sum rounds where the plain version's does, so the two agree
+// bit for bit except where rsqrtf/powf differ by an ulp. kExt compiles in
+// stage e (tori, CSG, noise, perturbed and image patterns); scenes
+// without it run the kExt = false instantiation, which holds none of it.
 //
 // Like vec_device.cuh and mesh_device.cuh, the header also compiles as
 // host C++ (tests/test_torch_whitted_cuh.py).
@@ -14,6 +17,8 @@
 
 #include "jitter_device.cuh"
 #include "mesh_device.cuh"
+#include "noise_device.cuh"
+#include "quartic_device.cuh"
 
 namespace rray {
 
@@ -26,10 +31,15 @@ constexpr int MESH_CHUNK = 24;
 constexpr int MAX_PATTERN_DEPTH = 8;
 constexpr float EPS_OFF = 1e-3f;  // f32 over/under offset
 constexpr float TOL = 1e-4f;      // f32 n1/n2 hit-match tolerance
+constexpr int MAX_MSLOTS = 80;    // CSG member slots: 16 prims x 5
+constexpr float PI_F = 3.14159265358979323846f;
+constexpr float TWO_PI_F = 6.28318530717958647692f;
 
-enum Kind { SPHERE = 0, PLANE = 1, CUBE = 2, CYLINDER = 3, CONE = 4 };
+enum Kind { SPHERE = 0, PLANE = 1, CUBE = 2, CYLINDER = 3, CONE = 4,
+            TORUS = 5 };
 enum PType { SOLID = 0, STRIPE = 1, GRADIENT = 2, RING = 3, CHECKER = 4,
-             BLEND = 5 };
+             BLEND = 5, NOISE = 6, PERTURBED = 7, IMAGE = 8 };
+enum CsgOp { CSG_UNION = 0, CSG_INTERSECTION = 1, CSG_DIFFERENCE = 2 };
 
 struct SceneView {
   const float* prims;   // [P + G, P_COLS]: analytic prims, then groups
@@ -44,7 +54,14 @@ struct SceneView {
   const int* seeds;     // [depth + 1, L] jitter seed per level and light
   const float* tris;    // [T, T_COLS] mesh rows (T = 0: no mesh)
   const float* tboxes;  // [6, n_chunks + 1] chunk boxes, then the whole
-  int P, L, T, n_chunks;
+  // Stage e only (kExt):
+  const int* pmeta;     // [N, 4] noise/perturbed: octaves; image: H, W,
+                        // texel-table offset, format (0 packed, 1 rgb)
+  const int* member;    // [P] CSG operand flag
+  const int* csg_ops;   // [C] CsgOp, innermost CSG first
+  const int* csg_side;  // [C, P] 0: not under the CSG, 1 left, 2 right
+  const float* texels;  // flat texel table (global memory)
+  int P, L, T, n_chunks, C;
 };
 
 RRAY_DEVICE V3 affine_pt(const float* p, V3 v) {
@@ -312,6 +329,28 @@ RRAY_DEVICE V3 local_normal(int k, const float* p, V3 lp) {
 
 RRAY_DEVICE bool even(float v) { return fmodf(v, 2.0f) == 0.0f; }
 
+// A cheap combinator node (row g, pattern-space point p) of its
+// children's colors a and b.
+RRAY_DEVICE V3 combine(int type, const float* g, V3 p, V3 a, V3 b) {
+  if (type == GRADIENT) {
+    float frac = p.x - floorf(p.x);
+    return add(a, scale(sub(b, a), frac));
+  }
+  if (type == BLEND) {
+    float sc = g[15];
+    return add(scale(a, 1.0f - sc), scale(b, sc));
+  }
+  bool cond;
+  if (type == STRIPE) {
+    cond = even(floorf(p.x));
+  } else if (type == RING) {
+    cond = even(floorf(sqrtf(p.x * p.x + p.z * p.z)));
+  } else {  // CHECKER
+    cond = even(floorf(p.x) + floorf(p.y) + floorf(p.z));
+  }
+  return cond ? a : b;
+}
+
 // Cheap pattern tree at pattern-space points. D bounds the recursion;
 // the wrapper rejects trees deeper than MAX_PATTERN_DEPTH. (The D == 0
 // end is an `if constexpr`, not an explicit specialization: that would
@@ -327,23 +366,223 @@ RRAY_NOINLINE V3 eval_pattern(const SceneView& s, int node, V3 pts) {
     V3 p = affine_pt(g, pts);
     V3 a = eval_pattern<D - 1>(s, s.pa[node], p);
     V3 b = eval_pattern<D - 1>(s, s.pb[node], p);
-    if (type == GRADIENT) {
-      float frac = p.x - floorf(p.x);
-      return add(a, scale(sub(b, a), frac));
+    return combine(type, g, p, a, b);
+  }
+}
+
+// ---- stage e: uv mappings, texels, noise patterns -------------------------
+
+RRAY_DEVICE int imin(int a, int b) { return a < b ? a : b; }
+
+// Python's x % m for m > 0 (torch.remainder, jnp.mod).
+RRAY_DEVICE float pymod(float x, float m) {
+  float r = fmodf(x, m);
+  if (r != 0.0f && r < 0.0f) r = r + m;
+  return r;
+}
+
+// uv mapping of a prim of kind k (row pw) on pattern-space points: the
+// plain version's _uv_kind (shade_soa.uv_at's formulas; atan2 and acos
+// in double, rounded).
+RRAY_DEVICE void uv_kind(int k, const float* pw, V3 q, float* u, float* v) {
+  const float x = q.x, y = q.y, z = q.z;
+  if (k == SPHERE) {
+    const float theta = atan2_r(z, x);
+    const float rr = sqrtf(maxp(x * x + y * y + z * z, 1e-30f));
+    const float phi = acos_r(clampp(y / rr, -1.0f, 1.0f));
+    *u = (theta + PI_F) / TWO_PI_F;
+    *v = 1.0f - phi / PI_F;
+  } else if (k == PLANE) {
+    *u = pymod(x, 1.0f);
+    *v = pymod(z, 1.0f);
+  } else if (k == CUBE) {
+    const float ax = fabsf(x), ay = fabsf(y), az = fabsf(z);
+    const bool fx = (ax >= ay) && (ax >= az);
+    const bool fy = !fx && (ay >= ax) && (ay >= az);
+    const float ur = x > 0.0f ? (z + 1.0f) * 0.5f : (1.0f - z) * 0.5f;
+    const float uy = (x + 1.0f) * 0.5f;
+    const float vy = y > 0.0f ? (1.0f - z) * 0.5f : (z + 1.0f) * 0.5f;
+    const float uz = z > 0.0f ? (x + 1.0f) * 0.5f : (1.0f - x) * 0.5f;
+    *u = fx ? ur : (fy ? uy : uz);
+    *v = fy ? vy : (y + 1.0f) * 0.5f;
+  } else if (k == CYLINDER) {
+    const float cmin = pw[21], cmax = pw[22];
+    const bool cap = (pw[23] != 0.0f) && ((y <= cmin) || (y >= cmax));
+    const float theta = atan2_r(z, x);
+    *u = cap ? (x + 1.0f) / 2.0f : (theta + PI_F) / TWO_PI_F;
+    *v = cap ? (z + 1.0f) / 2.0f : pymod(y, 1.0f);
+  } else if (k == CONE) {
+    const float cmin = pw[21], cmax = pw[22];
+    const bool cap = (pw[23] != 0.0f) && ((fabsf(y - cmin) <= EPSILON) ||
+                                          (fabsf(y - cmax) <= EPSILON));
+    const float radius = maxp(fabsf(y), 1e-30f);
+    const float theta = (atan2_r(z, x) + PI_F) / TWO_PI_F;
+    float height = cmax - cmin;
+    if (fabsf(height) < 1e-30f) height = 1e-30f;
+    *u = cap ? (x / radius + 1.0f) / 2.0f : (y - cmin) / height;
+    *v = cap ? (z / radius + 1.0f) / 2.0f : theta;
+  } else {  // TORUS (torus.rs:150-161)
+    *u = (atan2_r(y, x) + PI_F) / TWO_PI_F;
+    const float dist = sqrtf(maxp(x * x + y * y, 1e-30f)) - 1.0f;
+    *v = (atan2_r(z, dist) + PI_F) / TWO_PI_F;
+  }
+}
+
+// The texel an image leaf (meta: H, W, table offset, format) shows at
+// (u, v): clamp, scale, truncate, flip v (pattern.rs:209-213,
+// texture.rs:32-54), then one read from the flat texel table.
+RRAY_DEVICE V3 texel(const SceneView& s, const int* meta, float u, float v) {
+  const int h = meta[0], w = meta[1];
+  u = clampp(u, 0.0f, 1.0f);
+  v = clampp(v, 0.0f, 1.0f);
+  const int xi = imin(f2i_sat(u * (float)w), w - 1);
+  const int yi = h - 1 - imin(f2i_sat(v * (float)h), h - 1);
+  const int flat = yi * w + xi;
+  if (meta[3] == 0) {  // packed RGB8, exact in float
+    const int px = (int)s.texels[meta[2] + flat];
+    const float k = (float)(1.0 / 255.0);
+    return v3((float)((px >> 16) & 0xFF) * k, (float)((px >> 8) & 0xFF) * k,
+              (float)(px & 0xFF) * k);
+  }
+  const float* t = s.texels + meta[2] + 3 * flat;
+  return v3(t[0], t[1], t[2]);
+}
+
+// Any pattern tree the kernel takes, at pattern-space points; an image
+// leaf maps its points to uv on the winner's shape (kind k, row pw).
+template <int D>
+RRAY_NOINLINE V3 eval_pattern_ext(const SceneView& s, int node, V3 pts, int k,
+                                  const float* pw) {
+  if constexpr (D == 0) {
+    return v3(0.0f, 0.0f, 0.0f);  // unreachable: depth checked by the wrapper
+  } else {
+    const float* g = s.pats + node * PAT_COLS;
+    const int* meta = s.pmeta + 4 * node;
+    int type = s.ptype[node];
+    if (type == SOLID) return v3(g[12], g[13], g[14]);
+    V3 p = affine_pt(g, pts);
+    if (type == IMAGE) {
+      float u, v;
+      uv_kind(k, pw, p, &u, &v);
+      return texel(s, meta, u, v);
     }
-    if (type == BLEND) {
-      float sc = g[15];
-      return add(scale(a, 1.0f - sc), scale(b, sc));
+    if (type == PERTURBED) {
+      const float sc = g[15], per = g[16];
+      const float nx = octave_perlin(p.x, p.y, p.z, meta[0], per) * sc;
+      const float ny = octave_perlin(p.x, p.y, p.z + 1.0f, meta[0], per) * sc;
+      const float nz = octave_perlin(p.x, p.y, p.z + 2.0f, meta[0], per) * sc;
+      return eval_pattern_ext<D - 1>(s, s.pa[node],
+                                     v3(p.x + nx, p.y + ny, p.z + nz), k, pw);
     }
-    bool cond;
-    if (type == STRIPE) {
-      cond = even(floorf(p.x));
-    } else if (type == RING) {
-      cond = even(floorf(sqrtf(p.x * p.x + p.z * p.z)));
-    } else {  // CHECKER
-      cond = even(floorf(p.x) + floorf(p.y) + floorf(p.z));
+    V3 a = eval_pattern_ext<D - 1>(s, s.pa[node], p, k, pw);
+    V3 b = eval_pattern_ext<D - 1>(s, s.pb[node], p, k, pw);
+    if (type == NOISE) {
+      const float n = octave_perlin(p.x, p.y, p.z, meta[0], g[16]) * g[15];
+      return n <= 0.0f ? scale(a, -n) : scale(b, n);
     }
-    return cond ? a : b;
+    return combine(type, g, p, a, b);
+  }
+}
+
+// ---- stage e: tori and CSG ------------------------------------------------
+
+// Hit slots of prim i (row p) on the object-space ray, tori included
+// under kExt; at most 5.
+template <bool kExt>
+RRAY_DEVICE int slots_of(int k, const float* p, V3 o, V3 d, float* t,
+                         bool* ok) {
+  if (kExt && k == TORUS) return torus_slots(o, d, p[31], t, ok);
+  return prim_slots(k, p + 21, o, d, t, ok);
+}
+
+template <bool kExt>
+RRAY_DEVICE V3 local_normal_of(int k, const float* p, V3 lp) {
+  if (kExt && k == TORUS) {
+    const float r = p[31];
+    const float ss = lp.x * lp.x + lp.y * lp.y + lp.z * lp.z;
+    const float ps = 1.0f + r * r;
+    return v3(4.0f * lp.x * (ss - ps), 4.0f * lp.y * (ss - ps),
+              4.0f * lp.z * (ss - ps + 2.0f));
+  }
+  return local_normal(k, p, lp);
+}
+
+// Bit set over the member slots of one ray.
+struct SlotBits {
+  uint64_t w[2];
+  RRAY_DEVICE bool get(int i) const { return (w[i >> 6] >> (i & 63)) & 1u; }
+  RRAY_DEVICE void set(int i, bool b) {
+    const uint64_t m = (uint64_t)1 << (i & 63);
+    w[i >> 6] = b ? (w[i >> 6] | m) : (w[i >> 6] & ~m);
+  }
+};
+
+// The CSG member slots of one ray, in static (prim, slot) order.
+struct MemberSlots {
+  float t[MAX_MSLOTS];
+  uint8_t pid[MAX_MSLOTS];
+  SlotBits valid;
+  int K;
+};
+
+// The member slots on the world-space ray (o, d).
+static RRAY_NOINLINE void member_slots(const SceneView& s, V3 o, V3 d, MemberSlots* m) {
+  float t[5];
+  bool ok[5];
+  m->K = 0;
+  m->valid.w[0] = m->valid.w[1] = 0;
+  for (int i = 0; i < s.P; ++i) {
+    if (!s.member[i]) continue;
+    const float* p = s.prims + i * P_COLS;
+    const int n = slots_of<true>(s.kinds[i], p, affine_pt(p, o),
+                                 affine_vec(p, d), t, ok);
+    for (int k = 0; k < n; ++k) {
+      m->t[m->K] = t[k];
+      m->pid[m->K] = (uint8_t)i;
+      m->valid.set(m->K, ok[k]);
+      m->K++;
+    }
+  }
+}
+
+// soa.csg_keeps (rray_tpu soa.py:814-857): per CSG, innermost first, a
+// slot under it survives by the op's rule on the parities of the valid
+// slots of each side that precede it in the stable sorted order (t_j <
+// t_i, or t_j == t_i and j < i). Leaves the survivors in m->valid.
+static RRAY_NOINLINE void csg_filter(const SceneView& s, MemberSlots* m) {
+  for (int ci = 0; ci < s.C; ++ci) {
+    const int op = s.csg_ops[ci];
+    const int* side = s.csg_side + ci * s.P;
+    SlotBits keep = {{0, 0}};
+    for (int i = 0; i < m->K; ++i) {
+      const int si = side[m->pid[i]];
+      if (si == 0) {
+        keep.set(i, m->valid.get(i));
+        continue;
+      }
+      bool inl = false, inr = false;
+      for (int j = 0; j < m->K; ++j) {
+        const int sj = side[m->pid[j]];
+        if (j == i || sj == 0) continue;
+        const bool before = j < i ? m->t[j] <= m->t[i] : m->t[j] < m->t[i];
+        const bool x = m->valid.get(j) && before;
+        if (sj == 1) {
+          inl = inl != x;
+        } else {
+          inr = inr != x;
+        }
+      }
+      bool allowed;
+      if (op == CSG_UNION) {
+        allowed = si == 1 ? !inr : !inl;
+      } else if (op == CSG_INTERSECTION) {
+        allowed = si == 1 ? inr : inl;
+      } else {  // CSG_DIFFERENCE
+        allowed = si == 1 ? !inr : inl;
+      }
+      keep.set(i, m->valid.get(i) && allowed);
+    }
+    m->valid = keep;
   }
 }
 
@@ -355,12 +594,31 @@ struct Node {
 };
 
 // Is [0, dist) on the shadow ray from `over` blocked by an analytic prim
-// (first occluder ends the test) or, failing that, by the mesh?
+// (first occluder ends the test) or, failing that, by the mesh? Under
+// kExt a torus tests its slots, and the CSG members' slots on the
+// segment are filtered first (rray_tpu whitted.py:1086-1128).
+template <bool kExt>
 RRAY_DEVICE bool blocked(const SceneView& s, V3 over, V3 dir, float dist) {
   bool occ = false;
   for (int j = 0; j < s.P && !occ; ++j) {
     const float* p = s.prims + j * P_COLS;
+    if (kExt && s.member[j]) continue;
+    if (kExt && s.kinds[j] == TORUS) {
+      float t[4];
+      bool ok[4];
+      torus_slots(affine_pt(p, over), affine_vec(p, dir), p[31], t, ok);
+      for (int k = 0; k < 4; ++k)
+        occ = occ || (ok[k] && t[k] >= 0.0f && t[k] < dist);
+      continue;
+    }
     occ = occludes(s.kinds[j], p, p + 21, over, dir, dist);
+  }
+  if (kExt && !occ && s.C > 0) {
+    MemberSlots m;
+    member_slots(s, over, dir, &m);
+    csg_filter(s, &m);
+    for (int k = 0; k < m.K && !occ; ++k)
+      occ = m.valid.get(k) && m.t[k] >= 0.0f && m.t[k] < dist;
   }
   if (!occ && s.T > 0)
     occ = any_chunks(s.tris, T_COLS, s.T, s.tboxes, s.n_chunks, MESH_CHUNK,
@@ -372,6 +630,7 @@ RRAY_DEVICE bool blocked(const SceneView& s, V3 over, V3 dir, float dist) {
 // an area light of level lv the share of its lv^2 jittered samples that
 // are blocked, cnt * float(1/n) as rray_tpu whitted.py:1164 scales it.
 // All path rows of a level draw with seeds[level, li].
+template <bool kExt>
 RRAY_DEVICE float shadow_frac(const SceneView& s, int li, int level,
                               V3 over) {
   const float* L = s.lights + li * L_COLS;
@@ -380,7 +639,7 @@ RRAY_DEVICE float shadow_frac(const SceneView& s, int li, int level,
     V3 to = v3(L[0] - over.x, L[1] - over.y, L[2] - over.z);
     float dist = sqrtf(dot(to, to));
     V3 dir = scale(to, 1.0f / fmaxf(dist, 1e-30f));
-    return blocked(s, over, dir, dist) ? 1.0f : 0.0f;
+    return blocked<kExt>(s, over, dir, dist) ? 1.0f : 0.0f;
   }
   const int n = lv * lv;
   const uint32_t hb = point_base(s.seeds[level * s.L + li], over.x, over.y,
@@ -389,22 +648,25 @@ RRAY_DEVICE float shadow_frac(const SceneView& s, int li, int level,
   for (int k = 0; k < n; ++k) {
     V3 dir;
     float dist = area_sample(L + 6, hb, k, lv, over, &dir);
-    cnt = cnt + (blocked(s, over, dir, dist) ? 1.0f : 0.0f);
+    cnt = cnt + (blocked<kExt>(s, over, dir, dist) ? 1.0f : 0.0f);
   }
   return cnt * (float)(1.0 / n);
 }
 
+template <bool kExt>
 RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
                                   bool has_refl, bool has_refr) {
   // Closest hit: per-prim minimum, then a strict < across prims, so the
-  // lowest prim id wins ties.
+  // lowest prim id wins ties; CSG members fold last (below).
   float best_t = INFINITY;
   int win = -1;
   float t[5];
   bool ok[5];
   for (int i = 0; i < s.P; ++i) {
+    if (kExt && s.member[i]) continue;
     const float* p = s.prims + i * P_COLS;
-    int n = prim_slots(s.kinds[i], p + 21, affine_pt(p, o), affine_vec(p, d), t, ok);
+    int n = slots_of<kExt>(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d),
+                           t, ok);
     float tp = INFINITY;
     for (int k = 0; k < n; ++k)
       tp = fminf(tp, (ok[k] && t[k] >= 0.0f) ? t[k] : INFINITY);
@@ -427,6 +689,19 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
       mesh_n = hit_normal(g, m.u, m.v);
     }
   }
+  // The CSG-filtered member slots, folded after the non-members and the
+  // mesh with a strict < (rray_tpu whitted.py:902-924).
+  if (kExt && s.C > 0) {
+    MemberSlots m;
+    member_slots(s, o, d, &m);
+    csg_filter(s, &m);
+    for (int k = 0; k < m.K; ++k) {
+      if (m.valid.get(k) && m.t[k] >= 0.0f && m.t[k] < best_t) {
+        best_t = m.t[k];
+        win = m.pid[k];
+      }
+    }
+  }
   Node out;
   if (win < 0) {  // miss: no light, dead children
     V3 z = v3(0.0f, 0.0f, 0.0f);
@@ -442,8 +717,8 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
   V3 eyev = neg(d);
   V3 normalv = normalize(
       win >= s.P ? mesh_n
-                 : nmat_vec(pw, local_normal(s.kinds[win], pw,
-                                             affine_pt(pw, point))));
+                 : nmat_vec(pw, local_normal_of<kExt>(s.kinds[win], pw,
+                                                      affine_pt(pw, point))));
   bool inside = dot(normalv, eyev) < 0.0f;
   normalv = scale(normalv, inside ? -1.0f : 1.0f);
   V3 over = add(point, scale(normalv, EPS_OFF));
@@ -458,7 +733,8 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
     float bts = -INFINITY, btl = -INFINITY, ior_s = 1.0f, ior_l = 1.0f;
     for (int i = 0; i < s.P; ++i) {
       const float* p = s.prims + i * P_COLS;
-      int n = prim_slots(s.kinds[i], p + 21, affine_pt(p, o), affine_vec(p, d), t, ok);
+      int n = slots_of<kExt>(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d),
+                             t, ok);
       int cnt_s = 0, cnt_l = 0;
       float last_s = -INFINITY, last_l = -INFINITY;
       for (int k = 0; k < n; ++k) {
@@ -484,8 +760,17 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
     n2 = (btl > -INFINITY && btl < INFINITY) ? ior_l : 1.0f;
   }
 
-  // Pattern at the over point, on the winner's object space.
-  V3 base = eval_pattern<MAX_PATTERN_DEPTH>(s, s.roots[win], affine_pt(pw, over));
+  // Pattern at the over point, on the winner's object space; under kExt
+  // an image leaf maps its points to uv on the winner's shape and reads
+  // its texel in place.
+  V3 base;
+  if constexpr (kExt) {
+    base = eval_pattern_ext<MAX_PATTERN_DEPTH>(
+        s, s.roots[win], affine_pt(pw, over), win < s.P ? s.kinds[win] : -1,
+        pw);
+  } else {
+    base = eval_pattern<MAX_PATTERN_DEPTH>(s, s.roots[win], affine_pt(pw, over));
+  }
 
   // Phong per light (light.rs:98-140), shaded from the light's position
   // (an area light's centre), with its shadowed fraction.
@@ -493,7 +778,7 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
   V3 surface = v3(0.0f, 0.0f, 0.0f);
   for (int li = 0; li < s.L; ++li) {
     const float* L = s.lights + li * L_COLS;
-    float unshadow = 1.0f - shadow_frac(s, li, level, over);
+    float unshadow = 1.0f - shadow_frac<kExt>(s, li, level, over);
     V3 effective = v3(base.x * L[3], base.y * L[4], base.z * L[5]);
     V3 lightv = normalize(v3(L[0] - over.x, L[1] - over.y, L[2] - over.z));
     V3 ambient = scale(effective, amb);
@@ -557,7 +842,7 @@ RRAY_DEVICE Row dead_row() {
 
 // Spawn modes: both reflection and refraction -> 2W children + stable
 // top-W; exactly one -> a width-1 chain (W == 1); neither -> one level.
-template <int W>
+template <int W, bool kExt>
 RRAY_DEVICE void trace_ray(const SceneView& s, V3 ro, V3 rd, int depth,
                            bool has_refl, bool has_refr, float* rgb) {
   const bool both = has_refl && has_refr;
@@ -576,7 +861,7 @@ RRAY_DEVICE void trace_ray(const SceneView& s, V3 ro, V3 rd, int depth,
       if (w == 0.0f) continue;  // dead path row: contributes nothing
       V3 o = v3(st[r].c[0], st[r].c[1], st[r].c[2]);
       V3 d = v3(st[r].c[3], st[r].c[4], st[r].c[5]);
-      Node nd = node_eval(s, o, d, level, has_refl, has_refr);
+      Node nd = node_eval<kExt>(s, o, d, level, has_refl, has_refr);
       acc_r = acc_r + nd.surface.x * w;
       acc_g = acc_g + nd.surface.y * w;
       acc_b = acc_b + nd.surface.z * w;

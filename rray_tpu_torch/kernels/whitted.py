@@ -3,17 +3,28 @@ plain PyTorch version, and the wrapper that picks between them.
 
 This is the port of rray_tpu's Pallas kernel
 `rray_tpu/kernels/whitted.py::whitted_compact` (body `_kernel`, node
-`_node_row`), stages a (core: analytic prims, point lights, cheap
-patterns, depth 0 and the width-1 reflection/refraction chain), b
+`_node_row`), all five stages: a (core: analytic prims, point lights,
+cheap patterns, depth 0 and the width-1 reflection/refraction chain), b
 (compact wavefront: W path rows per pixel, 2W children, stable top-W by
 weight), c (area lights: level^2 jittered shadow samples per light,
 drawn from the point-keyed hash of ops/jitter.py with one seed per level
-and light) and d (the in-kernel mesh: up to 1024 triangles folded after
+and light), d (the in-kernel mesh: up to 1024 triangles folded after
 the analytic prims, for closest hits and shadows, with materials and
-patterns per material group). The CUDA source is kernels/csrc/whitted.cu:
-one thread runs one primary ray's whole tree with its path state in
-registers and local memory, the small scene tables staged in shared
-memory and the triangle table read from global memory.
+patterns per material group) and e (tori through the quartic, CSG over
+analytic operands through the pairwise-parity filter `soa.csg_keeps` on
+closest hits and shadow segments, Perlin noise and perturbed patterns,
+and image textures read inside the kernel). The CUDA source is
+kernels/csrc/whitted.cu: one thread runs one primary ray's whole tree
+with its path state in registers and local memory, the small scene
+tables staged in shared memory, the triangle and texel tables read from
+global memory. Stage e is a compile-time switch of the kernel (`ext`),
+so scenes without it run the same machine code as before.
+
+Textures: rray_tpu's kernel emits a multiplier and a flat texel index
+and completes the image outside the kernel (a Mosaic workaround for
+gathers). Here the kernel reads the texel itself and evaluates the
+pattern tree with it in place, as rray_tpu's XLA path does; the plain
+version follows the kernel. The two forms agree up to rounding.
 
 `whitted_compact` takes the tensors' device as the switch: CPU tensors
 run `whitted_compact_reference` (the plain version), CUDA tensors launch
@@ -23,18 +34,24 @@ XLA path, while the kernel is float32 only, as the TPU kernel is.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ..config import EPSILON, hit_match_tol, offset_eps
-from ..ops import jitter, soa
-from ..ops.vec import V3
+from ..ops import jitter, noise, quartic, soa
+from ..ops.vec import V3, div
+from ..render import shade_soa
 from ..scene import data as sd
 from . import triangles
 from .analytic import OCCLUSION_KINDS, _occludes, area_sample
 
 CHEAP_PATTERNS = ("solid", "stripe", "gradient", "ring", "checker", "blend")
-# Pattern node codes shared with csrc/whitted.cu.
-PATTERN_CODES = {name: i for i, name in enumerate(CHEAP_PATTERNS)}
+# The pattern nodes the kernel evaluates (rray_tpu whitted.py:64): the
+# cheap ones, Perlin noise and perturbation, and image leaves.
+KERNEL_PATTERNS = CHEAP_PATTERNS + ("noise", "perturbed", "image")
+# Pattern node codes shared with csrc/whitted_device.cuh.
+PATTERN_CODES = {name: i for i, name in enumerate(KERNEL_PATTERNS)}
 # Path-row capacities the CUDA kernel is instantiated for.
 WIDTHS = (1, 2, 4, 8, 16, 32)
 MAX_PRIMS = 16
@@ -53,18 +70,25 @@ MESH_MAX_TRIS = 1024
 MESH_CHUNK = 24
 MAX_GROUPS = 8
 T_COLS = 19
+# Texel indices below 2^24 (rray_tpu whitted.py:149); a packed RGB8
+# texel rides in the float texel table exactly for the same reason.
+MAX_TEXELS = 1 << 24
 
 # Kernel launches made by `whitted_compact` in this process (CPU calls,
 # which run the plain version, do not count).
 launches = 0
 
 
-def tree_cheap(node) -> bool:
-    """Does this pattern tree hold only cheap pattern nodes?"""
+def _tree_all(node, names) -> bool:
     if node is None:
         return True
-    return node.ptype in CHEAP_PATTERNS and tree_cheap(node.a) \
-        and tree_cheap(node.b)
+    return node.ptype in names and _tree_all(node.a, names) \
+        and _tree_all(node.b, names)
+
+
+def tree_cheap(node) -> bool:
+    """Does this pattern tree hold only cheap pattern nodes?"""
+    return _tree_all(node, CHEAP_PATTERNS)
 
 
 def _tree_depth(node) -> int:
@@ -79,36 +103,74 @@ def _tree_rows(node) -> int:
     return 1 + _tree_rows(node.a) + _tree_rows(node.b)
 
 
+def _n_images(node) -> int:
+    if node is None:
+        return 0
+    return int(node.ptype == "image") + _n_images(node.a) + _n_images(node.b)
+
+
+def _image_nodes(node):
+    """Image leaves of a tree in pre-order (pack_patterns' row order)."""
+    if node is None:
+        return []
+    return ([node] if node.ptype == "image" else []) + \
+        _image_nodes(node.a) + _image_nodes(node.b)
+
+
+def needs_ext(scene) -> bool:
+    """Does the scene need the kernel's stage e (CSG, tori, noise,
+    perturbed or image patterns)?"""
+    return bool(scene.csg_ops) or sd.TORUS in scene.prim_kinds \
+        or not all(tree_cheap(p) for p in scene.patterns)
+
+
 def unported(scene) -> str | None:
     """Why neither the kernel nor the torch fast node renders this scene
-    yet, naming the ROADMAP item that will carry it — or None."""
-    if scene.csg_ops:
-        return "CSG scenes: ROADMAP B1e"
-    if sd.TORUS in scene.prim_kinds:
-        return "tori: ROADMAP B1e"
-    if not all(tree_cheap(p) for p in scene.patterns):
-        return "noise, perturbed and image patterns: ROADMAP B1e"
+    yet, naming the ROADMAP item that will carry it — or None. The
+    kernel filters a CSG over analytic operands in an opaque scene; a
+    mesh inside a CSG, or a CSG with transparency, needs the sorted torch
+    node (rray_tpu whitted.py:110-115)."""
+    if scene.csg_ops and (not soa.csg_members_analytic(scene)
+                          or scene.has_transparent):
+        return ("CSG with a mesh operand or with transparency: ROADMAP A6 "
+                "and A10 (the sorted torch node)")
     return None
 
 
 def unsupported(scene) -> str | None:
     """Why the kernel cannot run this scene — or None when it can. The
-    gate is rray_tpu's applicable() for the stages ported so far."""
+    gate is rray_tpu's applicable() (whitted.py:92-156) clause by clause,
+    then the port's table bounds."""
     reason = unported(scene)
     if reason is not None:
         return reason
     kinds = scene.prim_kinds
     T = scene.counts[6]
-    if not kinds:
-        return "scenes without primitives"
     if T > MESH_MAX_TRIS:
         return f"meshes of more than {MESH_MAX_TRIS} triangles"
     if T and scene.has_transparent:
         return "transparent scenes with meshes"
     if T and len(_tri_groups(scene)[1]) > MAX_GROUPS:
         return f"meshes of more than {MAX_GROUPS} material groups"
+    if not kinds:
+        return "scenes without primitives"
     if sum(k != sd.TRIANGLE for k in kinds) > MAX_PRIMS:
         return f"more than {MAX_PRIMS} analytic primitives"
+    if not all(_tree_all(p, KERNEL_PATTERNS) for p in scene.patterns):
+        return "test patterns"
+    if any(_n_images(p) for p in scene.patterns):
+        if scene.has_reflective or scene.has_transparent:
+            return "textured scenes with reflection or transparency"
+        if any(_n_images(p) > 1 for p in scene.patterns):
+            return "pattern trees with more than one image"
+        if sum(n.texture.shape[0] * n.texture.shape[1]
+               for p in scene.patterns for n in _image_nodes(p)) \
+                >= MAX_TEXELS:
+            return f"{MAX_TEXELS} texels or more"
+        if any(k == sd.TRIANGLE and pat < len(scene.patterns)
+               and _n_images(scene.patterns[pat])
+               for k, pat in zip(kinds, scene.prim_pattern_static)):
+            return "textured triangles"
     if len(scene.lights) > MAX_LIGHTS:
         return f"more than {MAX_LIGHTS} lights"
     if any(_tree_depth(p) > MAX_PATTERN_DEPTH for p in scene.patterns) \
@@ -119,9 +181,11 @@ def unsupported(scene) -> str | None:
 
 def applicable(scene) -> bool:
     """Can this scene's Whitted evaluation run as the kernel? Analytic
-    sphere/plane/cube/cylinder/cone prims (at most 16), opaque meshes of
-    at most 1024 triangles in at most 8 material groups, point and area
-    lights and cheap pattern trees."""
+    prims (tori included; at most 16), CSG over analytic operands without
+    transparency, opaque meshes of at most 1024 triangles in at most 8
+    material groups, point and area lights, every pattern but `test`, and
+    image textures on depth-0 scenes (one image per tree, none on a
+    mesh)."""
     return unsupported(scene) is None
 
 
@@ -217,9 +281,10 @@ def pack_tris(scene, dtype=None):
 
 def pack_patterns(scene, dtype=None):
     """Flatten every pattern tree into one [N, 17] table plus static
-    per-root descriptors (ptype, row, meta, a_descr, b_descr), rows in
-    pre-order. Node row layout: 0-11 inv affine [3,4], 12-14 color,
-    15 scale, 16 persistence. `meta` is the octave count."""
+    per-root descriptors (ptype, row, octaves, a_descr, b_descr), rows in
+    pre-order (rray_tpu whitted.py:198-233). Node row layout: 0-11 inv
+    affine [3,4], 12-14 color, 15 scale, 16 persistence. Image leaves'
+    texels: pack_texels."""
     dtype = dtype or scene.dtype
     rows = []
 
@@ -239,6 +304,49 @@ def pack_patterns(scene, dtype=None):
         return torch.zeros((0, PAT_COLS), dtype=dtype,
                            device=scene.device), descrs
     return torch.stack(rows), descrs
+
+
+def pack_texels(scene, dtype=None):
+    """(flat texel table [n], per image leaf (row, H, W, offset, format))
+    for the kernel, image leaves in pack_patterns' row order. Format 0:
+    one entry per texel holding the packed RGB8 value (an integer below
+    2^24, exact in float32); format 1 (float textures): three entries
+    per texel, r g b."""
+    dtype = dtype or scene.dtype
+    parts, meta = [], []
+    count = {"row": 0, "off": 0}
+
+    def walk(node):
+        if node is None:
+            return
+        if node.ptype == "image":
+            h, w = int(node.texture.shape[0]), int(node.texture.shape[1])
+            fmt = 0 if node.texture.dtype == torch.int32 else 1
+            parts.append(node.texture.reshape(-1).to(dtype))
+            meta.append((count["row"], h, w, count["off"], fmt))
+            count["off"] += parts[-1].numel()
+        count["row"] += 1
+        walk(node.a)
+        walk(node.b)
+
+    for root in scene.patterns:
+        walk(root)
+    if not parts:
+        return None, ()
+    return torch.cat(parts).contiguous(), tuple(meta)
+
+
+def csg_meta(scene):
+    """(member flag per kernel prim row, innermost-first (op, side per
+    kernel prim row) list): rray_tpu's csg_meta (whitted.py:253-260) on
+    the kernel's analytic prim rows (a CSG the kernel takes has no
+    triangle operand)."""
+    if not scene.csg_ops:
+        return ((), ())
+    rows = [i for i, k in enumerate(scene.prim_kinds) if k != sd.TRIANGLE]
+    return (tuple(bool(scene.csg_member_static[i]) for i in rows),
+            tuple((op, tuple(scene.csg_side_static[ci][i] for i in rows))
+                  for ci, op in enumerate(scene.csg_ops)))
 
 
 def pack_lights(scene, dtype=None):
@@ -285,6 +393,11 @@ def kernel_inputs(scene, settings, seed: int = 0):
             scene.device))
     if scene.counts[6]:
         inputs["tri_tbl"], inputs["tri_boxes"] = pack_tris(scene)
+    if scene.csg_ops:
+        inputs["csg"] = csg_meta(scene)
+    tex_tbl, tex_meta = pack_texels(scene)
+    if tex_tbl is not None:
+        inputs["tex_tbl"], inputs["tex_meta"] = tex_tbl, tex_meta
     return inputs
 
 
@@ -323,6 +436,12 @@ def _nmat_vec(p, v: V3) -> V3:
               p[18] * v.x + p[19] * v.y + p[20] * v.z)
 
 
+def _scalar(x, dtype):
+    """A table value as a 0-d tensor, so scalar arithmetic on it rounds
+    in `dtype` exactly as the kernel's does."""
+    return torch.tensor(x, dtype=dtype)
+
+
 def _prim_slots(kind, p, o: V3, d: V3):
     if kind == sd.SPHERE:
         return soa._sphere_slots(o, d)
@@ -334,13 +453,9 @@ def _prim_slots(kind, p, o: V3, d: V3):
         return soa._cylinder_slots(o, d, p[21], p[22], p[23] != 0.0)
     if kind == sd.CONE:
         return soa._cone_slots(o, d, p[21], p[22], p[23] != 0.0)
+    if kind == sd.TORUS:
+        return soa._torus_slots(o, d, _scalar(p[31], o.x.dtype))
     raise ValueError(f"unsupported prim kind {kind}")
-
-
-def _scalar(x, dtype):
-    """A table value as a 0-d tensor, so scalar arithmetic on it rounds
-    in `dtype` exactly as the kernel's does."""
-    return torch.tensor(x, dtype=dtype)
 
 
 def _local_normal(kind, p, lp: V3) -> V3:
@@ -358,6 +473,12 @@ def _local_normal(kind, p, lp: V3) -> V3:
         return V3(torch.where(maxc == ax, x, zero),
                   torch.where((maxc != ax) & (maxc == ay), y, zero),
                   torch.where((maxc != ax) & (maxc != ay), z, zero))
+    if kind == sd.TORUS:
+        r = _scalar(p[31], x.dtype)
+        ss = x * x + y * y + z * z
+        ps = 1.0 + r * r
+        return V3(4.0 * x * (ss - ps), 4.0 * y * (ss - ps),
+                  4.0 * z * (ss - ps + 2.0))
     cmin, cmax = _scalar(p[21], x.dtype), _scalar(p[22], x.dtype)
     dist = x * x + z * z
     top = (dist < 1.0) & (y >= cmax - EPSILON)
@@ -373,23 +494,110 @@ def _local_normal(kind, p, lp: V3) -> V3:
               torch.where(cap, zero, z))
 
 
-def _eval_pattern(descr, pat, pts: V3) -> V3:
-    """Cheap pattern tree at pattern-space points (rray_tpu whitted.py
-    _eval_pattern_tex, image-free)."""
-    ptype, idx, _, da, db = descr
+def _uv_kind(kind, p, pts: V3):
+    """The uv mapping of a prim of `kind` (row p) on pattern-space points:
+    shade_soa.uv_at's formulas with exact atan2 and acos (rray_tpu
+    whitted.py _uv_kind substitutes polynomials for Mosaic), evaluated in
+    float64 and rounded as the kernel does (ops/quartic.py f64_round: a
+    texel index flips on an ulp)."""
+    x, y, z = pts.x, pts.y, pts.z
+    pi = math.pi
+
+    def atan2(a, b):
+        return quartic.f64_round(torch.atan2, a, b)
+
+    def turn(angle):  # (angle + pi) / 2pi
+        return div(angle + pi, 2.0 * pi)
+    if kind == sd.SPHERE:
+        theta = atan2(z, x)
+        rr = torch.sqrt(torch.clamp_min(x * x + y * y + z * z, 1e-30))
+        phi = quartic.f64_round(torch.acos, torch.clamp(y / rr, -1.0, 1.0))
+        return turn(theta), 1.0 - div(phi, pi)
+    if kind == sd.PLANE:
+        return torch.remainder(x, 1.0), torch.remainder(z, 1.0)
+    if kind == sd.CUBE:
+        ax, ay, az = torch.abs(x), torch.abs(y), torch.abs(z)
+        fx = (ax >= ay) & (ax >= az)
+        fy = ~fx & (ay >= ax) & (ay >= az)
+        ur = torch.where(x > 0, (z + 1.0) * 0.5, (1.0 - z) * 0.5)
+        uy = (x + 1.0) * 0.5
+        vy = torch.where(y > 0, (1.0 - z) * 0.5, (z + 1.0) * 0.5)
+        uz = torch.where(z > 0, (x + 1.0) * 0.5, (1.0 - x) * 0.5)
+        return (torch.where(fx, ur, torch.where(fy, uy, uz)),
+                torch.where(fy, vy, (y + 1.0) * 0.5))
+    if kind in (sd.CYLINDER, sd.CONE):
+        cmin, cmax = _scalar(p[21], x.dtype), _scalar(p[22], x.dtype)
+        closed = p[23] != 0.0
+    if kind == sd.CYLINDER:
+        cap = closed & ((y <= cmin) | (y >= cmax))
+        theta = atan2(z, x)
+        return (torch.where(cap, (x + 1.0) / 2.0, turn(theta)),
+                torch.where(cap, (z + 1.0) / 2.0, torch.remainder(y, 1.0)))
+    if kind == sd.CONE:
+        cap = closed & ((torch.abs(y - cmin) <= EPSILON)
+                        | (torch.abs(y - cmax) <= EPSILON))
+        radius = torch.clamp_min(torch.abs(y), 1e-30)
+        theta = turn(atan2(z, x))
+        height = cmax - cmin
+        if abs(float(height)) < 1e-30:
+            height = _scalar(1e-30, x.dtype)
+        return (torch.where(cap, (x / radius + 1.0) / 2.0,
+                            div(y - cmin, height)),
+                torch.where(cap, (z / radius + 1.0) / 2.0, theta))
+    if kind == sd.TORUS:
+        dist = torch.sqrt(torch.clamp_min(x * x + y * y, 1e-30)) - 1.0
+        return turn(atan2(y, x)), turn(atan2(z, dist))
+    raise ValueError(f"no uv mapping for prim kind {kind}")
+
+
+def _texel(tex, row: int, pts_uv, dtype) -> V3:
+    """The texel an image leaf (pattern row `row`) shows at (u, v), read
+    from the flat texel table as the kernel reads it."""
+    tex_tbl, tex_meta = tex
+    _, h, w, off, fmt = next(m for m in tex_meta if m[0] == row)
+    flat = shade_soa.texel_index(h, w, *pts_uv)
+    if fmt == 0:
+        return shade_soa.unpack_rgb8(tex_tbl[off + flat].to(torch.int64),
+                                     dtype)
+    base = off + 3 * flat
+    return V3(tex_tbl[base], tex_tbl[base + 1], tex_tbl[base + 2])
+
+
+def _eval_pattern(descr, pat, pts: V3, uv=None, tex=None) -> V3:
+    """Pattern tree at pattern-space points (rray_tpu whitted.py
+    _eval_pattern_tex, with an image leaf's texel read in place). `uv`
+    maps a leaf's pattern-space points to (u, v) on the prim's shape;
+    `tex` is (texel table, pack_texels meta)."""
+    ptype, idx, meta, da, db = descr
     g = pat[idx]
+    dtype = pts.x.dtype
     if ptype == "solid":
         return V3(torch.full_like(pts.x, g[12]), torch.full_like(pts.x, g[13]),
                   torch.full_like(pts.x, g[14]))
     p = _affine_pt(g, pts)
-    a = _eval_pattern(da, pat, p)
-    b = _eval_pattern(db, pat, p)
+    if ptype == "image":
+        return _texel(tex, idx, uv(p), dtype)
+    if ptype == "perturbed":
+        sc, per = _scalar(g[15], dtype), _scalar(g[16], dtype)
+        nx = noise.octave_perlin(p.x, p.y, p.z, meta, per) * sc
+        ny = noise.octave_perlin(p.x, p.y, p.z + 1.0, meta, per) * sc
+        nz = noise.octave_perlin(p.x, p.y, p.z + 2.0, meta, per) * sc
+        return _eval_pattern(da, pat, p + V3(nx, ny, nz), uv, tex)
+    a = _eval_pattern(da, pat, p, uv, tex)
+    b = _eval_pattern(db, pat, p, uv, tex)
     if ptype == "gradient":
         frac = p.x - torch.floor(p.x)
         return a + (b - a) * frac
     if ptype == "blend":
-        s = _scalar(g[15], pts.x.dtype)
+        s = _scalar(g[15], dtype)
         return a * (1.0 - s) + b * s
+    if ptype == "noise":
+        n = noise.octave_perlin(p.x, p.y, p.z, meta,
+                                _scalar(g[16], dtype)) * _scalar(g[15], dtype)
+        neg = n <= 0.0
+        return V3(torch.where(neg, a.x * -n, b.x * n),
+                  torch.where(neg, a.y * -n, b.y * n),
+                  torch.where(neg, a.z * -n, b.z * n))
     if ptype == "stripe":
         cond = torch.remainder(torch.floor(p.x), 2.0) == 0.0
     elif ptype == "ring":
@@ -404,21 +612,58 @@ def _eval_pattern(descr, pat, pts: V3) -> V3:
               torch.where(cond, a.z, b.z))
 
 
-def _blocked(kinds, prims, mesh, over: V3, dx, dy, dz, dist):
+def _member_slots(kinds, prims, csg, o: V3, d: V3, slots_of=None):
+    """(t list, prim list, surviving valid list) of the CSG member slots
+    on a world-space ray, in static (prim, slot) order, after the
+    innermost-first filter (soa.csg_keeps). `slots_of(i)` gives prim i's
+    slots when they are at hand."""
+    member, ops_sides = csg
+    ts, pids, valids = [], [], []
+    for i, kind in enumerate(kinds):
+        if not member[i]:
+            continue
+        p = prims[i]
+        slots = slots_of(i) if slots_of else _prim_slots(
+            kind, p, _affine_pt(p, o), _affine_vec(p, d))
+        for t, valid in slots:
+            ts.append(t)
+            pids.append(i)
+            valids.append(valid)
+    ops_and_sides = tuple((op, tuple(side[i] for i in pids))
+                          for op, side in ops_sides)
+    return ts, pids, soa.csg_keeps(ts, valids, ops_and_sides)
+
+
+def _blocked(kinds, prims, mesh, over: V3, dx, dy, dz, dist, csg=((), ())):
     """Is [0, dist) on the shadow ray from `over` blocked by an analytic
-    prim or the mesh? The predicate reads the 16-col analytic layout
-    (extras at 12-14); the 32-col prim rows keep them at 21-23."""
+    prim, a CSG's surviving slot or the mesh? The predicate reads the
+    16-col analytic layout (extras at 12-14); the 32-col prim rows keep
+    them at 21-23. Tori test their slots; CSG members are filtered first
+    (rray_tpu whitted.py:1086-1128)."""
+    member = csg[0] or (False,) * len(kinds)
     occ = torch.zeros_like(dist, dtype=torch.bool)
-    for kind, p in zip(kinds, prims):
+    for kind, p, m in zip(kinds, prims, member):
+        if m:
+            continue
+        if kind == sd.TORUS:
+            for t, valid in _prim_slots(kind, p, _affine_pt(p, over),
+                                        _affine_vec(p, V3(dx, dy, dz))):
+                occ = occ | (valid & (t >= 0.0) & (t < dist))
+            continue
         occ = occ | _occludes(kind, lambda j, p=p: p[j + 9 if j >= 12 else j],
                               over.x, over.y, over.z, dx, dy, dz, dist)
+    if any(member):
+        ts, _, keeps = _member_slots(kinds, prims, csg, over, V3(dx, dy, dz))
+        for t, keep in zip(ts, keeps):
+            occ = occ | (keep & (t >= 0.0) & (t < dist))
     if mesh is not None:
         occ = occ | (triangles.any_triangle_reference(
             (over.x, over.y, over.z), (dx, dy, dz), mesh[0], dist) != 0)
     return occ
 
 
-def _shadow_frac(kinds, prims, mesh, L, level: int, seed: int, over: V3):
+def _shadow_frac(kinds, prims, mesh, L, level: int, seed: int, over: V3,
+                 csg=((), ())):
     """Shadowed fraction of light row L at `over` (rray_tpu whitted.py
     :1138-1164): binary for a point light (level 0); for an area light
     the blocked share of its level^2 jittered samples, drawn with the
@@ -429,40 +674,37 @@ def _shadow_frac(kinds, prims, mesh, L, level: int, seed: int, over: V3):
         dist = to.norm()
         direction = to * (1.0 / torch.clamp_min(dist, 1e-30))
         return _blocked(kinds, prims, mesh, over, direction.x, direction.y,
-                        direction.z, dist).to(dtype)
+                        direction.z, dist, csg).to(dtype)
     n = level * level
     hb = jitter.point_base(seed, over.x, over.y, over.z)
     cnt = torch.zeros_like(over.x)
     for s in range(n):
         direction, dist = area_sample(L[6:15], hb, s, level, over)
         cnt = cnt + _blocked(kinds, prims, mesh, over, direction.x,
-                             direction.y, direction.z, dist).to(dtype)
+                             direction.y, direction.z, dist, csg).to(dtype)
     return cnt * _scalar(1.0 / n, dtype)
 
 
-def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
-          lights, levels, seeds, mesh, o: V3, d: V3):
-    """One Whitted node over a batch of rays (rray_tpu whitted.py
-    _node_row, the slice's part of it). `prims` holds the P = len(kinds)
-    analytic rows, then one row per mesh material group; `levels` the
-    per-light sample level (0: point light) and `seeds` this level's
-    per-light jitter seeds; `mesh` is None or (the triangle table's 18
-    geometry columns, its group-id column).
-
-    Returns (surface, over, under, reflectv, refr_dir, refl_w, refr_w)."""
-    dtype = o.x.dtype
+def closest_hit(kinds, prims, mesh, o: V3, d: V3, csg=((), ())):
+    """The node's closest hit -> (best t, winning prim-table row or -1,
+    each analytic prim's slots, mesh-winner mask, the mesh winner's
+    interpolated normal; the last two None without a mesh). Per-prim
+    minimum, then a strict < across prims, so the lowest prim id wins
+    ties; the mesh folds after the analytic prims, bounded by their best
+    t; the CSG members' filtered slots fold last."""
     inf = torch.full_like(o.x, float("inf"))
     P = len(kinds)
-
-    # Closest hit: per-prim minimum, then a strict < across prims, so
-    # the lowest prim id wins ties.
+    member = csg[0] or (False,) * P
     slots_per_prim = []
+    mesh_win = mesh_n = None
     best_t = inf
     win = torch.full(o.x.shape, -1, dtype=torch.long, device=o.x.device)
     for i, kind in enumerate(kinds):
         p = prims[i]
         slots = _prim_slots(kind, p, _affine_pt(p, o), _affine_vec(p, d))
         slots_per_prim.append(slots)
+        if member[i]:
+            continue
         tp = inf
         for t, valid in slots:
             tp = torch.minimum(tp, torch.where(valid & (t >= 0.0), t, inf))
@@ -477,8 +719,39 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
             (o.x, o.y, o.z), (d.x, d.y, d.z), geom, t_init=best_t,
             aux=(gid,))
         mesh_win = mt < best_t
+        mesh_n = V3(mnx, mny, mnz)
         best_t = torch.where(mesh_win, mt, best_t)
         win = torch.where(mesh_win, P + mgid.long(), win)
+    if any(member):
+        # The CSG-filtered member slots, folded after the non-members and
+        # the mesh with a strict < (rray_tpu whitted.py:902-924).
+        ts, pids, keeps = _member_slots(kinds, prims, csg, o, d,
+                                        slots_of=slots_per_prim.__getitem__)
+        for t, pid, keep in zip(ts, pids, keeps):
+            cand = keep & (t >= 0.0) & (t < best_t)
+            best_t = torch.where(cand, t, best_t)
+            win = torch.where(cand, pid, win)
+            if mesh is not None:
+                mesh_win = mesh_win & ~cand
+    return best_t, win, slots_per_prim, mesh_win, mesh_n
+
+
+def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
+          lights, levels, seeds, mesh, o: V3, d: V3, csg=((), ()), tex=None):
+    """One Whitted node over a batch of rays (rray_tpu whitted.py
+    _node_row). `prims` holds the P = len(kinds) analytic rows, then one
+    row per mesh material group; `levels` the per-light sample level (0:
+    point light) and `seeds` this level's per-light jitter seeds; `mesh`
+    is None or (the triangle table's 18 geometry columns, its group-id
+    column); `csg` is csg_meta's (member flags, (op, sides) list) on the
+    analytic rows; `tex` is None or (texel table, pack_texels meta).
+
+    Returns (surface, over, under, reflectv, refr_dir, refl_w, refr_w)."""
+    dtype = o.x.dtype
+    inf = torch.full_like(o.x, float("inf"))
+    P = len(kinds)
+    best_t, win, slots_per_prim, mesh_win, mesh_n = closest_hit(
+        kinds, prims, mesh, o, d, csg)
     found = torch.isfinite(best_t)
     t_safe = torch.where(found, best_t, 0.0)
     point = o + d * t_safe
@@ -496,9 +769,9 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
                   torch.where(m, n.z, nsel.z))
     if mesh is not None:
         # Mesh winners carry the interpolated world vertex normal.
-        nsel = V3(torch.where(mesh_win, mnx, nsel.x),
-                  torch.where(mesh_win, mny, nsel.y),
-                  torch.where(mesh_win, mnz, nsel.z))
+        nsel = V3(torch.where(mesh_win, mesh_n.x, nsel.x),
+                  torch.where(mesh_win, mesh_n.y, nsel.y),
+                  torch.where(mesh_win, mesh_n.z, nsel.z))
     normalv = nsel.normalize()
     inside = normalv.dot(eyev) < 0.0
     normalv = normalv * torch.where(inside, -1.0, 1.0).to(dtype)
@@ -538,12 +811,18 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
         n1 = n2 = torch.ones_like(o.x)
 
     # Pattern at the over point, on the winner's object space (a mesh
-    # group's: its class row's).
+    # group's: its class row's); an image leaf maps its points to uv on
+    # the winner's shape. Trees no ray hit are skipped: their values
+    # would be masked out.
     base = V3(zero, zero, zero)
     for i in range(len(prims)):
-        col = _eval_pattern(pat_descrs[prim_pat[i]], pat,
-                            _affine_pt(prims[i], over))
         m = win == i
+        if not bool(m.any()):
+            continue
+        uv = (lambda q, i=i: _uv_kind(kinds[i], prims[i], q)) if i < P \
+            else None
+        col = _eval_pattern(pat_descrs[prim_pat[i]], pat,
+                            _affine_pt(prims[i], over), uv, tex)
         base = V3(torch.where(m, col.x, base.x), torch.where(m, col.y, base.y),
                   torch.where(m, col.z, base.z))
 
@@ -559,7 +838,7 @@ def _node(kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
     surface = V3(zero, zero, zero)
     for L, level, seed in zip(lights, levels, seeds):
         unshadow = 1.0 - _shadow_frac(kinds, prims, mesh, L, level, seed,
-                                      over)
+                                      over, csg)
         effective = V3(base.x * L[3], base.y * L[4], base.z * L[5])
         lightv = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z).normalize()
         ambient = effective * amb
@@ -615,7 +894,8 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
                               light_tbl, kinds, pat_descrs, prim_pat,
                               depth: int, W: int, has_refl: bool,
                               has_refr: bool, tri_tbl=None, tri_boxes=None,
-                              *, light_levels, seeds):
+                              *, light_levels, seeds, csg=((), ()),
+                              tex_tbl=None, tex_meta=()):
     """Plain PyTorch version of the kernel -> (r, g, b) [R] tensors.
     `tri_boxes` only culls in the kernel; the plain version tests every
     triangle (padding rows included: they never hit). Level l's area
@@ -656,7 +936,8 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
         surface, over, under, reflectv, refr_dir, refl_w, refr_w = _node(
             kinds, pat_descrs, prim_pat, has_refl, has_refr, prims, pat,
             lights, levels, seeds[level], mesh, V3(rows[0], rows[1], rows[2]),
-            V3(rows[3], rows[4], rows[5]))
+            V3(rows[3], rows[4], rows[5]), csg,
+            None if tex_tbl is None else (tex_tbl, tex_meta))
         for c, v in enumerate((surface.x, surface.y, surface.z)):
             contrib = torch.where(w != 0.0, v * w, 0.0).reshape(W, R)
             for r in range(W):
@@ -684,38 +965,77 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
 # The CUDA kernel's wrapper.
 # ---------------------------------------------------------------------------
 
-def int_table(kinds, pat_descrs, prim_pat, n_rows: int, levels=()):
+def int_table(kinds, pat_descrs, prim_pat, n_rows: int, levels=(),
+              csg=None, tex_meta=None):
     """The kernel's int table: analytic prim kinds[P], the pattern root
     row of every prim-table row[P + G], then per pattern row its node
     type[N], child a row[N], child b row[N] (-1 where a node has no
     child), then each light's sample level[L] (0: point light) — the
     statics that rray_tpu's kernel unrolls at trace time, as data the
-    CUDA kernel interprets."""
+    CUDA kernel interprets. For a scene of stage e (`csg` given) there
+    follow per pattern row four meta ints[N, 4] (noise and perturbed:
+    the octave count; image: H, W, texel-table offset, format), then the
+    CSG member flag per prim[P], the CSG op codes[C] and the [C, P]
+    side table, innermost CSG first."""
     ptype = [0] * n_rows
     pa = [-1] * n_rows
     pb = [-1] * n_rows
+    meta = [[0, 0, 0, 0] for _ in range(n_rows)]
+    n_children = {"solid": 0, "image": 0, "perturbed": 1}
 
     def walk(descr):
         if descr is None:
             return -1
-        name, idx, _, da, db = descr
+        name, idx, octaves, da, db = descr
         if name not in PATTERN_CODES:
-            raise ValueError(f"pattern {name!r} is not a cheap pattern")
+            raise ValueError(f"the kernel takes no {name!r} pattern")
         ptype[idx] = PATTERN_CODES[name]
         pa[idx], pb[idx] = walk(da), walk(db)
-        if name != "solid" and (pa[idx] < 0 or pb[idx] < 0):
-            raise ValueError(f"{name} pattern node without two children")
+        if sum(c >= 0 for c in (pa[idx], pb[idx])) != n_children.get(name, 2):
+            raise ValueError(f"{name} pattern node with children "
+                             f"{pa[idx], pb[idx]}")
+        if name in ("noise", "perturbed"):
+            meta[idx][0] = octaves
         return idx
 
     for descr in pat_descrs:
         walk(descr)
     roots = [pat_descrs[prim_pat[i]][1] for i in range(len(prim_pat))]
-    return list(kinds) + roots + ptype + pa + pb + list(levels)
+    ints = list(kinds) + roots + ptype + pa + pb + list(levels)
+    if csg is None:
+        return ints
+    for row, h, w, off, fmt in tex_meta or ():
+        meta[row] = [h, w, off, fmt]
+    member, ops_sides = csg
+    member = member or (False,) * len(kinds)
+    return ints + [v for m in meta for v in m] + [int(m) for m in member] \
+        + [op for op, _ in ops_sides] + [v for _, side in ops_sides
+                                         for v in side]
+
+
+def _descr_depth(descr) -> int:
+    if descr is None:
+        return 0
+    return 1 + max(_descr_depth(descr[3]), _descr_depth(descr[4]))
+
+
+def _descr_names(descr):
+    if descr is None:
+        return set()
+    return {descr[0]} | _descr_names(descr[3]) | _descr_names(descr[4])
+
+
+def uses_ext(kinds, pat_descrs, csg) -> bool:
+    """Do these kernel inputs need stage e (CSG, a torus, a noise,
+    perturbed or image pattern node)? needs_ext on the packed form."""
+    return bool(csg[1]) or sd.TORUS in kinds or any(
+        _descr_names(d) - set(CHEAP_PATTERNS) for d in pat_descrs)
 
 
 def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
-            tri_boxes=None, *, light_levels, seeds):
+            tri_boxes=None, *, light_levels, seeds, csg=((), ()),
+            tex_tbl=None, tex_meta=()):
     global launches
     from . import build
 
@@ -732,9 +1052,11 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
         raise ValueError(f"W={W}; the kernel is built for W in {WIDTHS}")
     if W != 1 and not (has_refl and has_refr):
         raise ValueError("W > 1 needs both reflection and refraction")
-    if P > MAX_PRIMS or any(k not in OCCLUSION_KINDS for k in kinds):
+    if P > MAX_PRIMS or any(k not in OCCLUSION_KINDS + (sd.TORUS,)
+                            for k in kinds):
         raise ValueError(f"the kernel takes at most {MAX_PRIMS} analytic "
-                         f"sphere/plane/cube/cylinder/cone prims: {kinds}")
+                         f"sphere/plane/cube/cylinder/cone/torus prims: "
+                         f"{kinds}")
     if N > MAX_PATTERN_ROWS or L > MAX_LIGHTS or any(
             _descr_depth(d) > MAX_PATTERN_DEPTH for d in pat_descrs):
         raise ValueError("pattern or light tables past the kernel's bounds")
@@ -742,11 +1064,29 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
         raise ValueError(f"depth={depth}")
     levels, seeds = _light_args(light_tbl, light_levels, seeds, depth)
     build.check_arg("seeds", seeds, (depth + 1, L), device, torch.int32)
+    member, ops_sides = csg
+    C = len(ops_sides)
+    ext = uses_ext(kinds, pat_descrs, csg)
+    if C and (len(member) != P or any(len(side) != P for _, side in ops_sides)
+              or has_refr):
+        raise ValueError(f"CSG tables for {P} prims (and no refraction) "
+                         f"expected: {csg}")
+    n_tex = 0
+    if tex_tbl is not None:
+        n_tex = tex_tbl.shape[0]
+        build.check_arg("tex_tbl", tex_tbl, (n_tex,), device)
+        if n_tex >= 3 * MAX_TEXELS or depth:
+            raise ValueError(f"a texel table of {n_tex} entries at depth "
+                             f"{depth}: the kernel takes textures below "
+                             f"{MAX_TEXELS} texels at depth 0")
+    ints = int_table(kinds, pat_descrs, prim_pat, N, levels,
+                     csg if ext else None, tex_meta)
     smem = 4 * (prim_tbl.numel() + pat_tbl.numel() + light_tbl.numel()
-                + 2 * P + G + 3 * N + L + seeds.numel())
+                + len(ints) + seeds.numel())
     if smem > SMEM_BYTES:
         raise ValueError(f"{smem} bytes of scene tables (depth {depth}, {L} "
-                         f"lights) past the kernel's {SMEM_BYTES}")
+                         f"lights, {C} CSG nodes) past the kernel's "
+                         f"{SMEM_BYTES}")
     Tp = n_chunks = 0
     if tri_tbl is not None:
         Tp, n_chunks = tri_tbl.shape[0], tri_boxes.shape[1] - 1
@@ -760,8 +1100,7 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             raise ValueError("the in-kernel mesh takes no refraction")
     elif G or P == 0:
         raise ValueError(f"{P} prims and {G} group rows without a mesh")
-    ints = torch.tensor(int_table(kinds, pat_descrs, prim_pat, N, levels),
-                        dtype=torch.int32, device=device)
+    ints = torch.tensor(ints, dtype=torch.int32, device=device)
     outs = [torch.empty(R, dtype=torch.float32, device=device)
             for _ in range(3)]
     ptr = build.ptr
@@ -769,25 +1108,20 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
         rc = build.load_library().whitted_compact_launch(
             *(ptr(c) for c in tuple(ro_comps) + tuple(rd_comps)),
             *(ptr(o) for o in outs), ptr(prim_tbl), P, G, ptr(pat_tbl), N,
-            ptr(light_tbl), L, ptr(ints), ptr(seeds), ptr(tri_tbl), Tp,
-            ptr(tri_boxes),
-            n_chunks, R, depth, W, int(has_refl), int(has_refr),
+            ptr(light_tbl), L, ptr(ints), ints.numel(), ptr(seeds),
+            ptr(tri_tbl), Tp, ptr(tri_boxes), n_chunks, ptr(tex_tbl), C, R,
+            depth, W, int(has_refl), int(has_refr), int(ext),
             build.stream(device))
     build.check_launch("whitted", rc)
     launches += 1
     return tuple(outs)
 
 
-def _descr_depth(descr) -> int:
-    if descr is None:
-        return 0
-    return 1 + max(_descr_depth(descr[3]), _descr_depth(descr[4]))
-
-
 def whitted_compact(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl,
                     kinds, pat_descrs, prim_pat, depth: int, W: int,
                     has_refl: bool, has_refr: bool, tri_tbl=None,
-                    tri_boxes=None, *, light_levels, seeds):
+                    tri_boxes=None, *, light_levels, seeds, csg=((), ()),
+                    tex_tbl=None, tex_meta=()):
     """Whitted evaluation of [R] primary rays -> (r, g, b) [R] tensors.
 
     ro/rd_comps: 3-tuples of [R] tensors; prim_tbl [P+G,32], pat_tbl
@@ -796,11 +1130,14 @@ def whitted_compact(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl,
     the P analytic prim kinds, pat_descrs pack_patterns' descriptors,
     prim_pat the pattern root of each prim-table row; light_levels each
     light's sample level (0: point light) and seeds the [depth+1, L]
-    int32 jitter seeds (ops/jitter.py seed_table). CPU tensors run the
-    plain version; CUDA tensors launch the kernel (float32 only)."""
+    int32 jitter seeds (ops/jitter.py seed_table); csg is csg_meta's
+    (member flags, (op, sides) list), tex_tbl/tex_meta pack_texels'
+    texel table and image-leaf meta. CPU tensors run the plain version;
+    CUDA tensors launch the kernel (float32 only)."""
     args = (ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl,
             tri_boxes)
     fn = (whitted_compact_reference if ro_comps[0].device.type == "cpu"
           else _launch)
-    return fn(*args, light_levels=light_levels, seeds=seeds)
+    return fn(*args, light_levels=light_levels, seeds=seeds, csg=csg,
+              tex_tbl=tex_tbl, tex_meta=tex_meta)

@@ -9,10 +9,14 @@ returns the prim's hit slots as a list of (t, valid) pairs. The formulas
 are rray_tpu's, quirks included: the cylinder's negative discriminant
 drops its caps too (cylinder.rs:101-102), the cone's linear case returns
 early (cone.rs:134-141), and every EPSILON guard sits where the reference
-has it (sphere.rs:64-78, plane.rs:51-58, cube.rs:48-77). The CUDA kernel
-(kernels/csrc/whitted.cu) writes the same expressions in the same order.
+has it (sphere.rs:64-78, plane.rs:51-58, cube.rs:48-77). The torus solves
+its quartic (ops/quartic.py) for the rays that enter its padded box. The
+CUDA kernel (kernels/csrc/whitted.cu) writes the same expressions in the
+same order. `csg_keeps` is the CSG filter over unsorted member slots
+that the kernel's plain version and the CUDA kernel share.
 
-Per-prim scalars (ymin, ymax, closed) are Python numbers.
+Per-prim scalars (ymin, ymax, closed, the torus's minor radius) are
+Python numbers or 0-d tensors.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ import torch
 
 from ..config import EPSILON
 from ..scene import data as sd
+from . import quartic
 from .vec import V3, affine_point, affine_vector
 
 
@@ -33,6 +38,7 @@ class Hit:
     prim: Any    # [R] long
     cls: Any     # [R] long shade-class id
     tri_n: Any = None  # (nx, ny, nz) interpolated triangle normal, or None
+    tri: Any = None    # [R] triangle-table row of a triangle winner
 
 
 def _sphere_slots(o: V3, d: V3):
@@ -150,6 +156,54 @@ def _cone_slots(o: V3, d: V3, ymin, ymax, closed):
     return slots
 
 
+def torus_box_entry(o: V3, d: V3, minor_r):
+    """Does the object-space ray enter the torus's box, padded so the
+    slab test is conservative (x, y in [-(1 + r), 1 + r], z in [-r, r])?
+    Rays outside it provably miss the torus (rray_tpu soa.py:169-221)."""
+    pad = 1e-3
+    rx = 1.0 + minor_r + pad
+    rz = minor_r + pad
+
+    def inv(c):
+        tiny = torch.where(c < 0, torch.full_like(c, -1e-30),
+                           torch.full_like(c, 1e-30))
+        return 1.0 / torch.where(torch.abs(c) < 1e-30, tiny, c)
+
+    ivx, ivy, ivz = inv(d.x), inv(d.y), inv(d.z)
+    tx1 = (-rx - o.x) * ivx
+    tx2 = (rx - o.x) * ivx
+    ty1 = (-rx - o.y) * ivy
+    ty2 = (rx - o.y) * ivy
+    tz1 = (-rz - o.z) * ivz
+    tz2 = (rz - o.z) * ivz
+    tmin = torch.maximum(torch.maximum(torch.minimum(tx1, tx2),
+                                       torch.minimum(ty1, ty2)),
+                         torch.minimum(tz1, tz2))
+    tmax = torch.minimum(torch.minimum(torch.maximum(tx1, tx2),
+                                       torch.maximum(ty1, ty2)),
+                         torch.maximum(tz1, tz2))
+    return (tmin <= tmax) & (tmax >= 0.0)
+
+
+def _torus_slots(o: V3, d: V3, minor_r):
+    """The four quartic roots of the torus in the xy plane's ring
+    (torus.rs:47-90) with t > 0, valid only for rays that enter the
+    torus's box (`torus_box_entry`: rray_tpu's lax.cond skip becomes
+    this mask; the kernel skips the quartic per thread)."""
+    enter = torus_box_entry(o, d, minor_r)
+    r_sq = minor_r * minor_r
+    sum_d_sq = d.dot(d)
+    e = o.dot(o) - r_sq + 1.0
+    f = o.dot(d)
+    a4 = sum_d_sq * sum_d_sq
+    a3 = 4.0 * sum_d_sq * f
+    a2 = 2.0 * sum_d_sq * e + 4.0 * f * f - 4.0 * (d.x * d.x + d.y * d.y)
+    a1 = 4.0 * e * f - 8.0 * (o.x * d.x + o.y * d.y)
+    a0 = e * e - 4.0 * (o.x * o.x + o.y * o.y)
+    roots, valids = quartic.solve_quartic_parts(a4, a3, a2, a1, a0)
+    return [(r, ok & (r > 0.0) & enter) for r, ok in zip(roots, valids)]
+
+
 def _sphere_occludes_local(o: V3, d: V3, dist):
     """Root of the unit-sphere quadratic in [0, dist)? sqrt/div-free sign
     tests on b, c, f(dist) and b + 2a*dist (rray_tpu soa.py:1313)."""
@@ -193,6 +247,10 @@ def _leaf_slots(scene, kind: int, row: int, ro: V3, rd: V3):
         return _cone_slots(affine_point(inv, ro), affine_vector(inv, rd),
                            scene.con_min[row], scene.con_max[row],
                            scene.con_closed[row])
+    if kind == sd.TORUS:
+        inv = scene.tor_inv[row]
+        return _torus_slots(affine_point(inv, ro), affine_vector(inv, rd),
+                            scene.tor_r[row])
     raise ValueError(f"no slot form for prim kind {kind}")
 
 
@@ -213,6 +271,57 @@ def _leaf_occludes(scene, kind: int, row: int, ro: V3, rd: V3, dist):
     return hit
 
 
+def member_pids(scene):
+    """Prim ids that are operands of some CSG node (static)."""
+    return tuple(p for p, m in enumerate(scene.csg_member_static) if m)
+
+
+def csg_members_analytic(scene) -> bool:
+    """True when every CSG operand is an analytic leaf (no mesh inside a
+    CSG): the scenes whose CSG the whitted kernel filters."""
+    return all(scene.prim_kinds[p] != sd.TRIANGLE for p in member_pids(scene))
+
+
+def csg_keeps(ts, valids, ops_and_sides):
+    """The static pairwise-parity CSG filter over UNSORTED slot lists
+    (rray_tpu soa.py:814-857; csg.rs:163-195).
+
+    `ts`/`valids`: per-slot [R] tensors in static (prim, slot) order;
+    `ops_and_sides`: innermost-first (op, per-slot side tuple) with side
+    0 (not under this CSG), 1 (left) or 2 (right). Slot j precedes slot
+    i in the stable sorted order iff t_j < t_i, or t_j == t_i and j < i.
+    A slot's in-left / in-right state is the parity of the valid slots of
+    each side that precede it. Returns the surviving valid masks."""
+    K = len(ts)
+    before = [[None] * K for _ in range(K)]
+    for j in range(K):
+        for i in range(K):
+            if i != j:
+                before[j][i] = (ts[j] <= ts[i]) if j < i else (ts[j] < ts[i])
+    for op, side in ops_and_sides:
+        keeps = []
+        for i in range(K):
+            if side[i] == 0:
+                keeps.append(valids[i])
+                continue
+            parity = {1: torch.zeros_like(valids[i]),
+                      2: torch.zeros_like(valids[i])}
+            for j in range(K):
+                if j != i and side[j] != 0:
+                    parity[side[j]] = parity[side[j]] ^ (valids[j]
+                                                         & before[j][i])
+            inl, inr = parity[1], parity[2]
+            if op == sd.CSG_UNION:
+                allowed = ~inr if side[i] == 1 else ~inl
+            elif op == sd.CSG_INTERSECTION:
+                allowed = inr if side[i] == 1 else inl
+            else:  # difference
+                allowed = ~inr if side[i] == 1 else inl
+            keeps.append(valids[i] & allowed)
+        valids = keeps
+    return valids
+
+
 def _tri_comps(scene, normals: bool):
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
     if normals:
@@ -224,9 +333,9 @@ def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
     """Closest triangle hit with t < t_init (rray_tpu soa.py
     _pallas_triangle_best): the BVH kernel for meshes of at least
     settings.bvh_min_tris triangles, the linear chunk kernel below that.
-    Returns (t, prim, cls, (nx, ny, nz)); the kernels select the
+    Returns (t, prim, cls, (nx, ny, nz), row); the kernels select the
     winner's prim id and shade class as float payload columns (exact
-    below 2^24)."""
+    below 2^24); row is its triangle-table row."""
     from ..kernels import bvh, triangles
 
     rays = (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z)
@@ -237,8 +346,8 @@ def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
                                         leaf=settings.bvh_leaf)
     else:
         outs = triangles.closest_triangle(*rays, tri, t_init=t_init, aux=aux)
-    t, _, _, _, nx, ny, nz, prim, cls = outs
-    return t, prim.long(), cls.long(), (nx, ny, nz)
+    t, _, _, row, nx, ny, nz, prim, cls = outs
+    return t, prim.long(), cls.long(), (nx, ny, nz), row
 
 
 def _triangle_any(scene, ro: V3, rd: V3, settings, distance):
@@ -282,16 +391,18 @@ def closest_hit_soa(scene, ro: V3, rd: V3, settings) -> Hit:
     then the triangle kernel seeded with its t, merged by `ct < best_t`
     (analytic prims win ties against triangles)."""
     best_t, best_prim, best_cls = analytic_closest(scene, ro, rd)
-    tri_n = None
+    tri_n = tri = None
     if scene.counts[6]:
-        ct, cp, ccls, cn = _triangle_best(scene, ro, rd, settings, best_t)
+        ct, cp, ccls, cn, row = _triangle_best(scene, ro, rd, settings,
+                                               best_t)
         better = ct < best_t
         best_t = torch.where(better, ct, best_t)
         best_prim = torch.where(better, cp, best_prim)
         best_cls = torch.where(better, ccls, best_cls)
         tri_n = tuple(torch.where(better, c, 0.0) for c in cn)
+        tri = torch.where(better, row.long().clamp_min(0), 0)
     return Hit(found=torch.isfinite(best_t), t=best_t, prim=best_prim,
-               cls=best_cls, tri_n=tri_n)
+               cls=best_cls, tri_n=tri_n, tri=tri)
 
 
 def any_hit_soa(scene, ro: V3, rd: V3, distance, settings):

@@ -53,6 +53,14 @@ class V3:
         return self - n * (2.0 * self.dot(n))
 
 
+def div(a, k):
+    """a / k for a number (or CPU 0-d tensor) k, rounded once on every
+    device, as the kernel's `a / k` is: on CUDA tensors PyTorch turns a
+    division by a CPU scalar into a product with its reciprocal, which
+    rounds twice (exact only for powers of two)."""
+    return a / torch.as_tensor(k, dtype=a.dtype).to(a.device)
+
+
 def affine_point(m, p: V3) -> V3:
     """Apply a [3,4] affine (tensor, rows indexed statically) to points."""
     return V3(m[0, 0] * p.x + m[0, 1] * p.y + m[0, 2] * p.z + m[0, 3],

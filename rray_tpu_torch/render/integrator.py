@@ -8,11 +8,12 @@ kernels/whitted.py::applicable accepts, XLA scans otherwise. The port
 runs every scene that the whitted kernel accepts through the kernel;
 both of rray_tpu's routes compute the same image. Scenes the kernel
 rejects go to the torch fast node, rray_tpu's `_color_at_soa_xla`
-(no CSG, no transparency, cheap patterns), whose triangle tests run in
-the triangle and BVH kernels and whose area-light shadows run in the
-area-shadow kernel (kernels/analytic.py) when the scene has no mesh.
-Scenes neither takes yet raise NotImplementedError naming the ROADMAP
-item that will carry them.
+(no CSG, no transparency; tori, Perlin noise and textures included),
+whose triangle tests run in the triangle and BVH kernels and whose
+area-light shadows run in the area-shadow kernel (kernels/analytic.py)
+when the scene has no mesh and no torus. Scenes neither takes (a CSG or
+transparency the kernel rejects) raise NotImplementedError naming the
+ROADMAP item that will carry them.
 
 Area lights draw their jitter from rray_tpu's key chain: level l of the
 Whitted chain and light li use seed_table(seed)[l, li] (ops/jitter.py),
@@ -26,7 +27,7 @@ import torch
 from ..config import RenderSettings, offset_eps
 from ..kernels import analytic, whitted
 from ..ops import jitter, soa
-from ..ops.vec import V3
+from ..ops.vec import V3, div
 from ..scene import data as sd
 from ..scene.data import SceneData
 from . import shade_soa
@@ -36,9 +37,9 @@ from .camera import CameraData, all_rays_soa
 def fast_unsupported(scene) -> str | None:
     """Why the torch fast node cannot render this scene, naming the
     ROADMAP item that will carry it — or None when it can."""
-    reason = whitted.unported(scene)
-    if reason is not None:
-        return reason
+    if scene.csg_ops:
+        return ("CSG scenes the whitted kernel rejects: ROADMAP A10 (the "
+                "sorted torch node)")
     if scene.has_transparent:
         return ("transparency outside the whitted kernel: ROADMAP A6 and "
                 "A10 (the sorted torch node)")
@@ -79,7 +80,8 @@ def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
     kinds = scene.prim_kinds
     if (not scene.counts[6] and kinds
             and all(k in analytic.OCCLUSION_KINDS for k in kinds)):
-        # The whole sample loop in one kernel (B5).
+        # The whole sample loop in one kernel (B5), which takes no tori
+        # (nor does rray_tpu's); a torus scene takes the loop below.
         return analytic.area_shadow_fraction(
             (over.x, over.y, over.z), seed,
             torch.cat([light.corner, light.uvec, light.vvec]),
@@ -101,7 +103,7 @@ def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
         direction, dist = analytic.area_sample(cuv, hb, s, level, over_g)
         shadowed = soa.any_hit_soa(scene, over_g, direction, dist, settings)
         acc = acc + shadowed.to(dtype).reshape(level, R).sum(0)
-    return acc / n
+    return div(acc, n)
 
 
 def _lighting_soa(reader, base: V3, light, point: V3, eyev: V3,

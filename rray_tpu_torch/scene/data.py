@@ -12,8 +12,8 @@ The tables are torch tensors on the caller's device, in a plain
 dataclass; structural facts (counts, prim kinds, pattern node types,
 light kinds) are plain Python fields. The port compiles analytic
 leaves, triangles (Morton-ordered, mesh triangles collapsed to one shade
-class) and groups; CSG nodes raise NotImplementedError naming the
-ROADMAP item that will carry them.
+class), groups and CSG nodes (membership tables innermost first, with
+the reference's `includes()` quirk: see `_walk`).
 """
 from __future__ import annotations
 
@@ -46,6 +46,11 @@ CLS_PMAX = 31        # cylinder/cone maximum
 CLS_CLOSED = 32      # cylinder/cone closed flag (0/1)
 CLS_TORR = 33        # torus minor radius
 CLS_COLS = 34
+
+# CSG operation codes.
+CSG_UNION, CSG_INTERSECTION, CSG_DIFFERENCE = range(3)
+_CSG_OPS = {"union": CSG_UNION, "intersection": CSG_INTERSECTION,
+            "difference": CSG_DIFFERENCE}
 
 
 # --------------------------------------------------------------------------
@@ -196,8 +201,7 @@ class SceneData:
 
     Field meanings follow rray_tpu's SceneData: per-prim tables indexed
     by prim id (DFS order), per-type analytic tables, world-space
-    triangle tables, CSG sides (empty until CSG is ported), then the
-    structural Python fields."""
+    triangle tables, CSG sides, then the structural Python fields."""
 
     prim_inv: Any       # [P,3,4] composed world->object affine
     prim_nmat: Any      # [P,3,3] object-normal -> world (unnormalized)
@@ -276,24 +280,65 @@ _KIND_TO_TYPE = {
 }
 
 
-def _walk(shape: Shape, parent_world: np.ndarray, leaves):
-    """DFS fold of the scene graph into leaves (shape, world, material).
+class _CsgNode:
+    """One CSG node: its op, depth, the leaf prim ids under each child and
+    the leaves the reference's left.includes() reports."""
+
+    def __init__(self, op, depth):
+        self.op = op
+        self.depth = depth
+        self.left_leaves = []
+        self.right_leaves = []
+        self.left_direct = []
+
+
+def _walk(shape: Shape, parent_world: np.ndarray, leaves, csgs, depth):
+    """DFS fold of the scene graph into leaves (shape, world, material) and
+    CSG nodes (rray_tpu scene/data.py _walk). Returns the prim ids added
+    in this subtree and the ones `includes()` reports for this node:
+    group, recursive (group.rs:151-159); CSG, its direct primitive
+    children only (csg.rs:295-297); primitive, itself.
 
     `hidden` is honored only where the reference's builder consults it:
     top-level objects (scene_builder_yaml.rs:401) and group children
-    (scene_builder_yaml.rs:169)."""
+    (scene_builder_yaml.rs:169); a hidden CSG operand is still built."""
     world = parent_world @ shape.transform
     if shape.kind == "group":
+        subtree, included = [], []
         for child in shape.children:
             if not child.hidden:
-                _walk(child, world, leaves)
-        return
+                s, i = _walk(child, world, leaves, csgs, depth + 1)
+                subtree += s
+                included += i
+        return subtree, included
     if shape.kind == "csg":
-        raise NotImplementedError(
-            "CSG nodes are not ported yet (ROADMAP B1e and queue A 9)")
+        node = _CsgNode(_CSG_OPS[shape.operation], depth)
+        csgs.append(node)
+        ls, li = _walk(shape.left, world, leaves, csgs, depth + 1)
+        rs, _ = _walk(shape.right, world, leaves, csgs, depth + 1)
+        node.left_leaves, node.right_leaves, node.left_direct = ls, rs, li
+        direct = []
+        for child, sub in ((shape.left, ls), (shape.right, rs)):
+            if child.kind not in ("group", "csg"):
+                direct += sub
+        return ls + rs, direct
     if shape.kind not in _KIND_TO_TYPE:
         raise ValueError(f"unknown shape kind {shape.kind!r}")
     leaves.append((shape, world, shape.material or Material()))
+    return [len(leaves) - 1], [len(leaves) - 1]
+
+
+def _csg_tables(csgs, P):
+    """(csg_ops, [C, P] side table) innermost (deepest) first, a stable
+    sort: side 1 for the leaves the node's left.includes() reports, 2 for
+    every other leaf under the node (rray_tpu scene/data.py:601-610)."""
+    csgs = sorted(csgs, key=lambda c: -c.depth)
+    side = np.zeros((len(csgs), max(P, 1)), np.int32)
+    for ci, node in enumerate(csgs):
+        left = set(node.left_direct)
+        for pid in node.left_leaves + node.right_leaves:
+            side[ci, pid] = 1 if pid in left else 2
+    return tuple(c.op for c in csgs), side
 
 
 def _spread_bits(v: np.ndarray) -> np.ndarray:
@@ -372,11 +417,12 @@ def _compile_light(light, dtype, device) -> LightData:
 def compile_scene(objects, lights, dtype=torch.float32,
                   device="cpu") -> SceneData:
     """Fold a host scene graph into SoA tables on `device`."""
-    leaves = []
+    leaves, csgs = [], []
     for obj in objects:
         if not obj.hidden:
-            _walk(obj, mu.identity(), leaves)
+            _walk(obj, mu.identity(), leaves, csgs, 0)
     P = len(leaves)
+    csg_ops, csg_side = _csg_tables(csgs, P)
 
     # Deduplicate pattern roots by host-object identity (OBJ meshes share
     # one material across thousands of triangles).
@@ -507,18 +553,19 @@ def compile_scene(objects, lights, dtype=torch.float32,
         **{f"tri_{k}": f(v) for k, v in tri.items()},
         tri_smooth=_tensor(tri_smooth, torch.bool, device),
         tri_prim=i32(tris), tri_class=i32(prim_class[tris]),
-        csg_side=i32(np.zeros((0, max(P, 1)))),
+        csg_side=i32(csg_side),
         lights=tuple(_compile_light(l, dtype, device) for l in lights),
         patterns=tuple(_compile_pattern(p, dtype, device)
                        for p in pattern_roots),
-        csg_ops=(),
+        csg_ops=csg_ops,
         has_reflective=any(m.reflective > 0.0 for m in materials),
         has_transparent=any(m.transparency > 0.0 for m in materials),
         counts=tuple(len(by_type[t]) for t in range(7)) + (P,),
         prim_kinds=tuple(int(t) for t in prim_type),
         prim_rows_static=tuple(int(r) for r in prim_row),
-        csg_member_static=(False,) * P,
-        csg_side_static=(),
+        csg_member_static=tuple(bool(csg_side[:, p].any()) if csg_ops
+                                else False for p in range(P)),
+        csg_side_static=tuple(tuple(int(v) for v in row) for row in csg_side),
         n_classes=M,
         prim_class_static=tuple(int(c) for c in prim_class),
         prim_pattern_static=tuple(int(i) for i in pat_ids),

@@ -230,3 +230,63 @@ def test_fast_node_launches_area_shadow_kernel(cuda, tmp_path):
                                        seed=4)
     assert np.isfinite(image).all()
     assert analytic.launches > before
+
+
+def _stage_e_scene(name, tmp_path, device):
+    """(camera spec, scene) of config 5 (examples/csg_showcase.yaml), `csg5r`
+    (config 5 with a perturbed stripe on the torus, a floor of
+    reflective 0.3 and config 3's area light: stages c and e along the
+    width-1 chain), or glass with a torus (stage e in the compact
+    wavefront)."""
+    if name == "csg":
+        path = os.path.join(BASE, "examples", "csg_showcase.yaml")
+    elif name == "csg5r":
+        path = ms.write_config5(str(tmp_path), name, floor_reflective=0.3,
+                                area_level=5, perturbed_torus=True)
+    else:
+        path = os.path.join(BASE, "examples", "glass.yaml")
+    cam_spec, lights, shapes = load_scene_file(path)
+    if name == "glass_torus":
+        from rray_tpu_torch.scene.data import Shape
+        shapes = shapes + [Shape("torus", minor_radius=0.3,
+                                 material=shapes[1].material)]
+    return cam_spec, compile_scene(shapes, lights, dtype=torch.float32,
+                                   device=device)
+
+
+@pytest.mark.parametrize("name", ["csg", "csg5r", "glass_torus"])
+def test_stage_e_kernel_matches_plain_version(cuda, name, tmp_path):
+    """Stage e (tori, CSG, noise, perturbed and image patterns) against
+    the plain version, under chip_smoke.py's whitted budget: no ray over
+    one u8 step and at most 0.1% over 1e-4 (the transcendentals are
+    rounded doubles on both sides, and every division by a constant
+    rounds once on both: vec.div)."""
+    cam_spec, scene = _stage_e_scene(name, tmp_path, cuda)
+    cam = Camera(160, 120, cam_spec["fov"])
+    cam.transform = cam_spec["transform"]
+    ro, rd = all_rays_soa(compile_camera(cam, torch.float32, cuda))
+    rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
+    inputs = whitted.kernel_inputs(scene, RenderSettings(), seed=3)
+    assert whitted.needs_ext(scene)
+    before = whitted.launches
+    kern = torch.stack(whitted.whitted_compact(*rays, **inputs))
+    assert whitted.launches == before + 1
+    plain = torch.stack(whitted.whitted_compact_reference(*rays, **inputs))
+    torch.cuda.synchronize()
+    diff = (kern - plain).abs().amax(0)
+    assert bool(torch.isfinite(kern).all())
+    assert float(diff.max()) <= 1.0 / 255.0
+    assert float((diff > 1e-4).double().mean()) <= 1e-3
+
+
+def test_fast_node_renders_textured_reflective_config5(cuda, tmp_path):
+    """`tex5r`: config 5 with the CSG split into its operands and a
+    reflective floor is textured and reflective, so the kernel rejects
+    it and the torch fast node renders it."""
+    from rray_tpu_torch.render import integrator
+    path = ms.write_config5(str(tmp_path), "tex5r", floor_reflective=0.3,
+                            split_csg=True)
+    _, lights, shapes = load_scene_file(path)
+    assert integrator.route(compile_scene(shapes, lights)) == "fast"
+    image = api.render_scene_from_file(path, 64, 36, "", device="cuda")
+    assert np.isfinite(image).all() and image.max() > 0.1

@@ -5,9 +5,6 @@ CUDA kernel itself runs only on the card (chip_smoke.py holds it
 against this plain version there); the compact W=4 glass case is in
 test_torch_whitted_glass.py and the float64 checks against rray_tpu's
 XLA path in test_torch_whitted_xla.py."""
-import os
-
-import numpy as np
 import pytest
 import torch
 
@@ -45,30 +42,34 @@ def test_cpu_tensors_never_launch_the_kernel():
     assert whitted.launches == before
 
 
-TORUS_SCENE = """camera:
-  fov: 60
-  from: [0, 1.5, -5]
-  to: [0, 1, 0]
-  up: [0, 1, 0]
-lights:
-  - type: point
-    position: [-10, 10, -10]
-    color: [1, 1, 1]
-scene:
-  - type: torus
-    minor_radius: 0.35
-"""
+def _csg_variant(name, tmp_path):
+    """config 5 with a transparent CSG operand, or with a mesh (a
+    tetrahedron OBJ) as the CSG's right operand: CSG scenes the whitted
+    kernel rejects (rray_tpu whitted.py:110-115)."""
+    import yaml
+
+    from rray_tpu_torch.io import mesh_scenes
+    path = mesh_scenes.write_config5(str(tmp_path), name)
+    doc = yaml.safe_load(open(path))
+    csg = next(o for o in doc["scene"] if o["type"] == "csg")
+    if name == "transparent_operand":
+        csg["right"]["material"]["transparency"] = 0.5
+    else:
+        obj = tmp_path / "tet.obj"
+        obj.write_text("v 0 1.6 -0.2\nv 0.9 0.3 -0.7\nv -0.9 0.3 -0.7\n"
+                       "v 0 0.3 1.0\nf 1 2 3\nf 1 3 4\nf 1 4 2\nf 2 4 3\n")
+        csg["right"] = {"type": "obj_file", "obj_file": str(obj)}
+    with open(path, "w") as f:
+        yaml.safe_dump(doc, f)
+    return path
 
 
-@pytest.mark.parametrize("name,item", [("torus", "B1e"),
-                                       ("csg_showcase.yaml", "B1e")])
+@pytest.mark.parametrize("name,item", [("transparent_operand", "A10"),
+                                       ("mesh_operand", "A10")])
 def test_unported_scenes_raise(name, item, tmp_path):
-    path = os.path.join(tp.BASE, "examples", name)
-    if name == "torus":
-        path = tmp_path / "torus.yaml"
-        path.write_text(TORUS_SCENE)
     with pytest.raises(NotImplementedError, match=item):
-        api.render_scene_from_file(path, 8, 6, "", device="cpu")
+        api.render_scene_from_file(_csg_variant(name, tmp_path), 8, 6, "",
+                                   device="cpu")
 
 
 def test_applicable_gating():
@@ -77,9 +78,11 @@ def test_applicable_gating():
     from rray_tpu_torch.io.yaml_loader import load_scene_file
     from rray_tpu_torch.scene.data import Shape, compile_scene
     _, lights, shapes = load_scene_file(tp.GLASS)
+    # Glass plus a torus: stage e with the compact wavefront.
     torus = compile_scene(shapes + [Shape("torus", material=shapes[0].material)],
                           lights)
-    assert "B1e" in whitted.unsupported(torus)
+    assert whitted.applicable(torus) and integrator.route(torus) == "kernel"
+    assert whitted.needs_ext(torus)
     # More than 16 prims leave the kernel for the torch fast node, which
     # takes opaque scenes: glass with its transparency zeroed.
     for shape in shapes:

@@ -1,12 +1,13 @@
 """The CUDA kernels' device code against the plain versions, on the CPU.
 
 kernels/csrc/whitted_device.cuh holds everything one thread of the
-whitted kernel runs (trace_ray<W> and the node, slot, shadow, area
-sample, pattern and mesh-fold functions) and the area-shadow kernel's
-per-origin body (area_count), mesh_device.cuh what one thread of the
-triangle and BVH kernels runs (Möller–Trumbore, the chunk folds, the
-heap walk, the output writer), and jitter_device.cuh the area lights'
-jitter hash. They need only two function-qualifier
+whitted kernel runs (trace_ray<W, kExt> and the node, slot, shadow,
+area sample, pattern, CSG and mesh-fold functions) and the area-shadow
+kernel's per-origin body (area_count), mesh_device.cuh what one thread
+of the triangle and BVH kernels runs (Möller–Trumbore, the chunk folds,
+the heap walk, the output writer), jitter_device.cuh the area lights'
+jitter hash, quartic_device.cuh and noise_device.cuh stage e's torus
+quartic and Perlin noise. They need only two function-qualifier
 macros and the C math library, so they also compile as host C++. Built
 here with g++ and -ffp-contract=off (the host analogue of the kernels'
 --fmad=false), they are held against the plain versions on camera rays
@@ -40,13 +41,14 @@ static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #define RRAY_NOINLINE
 #include "whitted_device.cuh"
 using namespace rray;
-template <int W>
+template <int W, bool E>
 static void run(const SceneView& s, const float* const* rays, float* const* out,
                 int R, int depth, bool refl, bool refr) {
   for (int i = 0; i < R; ++i) {
     float rgb[3];
-    trace_ray<W>(s, v3(rays[0][i], rays[1][i], rays[2][i]),
-                 v3(rays[3][i], rays[4][i], rays[5][i]), depth, refl, refr, rgb);
+    trace_ray<W, E>(s, v3(rays[0][i], rays[1][i], rays[2][i]),
+                    v3(rays[3][i], rays[4][i], rays[5][i]), depth, refl, refr,
+                    rgb);
     for (int c = 0; c < 3; ++c) out[c][i] = rgb[c];
   }
 }
@@ -54,17 +56,43 @@ extern "C" void trace_all(const float* const* rays, float* const* out,
                           const float* prims, int P, int G, const float* pats,
                           int N, const float* lights, int L, const int* ints,
                           const int* seeds, const float* tris, int T,
-                          const float* tboxes, int n_chunks, int R, int depth,
-                          int W, int refl, int refr) {
+                          const float* tboxes, int n_chunks,
+                          const float* texels, int C, int R, int depth, int W,
+                          int refl, int refr, int ext) {
   SceneView s;
   s.prims = prims; s.pats = pats; s.lights = lights; s.kinds = ints;
   s.roots = ints + P; s.ptype = ints + 2 * P + G; s.pa = s.ptype + N;
-  s.pb = s.pa + N; s.levels = s.pb + N; s.seeds = seeds; s.tris = tris;
-  s.tboxes = tboxes; s.P = P; s.L = L; s.T = T; s.n_chunks = n_chunks;
-  switch (W) {
-    case 1: run<1>(s, rays, out, R, depth, refl, refr); break;
-    case 4: run<4>(s, rays, out, R, depth, refl, refr); break;
-    case 32: run<32>(s, rays, out, R, depth, refl, refr); break;
+  s.pb = s.pa + N; s.levels = s.pb + N; s.pmeta = s.levels + L;
+  s.member = s.pmeta + 4 * N; s.csg_ops = s.member + P;
+  s.csg_side = s.csg_ops + C; s.seeds = seeds; s.tris = tris;
+  s.tboxes = tboxes; s.texels = texels; s.P = P; s.L = L; s.T = T;
+  s.n_chunks = n_chunks; s.C = C;
+  switch (W * 2 + (ext != 0)) {
+    case 2: run<1, false>(s, rays, out, R, depth, refl, refr); break;
+    case 8: run<4, false>(s, rays, out, R, depth, refl, refr); break;
+    case 64: run<32, false>(s, rays, out, R, depth, refl, refr); break;
+    case 3: run<1, true>(s, rays, out, R, depth, refl, refr); break;
+    case 9: run<4, true>(s, rays, out, R, depth, refl, refr); break;
+  }
+}
+// Stage e's building blocks, one value per input.
+extern "C" void noise_all(const float* const* pts, int octaves,
+                          float persistence, float* out, int R) {
+  for (int i = 0; i < R; ++i)
+    out[i] = octave_perlin(pts[0][i], pts[1][i], pts[2][i], octaves,
+                           persistence);
+}
+extern "C" void quartic_all(const float* const* coeffs, float* roots,
+                            int* valids, int R) {
+  for (int i = 0; i < R; ++i) {
+    float r[4];
+    bool v[4];
+    solve_quartic(coeffs[0][i], coeffs[1][i], coeffs[2][i], coeffs[3][i],
+                  coeffs[4][i], r, v);
+    for (int k = 0; k < 4; ++k) {
+      roots[k * R + i] = r[k];
+      valids[k * R + i] = v[k];
+    }
   }
 }
 // The area-shadow kernel's body (area.cu) and the jitter hash.
@@ -149,14 +177,17 @@ def _ptrs(xs):
 
 def _host_trace(lib, rays, prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs,
                 prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
-                tri_boxes=None, light_levels=None, seeds=None):
+                tri_boxes=None, light_levels=None, seeds=None, csg=((), ()),
+                tex_tbl=None, tex_meta=()):
     R = rays[0].shape[0]
     arrs = [_np(r) for r in rays]
     outs = [np.empty(R, np.float32) for _ in range(3)]
     tables = [_np(t) for t in (prim_tbl, pat_tbl, light_tbl, tri_tbl,
-                               tri_boxes, seeds)]
+                               tri_boxes, seeds, tex_tbl)]
+    ext = whitted.uses_ext(kinds, pat_descrs, csg)
     ints = np.asarray(whitted.int_table(kinds, pat_descrs, prim_pat,
-                                        pat_tbl.shape[0], light_levels),
+                                        pat_tbl.shape[0], light_levels,
+                                        csg if ext else None, tex_meta),
                       np.int32)
     T = 0 if tri_tbl is None else tri_tbl.shape[0]
     n_chunks = 0 if tri_boxes is None else tri_boxes.shape[1] - 1
@@ -165,9 +196,9 @@ def _host_trace(lib, rays, prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs,
                   i(len(prim_pat) - len(kinds)), _c(tables[1]),
                   i(pat_tbl.shape[0]), _c(tables[2]),
                   i(light_tbl.shape[0]), _c(ints), _c(tables[5]),
-                  _c(tables[3]), i(T),
-                  _c(tables[4]), i(n_chunks), i(R), i(depth), i(W),
-                  i(has_refl), i(has_refr))
+                  _c(tables[3]), i(T), _c(tables[4]), i(n_chunks),
+                  _c(tables[6]), i(len(csg[1])), i(R), i(depth), i(W),
+                  i(has_refl), i(has_refr), i(ext))
     return np.stack(outs)
 
 
@@ -182,11 +213,18 @@ MESH_SCENES = {"mesh": dict(lat_lon=(11, 11)),
                "area_mesh": dict(lat_lon=(6, 5), area_level=3),
                "area_reflective": dict(lat_lon=None, spheres=4,
                                        reflective=0.3, area_level=2)}
+# Stage e: config 5 (CSG, torus, noise, texture) and `csg5r` (config 5
+# with a perturbed stripe on the torus, a reflective floor and config 3's
+# area light: stages c and e along the width-1 chain).
+CONFIG5_SCENES = {"csg5r": dict(floor_reflective=0.3, area_level=5,
+                                perturbed_torus=True)}
 
 
 def _scene_path(name, tmp):
     if name in MESH_SCENES:
         return ms.write_scene(tmp, name, **MESH_SCENES[name])
+    if name in CONFIG5_SCENES:
+        return ms.write_config5(str(tmp), name, **CONFIG5_SCENES[name])
     return os.path.join(BASE, "examples", name)
 
 
@@ -195,7 +233,8 @@ def _scene_path(name, tmp):
                                       ("mesh_reflective", 4),
                                       ("mesh_flat_spheres", 4),
                                       ("area_light.yaml", 4), ("area_mesh", 4),
-                                      ("area_reflective", 4)])
+                                      ("area_reflective", 4),
+                                      ("csg_showcase.yaml", 4), ("csg5r", 4)])
 def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
     cam_spec, lights, shapes = load_scene_file(_scene_path(name, tmp_path))
     scene = compile_scene(shapes, lights, dtype=torch.float32)
@@ -213,11 +252,15 @@ def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
     # and PyTorch's vectorized pow/rsqrt may differ by an ulp, which the
     # shininess exponent can grow to ~1e-7 (measured max 1.3e-7). A
     # boundary decision flipped by such an ulp would exceed 1e-6: none
-    # was measured, 0.1% of rays is allowed.
+    # was measured, 0.1% of rays is allowed. Stage e adds the torus's
+    # quartic, whose f32 roots move by up to 1e-3 with one ulp of a sqrt
+    # (PyTorch's CPU sqrt is not correctly rounded; glibc's and CUDA's
+    # are): measured 2 of 6912 rays over 1e-6 on config 5, max 8e-5.
     diff = np.abs(host - plain).max(axis=0)
     assert np.isfinite(host).all()
     assert float((diff <= 1e-6).mean()) >= 0.999, diff.max()
-    if any(args["light_levels"]):
+    assert diff.max() <= 1.0 / 255.0
+    if any(args["light_levels"]) and not whitted.needs_ext(scene):
         # Stage c: the jitter hash, the sample loop and the fraction are
         # the plain version's bit for bit (measured on all three area
         # scenes, specular highlights included).
@@ -364,3 +407,68 @@ def test_area_count_device_code_matches_plain_version(host_lib, level):
         scene.prim_kinds, level)
     np.testing.assert_array_equal(count / (level * level), frac.numpy())
     assert 0.05 < frac.mean() < 0.95
+
+
+def _torus_rays(R=4096, seed=7):
+    """Seeded object-space rays aimed at config 5's torus (minor radius
+    0.35), from outside and inside its box."""
+    rng = np.random.default_rng(seed)
+    o = rng.normal(0.0, 2.0, (3, R))
+    aim = rng.uniform(-1.2, 1.2, (3, R)) * np.array([[1.0], [1.0], [0.3]])
+    d = aim - o
+    d /= np.linalg.norm(d, axis=0)
+    return o, d
+
+
+def _torus_coeffs(o, d, r=0.35):
+    """The torus quartic's coefficients (soa._torus_slots' expressions)."""
+    ss = (d * d).sum(0)
+    e = (o * o).sum(0) - r * r + 1.0
+    f = (o * d).sum(0)
+    return (ss * ss, 4.0 * ss * f,
+            2.0 * ss * e + 4.0 * f * f - 4.0 * (d[0] ** 2 + d[1] ** 2),
+            4.0 * e * f - 8.0 * (o[0] * d[0] + o[1] * d[1]),
+            e * e - 4.0 * (o[0] ** 2 + o[1] ** 2))
+
+
+def test_quartic_device_code_matches_plain_version(host_lib):
+    """quartic_device.cuh's solve_quartic against ops/quartic.py in f32 on
+    torus coefficients: the same valid slots, and roots equal but where
+    one ulp of a sqrt (PyTorch's CPU sqrt is not correctly rounded) moves
+    an ill-conditioned root (measured 5 of ~1100 valid roots of config 5's
+    camera rays, by up to 5e-4)."""
+    from rray_tpu_torch.ops import quartic
+    cs = [np.ascontiguousarray(c, np.float32) for c in _torus_coeffs(
+        *_torus_rays())]
+    R = cs[0].shape[0]
+    roots = np.empty((4, R), np.float32)
+    valids = np.empty((4, R), np.int32)
+    host_lib.quartic_all(_ptrs(cs), _c(roots), _c(valids), ctypes.c_int(R))
+    tr, tv = quartic.solve_quartic_parts(*(torch.from_numpy(c) for c in cs))
+    tr = np.stack([x.numpy() for x in tr])
+    tv = np.stack([x.numpy() for x in tv])
+    np.testing.assert_array_equal(valids.astype(bool), tv)
+    assert tv.sum() > R  # many rays have real roots
+    err = np.abs(roots - tr)[tv] / np.maximum(1.0, np.abs(tr[tv]))
+    assert (err == 0.0).mean() >= 0.99 and err.max() <= 1e-3, err.max()
+
+
+def test_noise_device_code_matches_plain_version(host_lib):
+    """noise_device.cuh's octave_perlin against ops/noise.py, bit for bit
+    (integer hash, floor, IEEE products and sums in the same order), on
+    seeded points including negative ones and points past the int32
+    range of the lattice (saturating conversion)."""
+    from rray_tpu_torch.ops import noise
+    rng = np.random.default_rng(3)
+    pts = rng.uniform(-400.0, 400.0, (3, 5000)).astype(np.float32)
+    pts[:, :8] *= np.float32(1e9)
+    pts = [np.ascontiguousarray(c) for c in pts]
+    for octaves, persistence in ((1, 0.5), (4, 0.5), (3, 0.7)):
+        out = np.empty(pts[0].shape[0], np.float32)
+        host_lib.noise_all(_ptrs(pts), ctypes.c_int(octaves),
+                           ctypes.c_float(persistence), _c(out),
+                           ctypes.c_int(out.shape[0]))
+        want = noise.octave_perlin(*(torch.from_numpy(c) for c in pts),
+                                   octaves, torch.tensor(persistence,
+                                                         dtype=torch.float32))
+        np.testing.assert_array_equal(out, want.numpy())
