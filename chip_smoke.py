@@ -15,7 +15,9 @@ variants of config 5, and config 5 itself (examples/csg_showcase.yaml:
 CSG, a torus, Perlin noise, an image texture) at 1920x1080, aa=5,
 counting each kernel's launches per scene, and times kernels and plain
 versions (CUDA events; each kernel's own device time with
-torch.profiler). It prints the card, one line per phase, a JSON line
+torch.profiler), config 5's main-path launch on its full 9600x5400
+raster included. Bounds count the least work of every level's live
+path rows. It prints the card, one line per phase, a JSON line
 describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before
 the last line; without CUDA it exits 1 at once.
 
@@ -117,8 +119,6 @@ OPS_HASH_BASE, OPS_SAMPLE_INT, OPS_SAMPLE_FP = 30, 24, 30
 # lattice products and 8 hashes of ~15: ~130 integer).
 OPS_TORUS_BOX, OPS_QUARTIC, OPS_CSG_PAIR = 30, 400, 3
 OPS_OCTAVE_FP, OPS_OCTAVE_INT = 90, 130
-# Hit slots per prim kind (sphere, plane, cube, cylinder, cone, torus).
-SLOTS = (2, 1, 2, 4, 5, 4)
 # Rays per step of the least-work count ([RAY_STEP, T] temporaries).
 RAY_STEP = 8192
 
@@ -342,31 +342,6 @@ def triangle_tests(torch, rays, geom, bound):
     return total
 
 
-def area_tests(torch, over, L, level, seed, blocked, geom=None):
-    """Least work of an area light's samples at shadow origins `over`
-    (3 [R] tensors) for light row L (corner, uvec, vvec at 6-14):
-    (samples, blocked samples, ray-triangle tests). A blocked sample
-    needs one occlusion test, an open one a test of every analytic prim
-    and of every mesh triangle whose own AABB its segment enters before
-    the light. `blocked(over, dirs, dist)` is the plain shadow predicate
-    (the sample geometry is the kernels' area_sample)."""
-    from rray_tpu_torch.kernels import analytic
-    from rray_tpu_torch.ops import jitter
-    from rray_tpu_torch.ops.vec import V3
-
-    hb = jitter.point_base(seed, *over)
-    n_blocked = tri = 0
-    for k in range(level * level):
-        d, dist = analytic.area_sample(L[6:15], hb, k, level, V3(*over))
-        dirs = (d.x, d.y, d.z)
-        occ = blocked(over, dirs, dist)
-        n_blocked += int(occ.sum())
-        if geom is not None:
-            tri += triangle_tests(torch, (tuple(over), dirs), geom,
-                                  torch.where(occ, -math.inf, dist))
-    return over[0].shape[0] * level * level, n_blocked, tri
-
-
 def bound_ms(n_bytes, n_ops, n_int=0):
     """The least time the card could take: the larger of bytes over its
     memory rate and operations over their rate (float at the FP32 rate,
@@ -407,16 +382,31 @@ def plain_kernels():
 # Phases.
 # ---------------------------------------------------------------------------
 
-def ext_work(torch, name, inputs, ro, rd):
-    """Least work of a stage-e scene's primary level (no mesh) -> (bytes,
-    float ops, integer ops). Every ray tests every prim: a torus its box,
-    and its quartic where the ray enters the box; the CSG members their
-    slots, then the pair compares of every CSG pass. Every hit evaluates
-    the Perlin octaves of its winner's pattern tree (three per perturbed
-    node) and reads its texel (4 B packed), and per point light or area
-    sample tests its shadow segment: one occlusion test when it is
-    blocked, else every prim as a primary ray does (an occlusion test
-    for a plain prim)."""
+def tree_work(descr):
+    """(Perlin octaves, texel reads) of one evaluation of a pattern tree
+    (pack_patterns' descriptor): three fBm calls per perturbed node."""
+    if descr is None:
+        return 0, 0
+    ptype, _, meta, da, db = descr
+    octaves = {"noise": meta, "perturbed": 3 * meta}.get(ptype, 0)
+    sub = [tree_work(c) for c in (da, db)]
+    return (octaves + sum(o for o, _ in sub),
+            int(ptype == "image") + sum(t for _, t in sub))
+
+
+def node_work(torch, inputs, o, d, seeds, mesh=None, geom=None):
+    """Least work of one Whitted node on the rays (o, d) -> (float ops,
+    integer ops, counts). Every ray tests every analytic prim (a torus
+    its box, and its quartic where the ray enters the box; the CSG
+    members their slots, then the pair compares of every CSG pass) and
+    every mesh triangle whose own AABB it enters before its closest hit.
+    Every hit evaluates the Perlin octaves of its winner's pattern tree,
+    reads its texel (4 B packed) and, per point light or area-light
+    sample (drawn with `seeds`, this level's seed per light), tests its
+    shadow segment: one occlusion test when it is blocked, else every
+    prim as a primary ray does (an occlusion test for a plain prim) and
+    every triangle whose AABB it enters before the light. `mesh` and
+    `geom` are the plain version's mesh and the triangles' p1 e1 e2."""
     from rray_tpu_torch.kernels import analytic, whitted
     from rray_tpu_torch.ops import jitter, soa
     from rray_tpu_torch.ops.vec import V3
@@ -425,111 +415,209 @@ def ext_work(torch, name, inputs, ro, rd):
     kinds, prims = inputs["kinds"], inputs["prim_tbl"].tolist()
     csg = inputs.get("csg", ((), ()))
     member = csg[0] or (False,) * len(kinds)
-    n_slots = sum(SLOTS[k] for k, m in zip(kinds, member) if m)
+    n_slots = sum(whitted.SLOTS_PER_KIND[k] for k, m in zip(kinds, member)
+                  if m)
     pair_ops = len(csg[1]) * n_slots * (n_slots - 1) * OPS_CSG_PAIR
-    quartics = []
+    counts = dict.fromkeys(("hits", "quartics", "shadow_quartics", "octaves",
+                            "texels", "samples", "blocked",
+                            "triangle_tests"), 0)
 
     def tests(o, d, occ=None):
-        """Float ops per ray of a primary ray's tests, or of a shadow
-        segment's (blocked where `occ`)."""
-        ops = torch.full_like(o.x, float(pair_ops))
+        """Float ops of a primary ray's prim tests, or of a shadow
+        segment's (blocked where `occ`), summed over the rays."""
+        ops = torch.full_like(o.x, float(pair_ops), dtype=torch.float64)
         for k, p, m in zip(kinds, prims, member):
             if k == sd.TORUS:
                 enter = soa.torus_box_entry(whitted._affine_pt(p, o),
                                             whitted._affine_vec(p, d), p[31])
                 if occ is not None:
                     enter = enter & ~occ
-                quartics.append(int(enter.sum()))
+                counts["quartics" if occ is None
+                       else "shadow_quartics"] += int(enter.sum())
                 ops = ops + OPS_TORUS_BOX + OPS_QUARTIC * enter.double()
             else:
                 ops = ops + (OPS_OCCLUDE if occ is not None and not m
                              else OPS_PRIM)
         if occ is not None:
             ops = torch.where(occ, float(OPS_OCCLUDE), ops)
+        return float(ops.sum())
+
+    def shadow(over, direction, dist):
+        occ = whitted._blocked(kinds, prims, mesh, over, direction.x,
+                               direction.y, direction.z, dist, csg)
+        counts["blocked"] += int(occ.sum())
+        ops = tests(over, direction, occ)
+        if geom is not None:
+            tri = triangle_tests(
+                torch, ((over.x, over.y, over.z),
+                        (direction.x, direction.y, direction.z)), geom,
+                torch.where(occ, -math.inf, dist))
+            counts["triangle_tests"] += tri
+            ops += tri * OPS_TRI
         return ops
 
-    def shadow_ops(over, direction, dist):
-        occ = whitted._blocked(kinds, prims, None, over, direction.x,
-                               direction.y, direction.z, dist, csg)
-        return float(tests(over, direction, occ).sum())
-
-    def tree_work(descr):  # (octaves, texel reads) of one evaluation
-        if descr is None:
-            return 0, 0
-        ptype, _, meta, da, db = descr
-        octaves = {"noise": meta, "perturbed": 3 * meta}.get(ptype, 0)
-        sub = [tree_work(c) for c in (da, db)]
-        return (octaves + sum(o for o, _ in sub),
-                int(ptype == "image") + sum(t for _, t in sub))
-
-    o, d = V3(ro.x, ro.y, ro.z), V3(rd.x, rd.y, rd.z)
-    R = ro.x.shape[0]
-    n_ops = float(tests(o, d).sum())
-    best_t, win = whitted.closest_hit(kinds, prims, None, o, d, csg)[:2]
+    n_ops = tests(o, d)
+    best_t, win = whitted.closest_hit(kinds, prims, mesh, o, d, csg)[:2]
+    if geom is not None:
+        tri = triangle_tests(torch, ((o.x, o.y, o.z), (d.x, d.y, d.z)), geom,
+                             best_t)
+        counts["triangle_tests"] += tri
+        n_ops += tri * OPS_TRI
     found = torch.isfinite(best_t)
-    hits = int(found.sum())
-    octaves = texels = 0
+    hits = counts["hits"] = int(found.sum())
     for i, root in enumerate(inputs["prim_pat"]):
         n_i = int((win == i).sum())
         oc, tx = tree_work(inputs["pat_descrs"][root])
-        octaves += n_i * oc
-        texels += n_i * tx
-    n_ops += octaves * OPS_OCTAVE_FP
-    n_int = octaves * OPS_OCTAVE_INT
+        counts["octaves"] += n_i * oc
+        counts["texels"] += n_i * tx
+    n_ops += counts["octaves"] * OPS_OCTAVE_FP
+    n_int = counts["octaves"] * OPS_OCTAVE_INT
     levels, lights = inputs["light_levels"], inputs["light_tbl"].tolist()
-    seeds = inputs["seeds"][0].tolist()
     over = whitted._node(
         kinds, inputs["pat_descrs"], inputs["prim_pat"], inputs["has_refl"],
         inputs["has_refr"], prims, inputs["pat_tbl"].tolist(), lights,
-        levels, seeds, None, o, d, csg,
-        (inputs["tex_tbl"], inputs["tex_meta"]) if "tex_tbl" in inputs
-        else None)[1]
+        levels, seeds, mesh, o, d, csg, tex_of(inputs))[1]
     over = V3(over.x[found], over.y[found], over.z[found])
-    samples = 0
     for L, level, seed in zip(lights, levels, seeds):
         if level == 0:
             to = V3(L[0] - over.x, L[1] - over.y, L[2] - over.z)
             dist = to.norm()
-            direction = to * (1.0 / torch.clamp_min(dist, 1e-30))
-            n_ops += shadow_ops(over, direction, dist)
+            n_ops += shadow(over, to * (1.0 / torch.clamp_min(dist, 1e-30)),
+                            dist)
             continue
         hb = jitter.point_base(seed, over.x, over.y, over.z)
         for k in range(level * level):
             direction, dist = analytic.area_sample(L[6:15], hb, k, level, over)
-            n_ops += shadow_ops(over, direction, dist)
-        samples += hits * level * level
+            n_ops += shadow(over, direction, dist)
+        counts["samples"] += hits * level * level
         n_int += hits * OPS_HASH_BASE + hits * level * level * OPS_SAMPLE_INT
         n_ops += hits * level * level * OPS_SAMPLE_FP
-    n_bytes = 4 * (9 * R + inputs["seeds"].numel() + texels
-                   + sum(inputs[k].numel() for k in ("prim_tbl", "pat_tbl",
-                                                     "light_tbl")))
-    print(f"work whitted {name}: {R} rays, {hits} hits, quartics "
-          f"{quartics[0] if quartics else 0} primary and {sum(quartics[1:])} "
-          f"in shadow tests, {octaves} noise octaves, {texels} texel reads, "
-          f"{samples} area samples, CSG member slots per ray {n_slots}")
-    return n_bytes, n_ops, n_int
+    return n_ops, n_int, counts
+
+
+def tex_of(inputs):
+    """The plain version's texture argument of kernel_inputs' dict."""
+    return ((inputs["tex_tbl"], inputs["tex_meta"]) if "tex_tbl" in inputs
+            else None)
+
+
+def level_rows(torch, inputs, ro, rd, mesh):
+    """The path rows of nonzero weight at every level of the plain
+    version's level scan (whitted_compact_reference's loop, run again with
+    its node: W rows per ray, children of both kinds sorted by weight,
+    the first W kept) -> [(o, d)] per level."""
+    from rray_tpu_torch.kernels import whitted
+    from rray_tpu_torch.ops.vec import V3
+
+    depth, W = inputs["depth"], inputs["W"]
+    has_refl, has_refr = inputs["has_refl"], inputs["has_refr"]
+    spawn = 2 if has_refl and has_refr else int(has_refl or has_refr)
+    R = ro.x.shape[0]
+    st = torch.zeros((7, W, R), dtype=ro.x.dtype, device=ro.x.device)
+    st[5] = 1.0
+    for c, v in enumerate((ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)):
+        st[c, 0] = v
+    st[6, 0] = 1.0
+    out = []
+    for level in range(depth + 1):
+        rows = st.reshape(7, W * R)
+        live = rows[6] != 0.0
+        out.append((V3(*(rows[c][live] for c in range(3))),
+                    V3(*(rows[c][live] for c in range(3, 6)))))
+        if level == depth or not spawn:
+            break
+        _, over, under, reflectv, refr_dir, refl_w, refr_w = whitted._node(
+            inputs["kinds"], inputs["pat_descrs"], inputs["prim_pat"],
+            has_refl, has_refr, inputs["prim_tbl"].tolist(),
+            inputs["pat_tbl"].tolist(), inputs["light_tbl"].tolist(),
+            inputs["light_levels"], inputs["seeds"][level].tolist(), mesh,
+            V3(rows[0], rows[1], rows[2]), V3(rows[3], rows[4], rows[5]),
+            inputs.get("csg", ((), ())), tex_of(inputs))
+        w = rows[6]
+        children = [(over, reflectv, w * refl_w), (under, refr_dir,
+                                                  w * refr_w)]
+        if spawn == 1:
+            children = children[:1] if has_refl else children[1:]
+        ch = torch.stack([
+            torch.cat([(pt.x, pt.y, pt.z, dr.x, dr.y, dr.z, cw)[c]
+                       .reshape(W, R) for pt, dr, cw in children])
+            for c in range(7)])
+        if spawn == 2:
+            order = torch.sort(ch[6], dim=0, descending=True,
+                               stable=True).indices[:W]
+            ch = torch.gather(ch, 1, order.expand(7, W, R))
+        st = ch[:, :W].contiguous()
+    return out
+
+
+def whitted_work(torch, name, inputs, ro, rd, chunk=None):
+    """Least work of the whitted kernel on camera rays, counted on every
+    level's live path rows (level_rows), `chunk` rays at a time -> (bound
+    over all levels, bound of the primary level alone), each bound_ms's
+    triple. Bytes: rays in and RGB out, the tables once, each texel read
+    once."""
+    from rray_tpu_torch.ops.vec import V3
+
+    mesh = geom = None
+    if "tri_tbl" in inputs:
+        cols = inputs["tri_tbl"].unbind(1)
+        mesh = (cols[:18], cols[18])
+        geom = tuple(c.contiguous() for c in cols[:9])
+    R = ro.x.shape[0]
+    chunk = chunk or R
+    per_level = {}
+    for c0 in range(0, R, chunk):
+        o = V3(*(c[c0:c0 + chunk] for c in (ro.x, ro.y, ro.z)))
+        d = V3(*(c[c0:c0 + chunk] for c in (rd.x, rd.y, rd.z)))
+        for level, (lo, ld) in enumerate(level_rows(torch, inputs, o, d,
+                                                    mesh)):
+            ops, ints, counts = node_work(
+                torch, inputs, lo, ld, inputs["seeds"][level].tolist(), mesh,
+                geom)
+            acc = per_level.setdefault(level, dict(rows=0, ops=0.0, ints=0))
+            acc["rows"] += lo.x.shape[0]
+            acc["ops"] += ops
+            acc["ints"] += ints
+            for k, v in counts.items():
+                acc[k] = acc.get(k, 0) + v
+    for level, acc in per_level.items():
+        print(f"work whitted {name} level {level}: {acc['rows']} live rows, "
+              f"{acc['hits']} hits, quartics {acc['quartics']} primary and "
+              f"{acc['shadow_quartics']} in shadow tests, {acc['octaves']} "
+              f"noise octaves, {acc['texels']} texel reads, {acc['samples']} "
+              f"area samples ({acc['blocked']} shadow segments blocked), "
+              f"{acc['triangle_tests']} triangle tests")
+    texels = sum(acc["texels"] for acc in per_level.values())
+    n_bytes = 4 * (9 * R + inputs["seeds"].numel() + texels + sum(
+        inputs[k].numel() for k in ("prim_tbl", "pat_tbl", "light_tbl",
+                                    "tri_tbl", "tri_boxes") if k in inputs))
+    ops = sum(acc["ops"] for acc in per_level.values())
+    ints = sum(acc["ints"] for acc in per_level.values())
+    return (bound_ms(n_bytes, ops, ints),
+            bound_ms(n_bytes, per_level[0]["ops"], per_level[0]["ints"]))
 
 
 def whitted_phase(torch, name, path, results, aa=1, stride=1):
     """The whitted kernel against its plain version on one scene's camera
-    rays at its size times aa (every `stride`-th ray); with stride 1 also
-    the primary level's tests for the bound (every area-light sample
-    included)."""
+    rays at its size times aa, with the raster width as the main path
+    passes it (every `stride`-th ray, without it); with stride 1 also
+    the least work of every level for the bound."""
     from rray_tpu_torch.config import RenderSettings
-    from rray_tpu_torch.kernels import triangles, whitted
-    from rray_tpu_torch.ops import soa
+    from rray_tpu_torch.kernels import whitted
     from rray_tpu_torch.ops.vec import V3
 
     w, h = size_of(name)
     scene, (ro, rd) = camera_scene(path, torch, aa, (w, h))
     label = f"{w * aa}x{h * aa}"
+    raster = {"width": w * aa}
     if stride > 1:
         ro, rd = (V3(*(c[::stride].contiguous() for c in (v.x, v.y, v.z)))
                   for v in (ro, rd))
         label += f", every {stride}th ray ({ro.x.shape[0]} rays)"
+        raster = {}
     rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
     inputs = whitted.kernel_inputs(scene, RenderSettings())
-    kern = whitted.whitted_compact(*rays, **inputs)
+    kern = whitted.whitted_compact(*rays, **inputs, **raster)
     plain = whitted.whitted_compact_reference(*rays, **inputs)
     torch.cuda.synchronize()
     max_abs = compare_images(torch, kern, plain, f"{name} {label}")
@@ -537,64 +625,64 @@ def whitted_phase(torch, name, path, results, aa=1, stride=1):
           f"{inputs['W']}, {scene.counts[6]} triangles, light levels "
           f"{inputs['light_levels']}, stage e {whitted.needs_ext(scene)}): "
           f"max |kernel - plain| {max_abs:.3e}")
-    entry = dict(rays=rays, inputs=inputs, plain=plain, max_abs=max_abs,
-                 aa=aa, size=(w, h), timed=stride == 1)
+    entry = dict(rays=rays, inputs=inputs, raster=raster, plain=plain,
+                 max_abs=max_abs, aa=aa, size=(w, h), timed=stride == 1)
     results.setdefault("whitted", {})[
         name if stride == 1 else f"{name} aa={aa} subset"] = entry
-    if stride > 1:
-        return
-    if whitted.needs_ext(scene):
-        entry["bound"] = bound_ms(*ext_work(torch, name, inputs, ro, rd))
-        return
-    # Least work, primary level only: every ray tests every analytic
-    # prim; every hit tests every analytic occluder per point light and,
-    # per area-light sample, one occluder when the sample is blocked and
-    # every analytic prim and entered triangle when it is open; every
-    # mesh triangle whose AABB a ray enters before its closest hit.
-    R, P = ro.x.shape[0], len(inputs["kinds"])
-    t_an = soa.analytic_closest(scene, ro, rd)[0]
-    tests_tri, t_hit, geom, mesh = 0, t_an, None, None
-    if scene.counts[6]:
-        cols = inputs["tri_tbl"].unbind(1)
-        T = scene.counts[6]
-        geom = tuple(c[:T].contiguous() for c in cols[:9])
-        mesh = (cols[:18], cols[18])
-        t_mesh = triangles.closest_triangle(*rays, geom, t_init=t_an)[0]
-        t_hit = torch.minimum(t_an, t_mesh)
-        tests_tri = triangle_tests(torch, rays, geom, t_hit)
-    found = torch.isfinite(t_hit)
-    hits = int(found.sum())
-    levels = inputs["light_levels"]
-    n_ops = (R * P * OPS_PRIM + hits * levels.count(0) * P * OPS_OCCLUDE
-             + tests_tri * OPS_TRI)
-    n_int = 0
-    if any(levels):
-        prims, lights = inputs["prim_tbl"].tolist(), \
-            inputs["light_tbl"].tolist()
-        seeds = inputs["seeds"][0].tolist()
-        over = whitted._node(
-            inputs["kinds"], inputs["pat_descrs"], inputs["prim_pat"],
-            inputs["has_refl"], inputs["has_refr"], prims,
-            inputs["pat_tbl"].tolist(), lights, levels, seeds, mesh,
-            V3(ro.x, ro.y, ro.z), V3(rd.x, rd.y, rd.z))[1]
-        over = (over.x[found], over.y[found], over.z[found])
-        blocked = lambda o, dirs, dist: whitted._blocked(
-            inputs["kinds"], prims, mesh, V3(*o), *dirs, dist)
-        for li, level in enumerate(levels):
-            if level == 0:
-                continue
-            samples, n_blocked, tri = area_tests(
-                torch, over, lights[li], level, seeds[li], blocked, geom)
-            n_int += hits * OPS_HASH_BASE + samples * OPS_SAMPLE_INT
-            n_ops += (samples * OPS_SAMPLE_FP
-                      + (samples - n_blocked) * P * OPS_OCCLUDE
-                      + n_blocked * OPS_OCCLUDE + tri * OPS_TRI)
-            print(f"work whitted {name} light {li}: {samples} samples at "
-                  f"{hits} hits, {n_blocked} blocked, {tri} triangle tests")
-    n_bytes = 4 * (9 * R + inputs["seeds"].numel()
-                   + sum(t.numel() for k, t in inputs.items()
-                         if k.endswith("_tbl")))
-    entry["bound"] = bound_ms(n_bytes, n_ops, n_int)
+    if stride == 1:
+        entry["bound"], entry["bound_primary"] = whitted_work(
+            torch, name, inputs, ro, rd)
+
+
+def main_launch_phase(torch, path, results, aa=5, chunk=1920 * 1080):
+    """Config 5's main-path launch at full size: the whitted kernel alone
+    on the 9600x5400 raster (51.84 M rays, with the raster width), its
+    device time (torch.profiler) and call time (CUDA events); the plain
+    version on the same rays `chunk` at a time (its time summed over the
+    calls, and its image held against the kernel's); the least work of
+    all the rays for the bound."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.kernels import whitted
+
+    w, h = size_of("csg")
+    scene, (ro, rd) = camera_scene(path, torch, aa, (w, h))
+    rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
+    inputs = whitted.kernel_inputs(scene, RenderSettings())
+    fn = functools.partial(whitted.whitted_compact, *rays, **inputs,
+                           width=w * aa)
+    call, reps = window_ms(torch, fn)
+    ms = kernel_ms(torch, fn, "whitted_kernel", reps)
+    launch = dict(whitted.last_launch)
+    kern = fn()
+    R = ro.x.shape[0]
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    plain_ms = max_abs = 0.0
+    for c0 in range(0, R, chunk):
+        part = tuple(tuple(c[c0:c0 + chunk] for c in v) for v in rays)
+        start.record()
+        plain = whitted.whitted_compact_reference(*part, **inputs)
+        stop.record()
+        torch.cuda.synchronize()
+        plain_ms += start.elapsed_time(stop)
+        max_abs = max(max_abs, compare_images(
+            torch, tuple(k[c0:c0 + chunk] for k in kern), plain,
+            f"csg {w * aa}x{h * aa} rays {c0}:{c0 + chunk}"))
+    del kern, plain
+    bound, primary = whitted_work(torch, f"csg {w * aa}x{h * aa}", inputs,
+                                  ro, rd, chunk)
+    print(f"parity whitted csg {w * aa}x{h * aa} (the main path's launch, "
+          f"every ray, plain version in {math.ceil(R / chunk)} calls): max "
+          f"|kernel - plain| {max_abs:.3e}")
+    print(f"time whitted_compact csg {w * aa}x{h * aa} aa={aa} (the main "
+          f"path's launch): kernel {ms:.4f} ms on the device ({reps} "
+          f"launches, {R / ms * 1e3:.4g} primary rays/s), call {call:.4f} "
+          f"ms, plain {plain_ms:.1f} ms ({math.ceil(R / chunk)} calls), "
+          f"bound {bound[0]:.5f} ms ({bound[2]}), {launch['blocks_per_sm']} "
+          f"blocks/SM, {launch['smem']} B dynamic shared memory "
+          f"[{card_state()}]")
+    results["whitted main"] = dict(ms=ms, call_ms=call, plain_ms=plain_ms,
+                                   bound=bound, max_abs=max_abs)
 
 
 def area_phase(torch, name, path, results):
@@ -856,7 +944,8 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
                 inputs = whitted.kernel_inputs(scene, settings)
                 t0 = mark("table packing", t0)
                 rgb = whitted.whitted_compact((ro.x, ro.y, ro.z),
-                                              (rd.x, rd.y, rd.z), **inputs)
+                                              (rd.x, rd.y, rd.z), **inputs,
+                                              width=w * aa)
                 t0 = mark("whitted kernel call", t0)
             else:
                 out = integrator.color_at_fast(
@@ -900,11 +989,26 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
           f"device time: {top} [{card_state()}]")
 
 
-def print_ptxas(log):
+def whitted_blocks():
+    """Resident blocks per SM of every whitted instantiation with no
+    dynamic shared memory (the occupancy calculator, so by registers),
+    keyed as print_ptxas names them: whitted_kernel<W, ext, KB>."""
+    from rray_tpu_torch.kernels import whitted
+
+    cases = [(W, False, 0) for W in whitted.WIDTHS]
+    cases += [(1, True, kb) for kb in whitted.SLOT_BUCKETS]
+    cases += [(W, True, 0) for W in whitted.WIDTHS if W > 1]
+    return {f"whitted_kernel<{W}, {int(ext)}, {kb}>":
+            whitted.blocks_per_sm(W, ext, kb, 0) for W, ext, kb in cases}
+
+
+def print_ptxas(log, blocks=None):
     """Registers, stack and spills of every kernel instantiation, from
-    ptxas -v (stage e: the whitted kernels with ext = 1)."""
+    ptxas -v (stage e: the whitted kernels with ext = 1, then the CSG
+    slot bucket), with `blocks` per SM beside the register line."""
     import re
 
+    blocks = blocks or {}
     props = None
     for line in log.splitlines():
         m = re.search(r"Function properties for (\S+)", line)
@@ -920,7 +1024,10 @@ def print_ptxas(log):
             args = re.findall(r"L[ib](\d+)E", m.group(2))
             name += "<" + ", ".join(args) + ">"
         if "stack frame" in line or "registers" in line:
-            print(f"  ptxas {name}: {line.split(':')[-1].strip()}")
+            extra = (f", {blocks[name]} blocks/SM (occupancy, no dynamic "
+                     f"shared memory)" if "registers" in line
+                     and name in blocks else "")
+            print(f"  ptxas {name}: {line.split(':')[-1].strip()}{extra}")
 
 
 def main() -> int:
@@ -948,7 +1055,7 @@ def main() -> int:
     info = build.last_build
     print(f"build: {info['seconds']:.3f} s, cache hit: {info['cache_hit']}, "
           f"{os.path.relpath(info['path'], ROOT)}")
-    print_ptxas(info["log"])
+    print_ptxas(info["log"], whitted_blocks())
 
     tmp = tempfile.TemporaryDirectory()
     scene_paths = {name: os.path.join(ROOT, path) for name, path in EXAMPLES}
@@ -969,6 +1076,7 @@ def main() -> int:
                      ("csg5r", 1)):
         whitted_phase(torch, name, scene_paths[name], results, aa)
     whitted_phase(torch, "csg", scene_paths["csg"], results, 5, CSG_STRIDE)
+    main_launch_phase(torch, scene_paths["csg"], results)
     for name in ("mesh9", "mesh4b"):
         triangle_phase(torch, name, scene_paths[name], results)
     area_phase(torch, "area21", scene_paths["area21"], results)
@@ -1012,7 +1120,7 @@ def main() -> int:
         if not res["timed"]:
             continue
         fn = functools.partial(whitted.whitted_compact, *res["rays"],
-                               **res["inputs"])
+                               **res["inputs"], **res["raster"])
         plain_fn = functools.partial(whitted.whitted_compact_reference,
                                      *res["rays"], **res["inputs"])
         res["ms"], res["call_ms"], res["plain_ms"] = timed_turns(
@@ -1022,7 +1130,11 @@ def main() -> int:
               f"{res['ms']:.4f} ms/frame ({w * h / res['ms'] * 1e3:.4g} "
               f"primary rays/s), call {res['call_ms']:.4f} ms, plain "
               f"{res['plain_ms']:.4f} ms/frame, bound {res['bound'][0]:.5f} "
-              f"ms ({res['bound'][2]}) [{card}]")
+              f"ms over all levels ({res['bound'][2]}), "
+              f"{res['bound_primary'][0]:.5f} ms for the primary level "
+              f"alone, {whitted.last_launch['blocks_per_sm']} blocks/SM, "
+              f"{whitted.last_launch['smem']} B dynamic shared memory "
+              f"[{card}]")
     device_names = {"closest_triangle": "closest_kernel",
                     "any_triangle": "any_kernel",
                     "bvh_closest_triangle": "bvh_kernel",
@@ -1043,9 +1155,10 @@ def main() -> int:
                "bvh_closest_triangle": ("bvh.cu", "bvh.py:558"),
                "area_shadow_fraction": ("area.cu", "analytic.py:144")}
     for kname, (src, tpu) in sources.items():
-        if kname == "whitted_compact":
-            res = results["whitted"]["glass"]
-            err = max(r["max_abs"] for r in results["whitted"].values())
+        if kname == "whitted_compact":  # config 5's main-path launch
+            res = results["whitted main"]
+            err = max([r["max_abs"] for r in results["whitted"].values()]
+                      + [res["max_abs"]])
         else:
             res = results[kname][0]
             err = max(r["max_abs"] for r in results[kname])

@@ -2,7 +2,7 @@
 
 The kernels are compiled by `nvcc` into one shared library with a plain
 C interface, loaded with ctypes (no PyTorch headers). Each unit (a .cu
-file and its macro definitions; whitted.cu makes four) compiles to an
+file and its macro definitions; whitted.cu makes five) compiles to an
 object in its own `nvcc` process, all started together, and one more
 `nvcc` links them.
 The library lands in `build/rray_tpu_torch/` at the repository root,
@@ -27,11 +27,10 @@ import time
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_HERE, "csrc")
 # (source, macro definitions): whitted.cu's stage-e kernels, the bulk of
-# the build, compile in three more units by pairs of widths.
-_UNITS = (("whitted.cu", ()), ("whitted.cu", ("-DRRAY_EXT_W=1",)),
-          ("whitted.cu", ("-DRRAY_EXT_W=4",)),
-          ("whitted.cu", ("-DRRAY_EXT_W=16",)), ("triangles.cu", ()),
-          ("bvh.cu", ()), ("area.cu", ()))
+# the build, compile in four more units (csrc/whitted.cu RRAY_EXT_UNIT).
+_UNITS = (("whitted.cu", ()),
+          *(("whitted.cu", (f"-DRRAY_EXT_UNIT={u}",)) for u in (1, 2, 3, 4)),
+          ("triangles.cu", ()), ("bvh.cu", ()), ("area.cu", ()))
 _SOURCES = ("whitted.cu", "triangles.cu", "bvh.cu", "area.cu",
             "vec_device.cuh", "mesh_device.cuh", "whitted_device.cuh",
             "jitter_device.cuh", "quartic_device.cuh", "noise_device.cuh")
@@ -115,9 +114,11 @@ def load_library():
                           seconds=time.perf_counter() - t0)
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
         lib.whitted_compact_launch.restype = i32
+        ints = ctypes.POINTER(i32)
         lib.whitted_compact_launch.argtypes = (
-            [ptr] * 9 + [ptr, i32, i32, ptr, i32, ptr, i32, ptr, i32, ptr,
-                         ptr, i32, ptr, i32, ptr, i32] + [i32] * 6 + [ptr])
+            [ptr] * 9 + [ptr, ints, ptr, ptr] + [i32] * 4 + [ints, ptr])
+        lib.whitted_blocks_per_sm.restype = i32
+        lib.whitted_blocks_per_sm.argtypes = [i32] * 4
         lib.closest_triangle_launch.restype = i32
         lib.closest_triangle_launch.argtypes = (
             [ptr] * 7 + [ptr, i32, i32, ptr] + [i32] * 4 + [ptr, ptr, i32,

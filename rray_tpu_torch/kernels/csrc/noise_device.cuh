@@ -86,9 +86,9 @@ RRAY_DEVICE float single_perlin3(float x, float y, float z) {
   return lerp_f(yf0, yf1, zs) * PERLIN_SCALE;
 }
 
-// fBm normalized by the total amplitude (noise.rs:50-63). Not inlined:
-// every pattern level of a stage-e kernel calls it up to four times.
-static RRAY_NOINLINE float octave_perlin(float x, float y, float z, int octaves,
+// fBm normalized by the total amplitude (noise.rs:50-63). Inlined: the
+// whitted kernel's pattern program calls it from two places.
+RRAY_DEVICE float octave_perlin(float x, float y, float z, int octaves,
                                 float persistence) {
   float total = 0.0f, frequency = 1.0f, amplitude = 1.0f, max_value = 0.0f;
   for (int o = 0; o < octaves; ++o) {

@@ -57,18 +57,21 @@ RRAY_DEVICE float largest_real_cubic_root(float b, float c, float d) {
   const float p = c - b * b / 3.0f;
   const float q = 2.0f * b * b * b / 27.0f - b * c / 3.0f + d;
   const float disc = 4.0f * p * p * p + 27.0f * q * q;
-  const bool three_real = disc <= 0.0f;
-  const float p_neg = minp(p, -Q_TINY);
-  const float m = 2.0f * sqrtf(-p_neg / 3.0f);
-  const float arg = clampp(3.0f * q / (p_neg * m), -1.0f, 1.0f);
-  const float theta = acos_r(arg) / 3.0f;
-  const float w_tri = m * cos_r(theta);
+  // The plain version evaluates both forms and selects one; only the
+  // selected one runs here (the same value: neither has side effects),
+  // which skips a double acos and cos, or two double pows.
+  if (disc <= 0.0f) {  // three real roots
+    const float p_neg = minp(p, -Q_TINY);
+    const float m = 2.0f * sqrtf(-p_neg / 3.0f);
+    const float arg = clampp(3.0f * q / (p_neg * m), -1.0f, 1.0f);
+    const float theta = acos_r(arg) / 3.0f;
+    return m * cos_r(theta) - shift;
+  }
   const float disc_pos = maxp(disc / 108.0f, 0.0f);
   const float sq = sqrtf(disc_pos);
   const float u3 = -q / 2.0f + sq;
   const float v3 = -q / 2.0f - sq;
-  const float w_card = cbrt_r(u3) + cbrt_r(v3);
-  return (three_real ? w_tri : w_card) - shift;
+  return (cbrt_r(u3) + cbrt_r(v3)) - shift;
 }
 
 // Roots of x^2 + b x + c with a validity flag (stable pairing).
@@ -82,12 +85,21 @@ RRAY_DEVICE void quadratic(float b, float c, float* r1, float* r2, bool* ok) {
   *r2 = small ? 0.5f * s : safe_div(c, qq);
 }
 
+// The four roots of a quartic, and a bit per valid root.
+struct Roots4 {
+  float r[4];
+  unsigned valid;
+};
+
 // All real roots of c4 x^4 + c3 x^3 + c2 x^2 + c1 x + c0 = 0 (invalid
-// slots hold junk). Not inlined: a stage-e kernel calls it from five
+// slots hold junk). Not inlined: a stage-e kernel reaches it from several
 // places, and each inlined copy of the double acos, cos and pow costs
-// nvcc seconds.
-static RRAY_NOINLINE void solve_quartic(float c4, float c3, float c2, float c1,
-                               float c0, float* roots, bool* valids) {
+// nvcc seconds; it takes and returns values only, so a call passes no
+// address of the caller's state.
+static RRAY_NOINLINE Roots4 solve_quartic(float c4, float c3, float c2,
+                                          float c1, float c0) {
+  float roots[4];
+  bool valids[4];
   const float inv4 = safe_div(1.0f, c4);
   const float b = c3 * inv4, c = c2 * inv4, d = c1 * inv4, e = c0 * inv4;
   const float b2 = b * b;
@@ -115,6 +127,9 @@ static RRAY_NOINLINE void solve_quartic(float c4, float c3, float c2, float c1,
   roots[3] = (biquad ? -sz2 : r2b) - shift;
   valids[0] = valids[1] = biquad ? bq1ok : ok1;
   valids[2] = valids[3] = biquad ? bq2ok : ok2;
+  Roots4 out;
+  out.valid = 0;
+#pragma unroll
   for (int i = 0; i < 4; ++i) {
     float x = roots[i];
     for (int it = 0; it < 3; ++it) {
@@ -123,8 +138,10 @@ static RRAY_NOINLINE void solve_quartic(float c4, float c3, float c2, float c1,
       const float step = clampp(safe_div(f, df), -1.0f, 1.0f);
       x = x - (valids[i] ? step : 0.0f);
     }
-    roots[i] = x;
+    out.r[i] = x;
+    out.valid |= valids[i] ? 1u << i : 0u;
   }
+  return out;
 }
 
 // Hit slots of the torus (major radius 1 in the xy plane, minor radius
@@ -160,9 +177,12 @@ RRAY_DEVICE int torus_slots(V3 o, V3 d, float minor_r, float* t, bool* ok) {
   const float a2 = 2.0f * sum_d_sq * e + 4.0f * f * f - 4.0f * (d.x * d.x + d.y * d.y);
   const float a1 = 4.0f * e * f - 8.0f * (o.x * d.x + o.y * d.y);
   const float a0 = e * e - 4.0f * (o.x * o.x + o.y * o.y);
-  bool valid[4];
-  solve_quartic(a4, a3, a2, a1, a0, t, valid);
-  for (int k = 0; k < 4; ++k) ok[k] = valid[k] && (t[k] > 0.0f);
+  const Roots4 q = solve_quartic(a4, a3, a2, a1, a0);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+    t[k] = q.r[k];
+    ok[k] = ((q.valid >> k) & 1u) && (t[k] > 0.0f);
+  }
   return 4;
 }
 

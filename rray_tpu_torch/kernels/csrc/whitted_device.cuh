@@ -1,6 +1,6 @@
 // Per-ray device code of the compact Whitted kernel (see whitted.cu).
 //
-// One call of trace_ray<W, kExt> evaluates one primary ray's whole
+// One call of trace_ray<W, kExt, KB> evaluates one primary ray's whole
 // Whitted tree: W path rows per level, 2W children, stable top-W by
 // weight. The arithmetic is a transcript of
 // rray_tpu/kernels/whitted.py::_node_row and _kernel, written in the same
@@ -10,6 +10,15 @@
 // bit for bit except where rsqrtf/powf differ by an ulp. kExt compiles in
 // stage e (tori, CSG, noise, perturbed and image patterns); scenes
 // without it run the kExt = false instantiation, which holds none of it.
+// KB is the compile-time bucket of the CSG member slots (8: in registers;
+// 80: the general form; 0: no CSG).
+//
+// Nothing here takes the address of a per-thread aggregate across a call:
+// the scene is a pointer to the kernel's __grid_constant__ descriptor
+// (offsets and counts) and a pointer to the staged tables, every function
+// is inlined but the torus quartic (values in, values out), pattern trees
+// run as flat programs in one loop, and fixed-size slot arrays are indexed
+// by unrolled constants, so ptxas keeps the per-ray state in registers.
 //
 // Like vec_device.cuh and mesh_device.cuh, the header also compiles as
 // host C++ (tests/test_torch_whitted_cuh.py).
@@ -29,39 +38,98 @@ constexpr int T_COLS = 19;    // mesh row: p1 e1 e2 n1 n2 n3, group id
 constexpr int A_COLS = 16;    // occluder row: affine 0-11, extras 12-14
 constexpr int MESH_CHUNK = 24;
 constexpr int MAX_PATTERN_DEPTH = 8;
+constexpr int MAX_FRAMES = MAX_PATTERN_DEPTH - 1;  // pattern stack frames
+constexpr int FRAME_WORDS = 6;                     // point, then colour
 constexpr float EPS_OFF = 1e-3f;  // f32 over/under offset
 constexpr float TOL = 1e-4f;      // f32 n1/n2 hit-match tolerance
-constexpr int MAX_MSLOTS = 80;    // CSG member slots: 16 prims x 5
+constexpr int MAX_SLOTS = 5;      // hit slots of one prim (cone)
 constexpr float PI_F = 3.14159265358979323846f;
 constexpr float TWO_PI_F = 6.28318530717958647692f;
 
 enum Kind { SPHERE = 0, PLANE = 1, CUBE = 2, CYLINDER = 3, CONE = 4,
             TORUS = 5 };
+// Pattern program ops: a node's PType code enters it; the rest are
+// control ops (kernels/whitted.py pattern_program emits them).
 enum PType { SOLID = 0, STRIPE = 1, GRADIENT = 2, RING = 3, CHECKER = 4,
-             BLEND = 5, NOISE = 6, PERTURBED = 7, IMAGE = 8 };
+             BLEND = 5, NOISE = 6, PERTURBED = 7, IMAGE = 8, OP_JUMP = 9,
+             OP_MID = 10, OP_COMBINE = 11, OP_POPSCALE = 12, OP_END = 13 };
 enum CsgOp { CSG_UNION = 0, CSG_INTERSECTION = 1, CSG_DIFFERENCE = 2 };
 
-struct SceneView {
-  const float* prims;   // [P + G, P_COLS]: analytic prims, then groups
-  const float* pats;    // [N, PAT_COLS]
-  const float* lights;  // [L, L_COLS]
-  const int* kinds;     // [P] Kind
-  const int* roots;     // [P + G] pattern root row of each prim row
-  const int* ptype;     // [N] PType
-  const int* pa;        // [N] child a row (-1: none)
-  const int* pb;        // [N] child b row
-  const int* levels;    // [L] area-light level (0: point light)
-  const int* seeds;     // [depth + 1, L] jitter seed per level and light
-  const float* tris;    // [T, T_COLS] mesh rows (T = 0: no mesh)
-  const float* tboxes;  // [6, n_chunks + 1] chunk boxes, then the whole
-  // Stage e only (kExt):
-  const int* pmeta;     // [N, 4] noise/perturbed: octaves; image: H, W,
-                        // texel-table offset, format (0 packed, 1 rgb)
-  const int* member;    // [P] CSG operand flag
-  const int* csg_ops;   // [C] CsgOp, innermost CSG first
-  const int* csg_side;  // [C, P] 0: not under the CSG, 1 left, 2 right
-  const float* texels;  // flat texel table (global memory)
-  int P, L, T, n_chunks, C;
+// Scene descriptor words, in kernels/whitted.py DESC_FIELDS order: word
+// offsets of the tables in the staged block, then counts and flags.
+enum Desc {
+  D_PRIMS, D_PATS, D_LIGHTS, D_KINDS, D_ROOTS, D_PROG, D_LEVELS, D_SEEDS,
+  D_PMETA, D_MEMBER, D_CSG_OPS, D_CSG_SIDE, D_TRIS, D_TBOXES,
+  D_P, D_L, D_T, D_CHUNKS, D_C, D_DEPTH, D_REFL, D_REFR, D_WIDTH, D_R,
+  D_WORDS, D_COUNT
+};
+
+// What the kernel takes as its __grid_constant__ parameter: uniform over
+// the launch, read from the constant bank where it is used.
+struct SceneDesc {
+  int w[D_COUNT];
+  const float* texels;  // flat texel table (global memory), or null
+};
+
+// The scene as the per-ray code sees it: the descriptor and the staged
+// tables (shared memory on the card; float rows, then int tables).
+// Tables: prims [P + G, P_COLS] (analytic prims, then mesh groups), pats
+// [N, PAT_COLS], lights [L, L_COLS]; kinds [P], roots [P + G] (program
+// start of each prim row's pattern), prog [n, 4] (op, row, target, aux),
+// levels [L] (0: point light), seeds [depth + 1, L]; stage e: pmeta [N, 4]
+// (noise/perturbed: octaves; image: H, W, texel offset, format), member
+// [P], csg_ops [C], csg_side [C, P] (0 not under the CSG, 1 left, 2
+// right), innermost CSG first; the mesh: tris [T, T_COLS], tboxes [6,
+// n_chunks + 1].
+struct Scene {
+  const SceneDesc* d;
+  const float* w;
+
+  RRAY_DEVICE int at(int k) const { return d->w[k]; }
+  RRAY_DEVICE const int* ints(int table) const {
+    return reinterpret_cast<const int*>(w) + d->w[table];
+  }
+  RRAY_DEVICE int P() const { return d->w[D_P]; }
+  RRAY_DEVICE int L() const { return d->w[D_L]; }
+  RRAY_DEVICE int T() const { return d->w[D_T]; }
+  RRAY_DEVICE int C() const { return d->w[D_C]; }
+  RRAY_DEVICE const float* prim(int i) const {
+    return w + d->w[D_PRIMS] + i * P_COLS;
+  }
+  RRAY_DEVICE const float* pat(int row) const {
+    return w + d->w[D_PATS] + row * PAT_COLS;
+  }
+  RRAY_DEVICE const float* light(int li) const {
+    return w + d->w[D_LIGHTS] + li * L_COLS;
+  }
+  RRAY_DEVICE int kind(int i) const { return ints(D_KINDS)[i]; }
+  RRAY_DEVICE int root(int i) const { return ints(D_ROOTS)[i]; }
+  RRAY_DEVICE const int* ins(int pc) const { return ints(D_PROG) + 4 * pc; }
+  RRAY_DEVICE int level(int li) const { return ints(D_LEVELS)[li]; }
+  RRAY_DEVICE int seed(int lvl, int li) const {
+    return ints(D_SEEDS)[lvl * L() + li];
+  }
+  RRAY_DEVICE const int* pmeta(int row) const {
+    return ints(D_PMETA) + 4 * row;
+  }
+  RRAY_DEVICE bool member(int i) const { return ints(D_MEMBER)[i] != 0; }
+  RRAY_DEVICE int csg_op(int ci) const { return ints(D_CSG_OPS)[ci]; }
+  RRAY_DEVICE const int* csg_side(int ci) const {
+    return ints(D_CSG_SIDE) + ci * P();
+  }
+  RRAY_DEVICE const float* tris() const { return w + d->w[D_TRIS]; }
+  RRAY_DEVICE const float* tboxes() const { return w + d->w[D_TBOXES]; }
+};
+
+// A thread's pattern stack: frame f's word c at p[(f * FRAME_WORDS + c) *
+// stride] (on the card a per-thread column of shared memory, stride the
+// block size, so a warp's accesses hit 32 banks).
+struct Stack {
+  float* p;
+  int stride;
+  RRAY_DEVICE float& at(int f, int c) const {
+    return p[(f * FRAME_WORDS + c) * stride];
+  }
 };
 
 RRAY_DEVICE V3 affine_pt(const float* p, V3 v) {
@@ -81,6 +149,8 @@ RRAY_DEVICE V3 nmat_vec(const float* p, V3 v) {
 }
 
 // ---- hit slots (rray_tpu ops/soa.py forms, quirks included) -------------
+// Each form fills its first n slots; callers clear all MAX_SLOTS first and
+// loop over all of them, so the arrays are indexed by constants.
 
 RRAY_DEVICE int sphere_slots(V3 o, V3 d, float* t, bool* ok) {
   float a = dot(d, d);
@@ -213,10 +283,16 @@ RRAY_DEVICE int cone_slots(V3 o, V3 d, const float* ex, float* t,
   return 5;
 }
 
-// Hit slots of a prim of kind k (extras at ex) on the object-space ray;
-// at most 5.
+// Hit slots of a prim of kind k (extras at ex) on the object-space ray:
+// returns the kind's count, and all MAX_SLOTS are set, those past the
+// count cleared.
 RRAY_DEVICE int prim_slots(int k, const float* ex, V3 o, V3 d, float* t,
-                                  bool* ok) {
+                           bool* ok) {
+#pragma unroll
+  for (int s = 0; s < MAX_SLOTS; ++s) {
+    t[s] = 0.0f;
+    ok[s] = false;
+  }
   switch (k) {
     case SPHERE: return sphere_slots(o, d, t, ok);
     case PLANE: return plane_slots(o, d, t, ok);
@@ -254,11 +330,13 @@ RRAY_DEVICE bool occludes(int k, const float* p, const float* ex, V3 over,
   V3 d = affine_vec(p, dir);
   if (k == SPHERE) return sphere_occludes(o, d, dist);
   if (k == PLANE) return plane_occludes(o, d, dist);
-  float t[5];
-  bool ok[5];
-  int n = prim_slots(k, ex, o, d, t, ok);
+  float t[MAX_SLOTS];
+  bool ok[MAX_SLOTS];
+  prim_slots(k, ex, o, d, t, ok);
   bool hit = false;
-  for (int s = 0; s < n; ++s) hit = hit || (ok[s] && t[s] >= 0.0f && t[s] < dist);
+#pragma unroll
+  for (int s = 0; s < MAX_SLOTS; ++s)
+    hit = hit || (ok[s] && t[s] >= 0.0f && t[s] < dist);
   return hit;
 }
 
@@ -329,48 +407,25 @@ RRAY_DEVICE V3 local_normal(int k, const float* p, V3 lp) {
 
 RRAY_DEVICE bool even(float v) { return fmodf(v, 2.0f) == 0.0f; }
 
-// A cheap combinator node (row g, pattern-space point p) of its
-// children's colors a and b.
-RRAY_DEVICE V3 combine(int type, const float* g, V3 p, V3 a, V3 b) {
+// A stripe, ring or checker node at pattern-space point p: does it show
+// child a?
+RRAY_DEVICE bool select_a(int type, V3 p) {
+  if (type == STRIPE) return even(floorf(p.x));
+  if (type == RING) return even(floorf(sqrtf(p.x * p.x + p.z * p.z)));
+  return even(floorf(p.x) + floorf(p.y) + floorf(p.z));  // CHECKER
+}
+
+// A gradient or blend node (row g, point p) of its children's colours.
+RRAY_DEVICE V3 mix(int type, const float* g, V3 p, V3 a, V3 b) {
   if (type == GRADIENT) {
     float frac = p.x - floorf(p.x);
     return add(a, scale(sub(b, a), frac));
   }
-  if (type == BLEND) {
-    float sc = g[15];
-    return add(scale(a, 1.0f - sc), scale(b, sc));
-  }
-  bool cond;
-  if (type == STRIPE) {
-    cond = even(floorf(p.x));
-  } else if (type == RING) {
-    cond = even(floorf(sqrtf(p.x * p.x + p.z * p.z)));
-  } else {  // CHECKER
-    cond = even(floorf(p.x) + floorf(p.y) + floorf(p.z));
-  }
-  return cond ? a : b;
+  float sc = g[15];  // BLEND
+  return add(scale(a, 1.0f - sc), scale(b, sc));
 }
 
-// Cheap pattern tree at pattern-space points. D bounds the recursion;
-// the wrapper rejects trees deeper than MAX_PATTERN_DEPTH. (The D == 0
-// end is an `if constexpr`, not an explicit specialization: that would
-// be a non-inline definition in every unit that includes this header.)
-template <int D>
-RRAY_NOINLINE V3 eval_pattern(const SceneView& s, int node, V3 pts) {
-  if constexpr (D == 0) {
-    return v3(0.0f, 0.0f, 0.0f);  // unreachable: depth checked by the wrapper
-  } else {
-    const float* g = s.pats + node * PAT_COLS;
-    int type = s.ptype[node];
-    if (type == SOLID) return v3(g[12], g[13], g[14]);
-    V3 p = affine_pt(g, pts);
-    V3 a = eval_pattern<D - 1>(s, s.pa[node], p);
-    V3 b = eval_pattern<D - 1>(s, s.pb[node], p);
-    return combine(type, g, p, a, b);
-  }
-}
-
-// ---- stage e: uv mappings, texels, noise patterns -------------------------
+// ---- stage e: uv mappings, texels ------------------------------------------
 
 RRAY_DEVICE int imin(int a, int b) { return a < b ? a : b; }
 
@@ -431,7 +486,7 @@ RRAY_DEVICE void uv_kind(int k, const float* pw, V3 q, float* u, float* v) {
 // The texel an image leaf (meta: H, W, table offset, format) shows at
 // (u, v): clamp, scale, truncate, flip v (pattern.rs:209-213,
 // texture.rs:32-54), then one read from the flat texel table.
-RRAY_DEVICE V3 texel(const SceneView& s, const int* meta, float u, float v) {
+RRAY_DEVICE V3 texel(const float* texels, const int* meta, float u, float v) {
   const int h = meta[0], w = meta[1];
   u = clampp(u, 0.0f, 1.0f);
   v = clampp(v, 0.0f, 1.0f);
@@ -439,59 +494,113 @@ RRAY_DEVICE V3 texel(const SceneView& s, const int* meta, float u, float v) {
   const int yi = h - 1 - imin(f2i_sat(v * (float)h), h - 1);
   const int flat = yi * w + xi;
   if (meta[3] == 0) {  // packed RGB8, exact in float
-    const int px = (int)s.texels[meta[2] + flat];
+    const int px = (int)texels[meta[2] + flat];
     const float k = (float)(1.0 / 255.0);
     return v3((float)((px >> 16) & 0xFF) * k, (float)((px >> 8) & 0xFF) * k,
               (float)(px & 0xFF) * k);
   }
-  const float* t = s.texels + meta[2] + 3 * flat;
+  const float* t = texels + meta[2] + 3 * flat;
   return v3(t[0], t[1], t[2]);
 }
 
-// Any pattern tree the kernel takes, at pattern-space points; an image
-// leaf maps its points to uv on the winner's shape (kind k, row pw).
-template <int D>
-RRAY_NOINLINE V3 eval_pattern_ext(const SceneView& s, int node, V3 pts, int k,
-                                  const float* pw) {
-  if constexpr (D == 0) {
-    return v3(0.0f, 0.0f, 0.0f);  // unreachable: depth checked by the wrapper
-  } else {
-    const float* g = s.pats + node * PAT_COLS;
-    const int* meta = s.pmeta + 4 * node;
-    int type = s.ptype[node];
-    if (type == SOLID) return v3(g[12], g[13], g[14]);
-    V3 p = affine_pt(g, pts);
-    if (type == IMAGE) {
-      float u, v;
-      uv_kind(k, pw, p, &u, &v);
-      return texel(s, meta, u, v);
+// ---- pattern programs ------------------------------------------------------
+
+// One pattern tree, flattened by the host into a program (kernels/
+// whitted.py pattern_program), at pattern-space point `pts` from
+// instruction `pc`; an image leaf maps its point to uv on the winner's
+// shape (kind k, row pw). Ops, each on `q`, the input point of the node
+// being entered, and `c`, the last colour:
+//   SOLID, IMAGE (row)        leaf: c = its colour
+//   STRIPE/RING/CHECKER (row, b)  q = p = the node's point; go on to
+//                             child a's code, or to b when the node shows
+//                             child b (the other child is skipped: it
+//                             has no effect on the value)
+//   NOISE (row, b)            the same, picking by the noise's sign, and
+//                             pushes the factor that POPSCALE applies
+//   PERTURBED (row)           q = p + the noise offsets; child a follows
+//   GRADIENT/BLEND (row)      pushes p; child a follows; MID keeps c and
+//                             restores q = p for child b; COMBINE (row,
+//                             aux = type) pops and mixes
+//   JUMP (target)             skips the branch not taken
+//   END                       c is the tree's value
+template <bool kExt>
+RRAY_DEVICE V3 eval_program(const Scene& s, Stack stk, int pc, V3 q, int k,
+                            const float* pw) {
+  V3 c = v3(0.0f, 0.0f, 0.0f);
+  int sp = 0;
+  for (;;) {
+    const int* ins = s.ins(pc);
+    const int op = ins[0];
+    if (op == OP_END) break;
+    ++pc;
+    if (op == SOLID) {
+      const float* g = s.pat(ins[1]);
+      c = v3(g[12], g[13], g[14]);
+    } else if (op == STRIPE || op == RING || op == CHECKER) {
+      q = affine_pt(s.pat(ins[1]), q);
+      if (!select_a(op, q)) pc = ins[2];
+    } else if (op == GRADIENT || op == BLEND) {
+      q = affine_pt(s.pat(ins[1]), q);
+      stk.at(sp, 0) = q.x;
+      stk.at(sp, 1) = q.y;
+      stk.at(sp, 2) = q.z;
+      ++sp;
+    } else if (op == OP_MID) {
+      stk.at(sp - 1, 3) = c.x;
+      stk.at(sp - 1, 4) = c.y;
+      stk.at(sp - 1, 5) = c.z;
+      q = v3(stk.at(sp - 1, 0), stk.at(sp - 1, 1), stk.at(sp - 1, 2));
+    } else if (op == OP_COMBINE) {
+      --sp;
+      const V3 p = v3(stk.at(sp, 0), stk.at(sp, 1), stk.at(sp, 2));
+      const V3 a = v3(stk.at(sp, 3), stk.at(sp, 4), stk.at(sp, 5));
+      c = mix(ins[3], s.pat(ins[1]), p, a, c);
+    } else if (op == OP_JUMP) {
+      pc = ins[2];
+    } else if (kExt) {
+      const float* g = s.pat(ins[1]);
+      if (op == IMAGE) {
+        const V3 p = affine_pt(g, q);
+        float u, v;
+        uv_kind(k, pw, p, &u, &v);
+        c = texel(s.d->texels, s.pmeta(ins[1]), u, v);
+      } else if (op == PERTURBED) {
+        const V3 p = affine_pt(g, q);
+        const float sc = g[15], per = g[16];
+        const int octaves = s.pmeta(ins[1])[0];
+        const float nx = octave_perlin(p.x, p.y, p.z, octaves, per) * sc;
+        const float ny = octave_perlin(p.x, p.y, p.z + 1.0f, octaves, per) * sc;
+        const float nz = octave_perlin(p.x, p.y, p.z + 2.0f, octaves, per) * sc;
+        q = v3(p.x + nx, p.y + ny, p.z + nz);
+      } else if (op == NOISE) {
+        q = affine_pt(g, q);
+        const float n =
+            octave_perlin(q.x, q.y, q.z, s.pmeta(ins[1])[0], g[16]) * g[15];
+        const bool neg = n <= 0.0f;
+        stk.at(sp, 0) = neg ? -n : n;
+        ++sp;
+        if (!neg) pc = ins[2];
+      } else if (op == OP_POPSCALE) {
+        --sp;
+        c = scale(c, stk.at(sp, 0));
+      }
     }
-    if (type == PERTURBED) {
-      const float sc = g[15], per = g[16];
-      const float nx = octave_perlin(p.x, p.y, p.z, meta[0], per) * sc;
-      const float ny = octave_perlin(p.x, p.y, p.z + 1.0f, meta[0], per) * sc;
-      const float nz = octave_perlin(p.x, p.y, p.z + 2.0f, meta[0], per) * sc;
-      return eval_pattern_ext<D - 1>(s, s.pa[node],
-                                     v3(p.x + nx, p.y + ny, p.z + nz), k, pw);
-    }
-    V3 a = eval_pattern_ext<D - 1>(s, s.pa[node], p, k, pw);
-    V3 b = eval_pattern_ext<D - 1>(s, s.pb[node], p, k, pw);
-    if (type == NOISE) {
-      const float n = octave_perlin(p.x, p.y, p.z, meta[0], g[16]) * g[15];
-      return n <= 0.0f ? scale(a, -n) : scale(b, n);
-    }
-    return combine(type, g, p, a, b);
   }
+  return c;
 }
 
 // ---- stage e: tori and CSG ------------------------------------------------
 
 // Hit slots of prim i (row p) on the object-space ray, tori included
-// under kExt; at most 5.
+// under kExt: returns the kind's count; all MAX_SLOTS are set.
 template <bool kExt>
 RRAY_DEVICE int slots_of(int k, const float* p, V3 o, V3 d, float* t,
                          bool* ok) {
-  if (kExt && k == TORUS) return torus_slots(o, d, p[31], t, ok);
+  if (kExt && k == TORUS) {
+    t[4] = 0.0f;
+    ok[4] = false;
+    return torus_slots(o, d, p[31], t, ok);
+  }
   return prim_slots(k, p + 21, o, d, t, ok);
 }
 
@@ -508,40 +617,73 @@ RRAY_DEVICE V3 local_normal_of(int k, const float* p, V3 lp) {
 }
 
 // Bit set over the member slots of one ray.
+template <int KB>
 struct SlotBits {
-  uint64_t w[2];
+  uint64_t w[(KB + 63) / 64];
   RRAY_DEVICE bool get(int i) const { return (w[i >> 6] >> (i & 63)) & 1u; }
   RRAY_DEVICE void set(int i, bool b) {
     const uint64_t m = (uint64_t)1 << (i & 63);
     w[i >> 6] = b ? (w[i >> 6] | m) : (w[i >> 6] & ~m);
   }
+  RRAY_DEVICE void clear() {
+    for (int k = 0; k < (KB + 63) / 64; ++k) w[k] = 0;
+  }
+  RRAY_DEVICE bool any() const {
+    uint64_t x = 0;
+    for (int k = 0; k < (KB + 63) / 64; ++k) x |= w[k];
+    return x != 0;
+  }
 };
 
-// The CSG member slots of one ray, in static (prim, slot) order.
+// The CSG member slots of one ray, in static (prim, slot) order, K of at
+// most KB. With KB <= 8 every loop over them is unrolled, so the arrays
+// stay in registers; the 80-slot form indexes them at run time.
+template <int KB>
 struct MemberSlots {
-  float t[MAX_MSLOTS];
-  uint8_t pid[MAX_MSLOTS];
-  SlotBits valid;
+  float t[KB];
+  int pid[KB];
+  SlotBits<KB> valid;
   int K;
+
+  // Appends slot (t, prim i, valid) at position K.
+  RRAY_DEVICE void push(float tv, int i, bool ok) {
+    if constexpr (KB <= 8) {
+#pragma unroll
+      for (int s = 0; s < KB; ++s) {
+        if (s == K) {
+          t[s] = tv;
+          pid[s] = i;
+        }
+      }
+    } else {
+      t[K] = tv;
+      pid[K] = i;
+    }
+    valid.set(K, ok);
+    ++K;
+  }
 };
 
 // The member slots on the world-space ray (o, d).
-static RRAY_NOINLINE void member_slots(const SceneView& s, V3 o, V3 d, MemberSlots* m) {
-  float t[5];
-  bool ok[5];
+template <int KB>
+RRAY_DEVICE void member_slots(const Scene& s, V3 o, V3 d, MemberSlots<KB>* m) {
+  float t[MAX_SLOTS];
+  bool ok[MAX_SLOTS];
   m->K = 0;
-  m->valid.w[0] = m->valid.w[1] = 0;
-  for (int i = 0; i < s.P; ++i) {
-    if (!s.member[i]) continue;
-    const float* p = s.prims + i * P_COLS;
-    const int n = slots_of<true>(s.kinds[i], p, affine_pt(p, o),
+  m->valid.clear();
+#pragma unroll
+  for (int k = 0; k < KB; ++k) {
+    m->t[k] = 0.0f;
+    m->pid[k] = 0;
+  }
+  for (int i = 0; i < s.P(); ++i) {
+    if (!s.member(i)) continue;
+    const float* p = s.prim(i);
+    const int n = slots_of<true>(s.kind(i), p, affine_pt(p, o),
                                  affine_vec(p, d), t, ok);
-    for (int k = 0; k < n; ++k) {
-      m->t[m->K] = t[k];
-      m->pid[m->K] = (uint8_t)i;
-      m->valid.set(m->K, ok[k]);
-      m->K++;
-    }
+#pragma unroll
+    for (int k = 0; k < MAX_SLOTS; ++k)
+      if (k < n) m->push(t[k], i, ok[k]);
   }
 }
 
@@ -549,19 +691,31 @@ static RRAY_NOINLINE void member_slots(const SceneView& s, V3 o, V3 d, MemberSlo
 // slot under it survives by the op's rule on the parities of the valid
 // slots of each side that precede it in the stable sorted order (t_j <
 // t_i, or t_j == t_i and j < i). Leaves the survivors in m->valid.
-static RRAY_NOINLINE void csg_filter(const SceneView& s, MemberSlots* m) {
-  for (int ci = 0; ci < s.C; ++ci) {
-    const int op = s.csg_ops[ci];
-    const int* side = s.csg_side + ci * s.P;
-    SlotBits keep = {{0, 0}};
-    for (int i = 0; i < m->K; ++i) {
+template <int KB>
+RRAY_DEVICE void csg_filter(const Scene& s, MemberSlots<KB>* m) {
+  constexpr int U = KB <= 8 ? KB : 1;  // unrolled when in registers
+  const int K = m->K;
+  // An invalid slot never survives (keep = valid && allowed), so its
+  // pair loop is skipped, and a ray without a valid slot (most rays miss
+  // the members) skips the filter.
+  for (int ci = 0; ci < s.C() && m->valid.any(); ++ci) {
+    const int op = s.csg_op(ci);
+    const int* side = s.csg_side(ci);
+    SlotBits<KB> keep;
+    keep.clear();
+#pragma unroll U
+    for (int i = 0; i < KB; ++i) {
+      if (i >= K) break;
+      if (!m->valid.get(i)) continue;
       const int si = side[m->pid[i]];
       if (si == 0) {
-        keep.set(i, m->valid.get(i));
+        keep.set(i, true);
         continue;
       }
       bool inl = false, inr = false;
-      for (int j = 0; j < m->K; ++j) {
+#pragma unroll U
+      for (int j = 0; j < KB; ++j) {
+        if (j >= K) break;
         const int sj = side[m->pid[j]];
         if (j == i || sj == 0) continue;
         const bool before = j < i ? m->t[j] <= m->t[i] : m->t[j] < m->t[i];
@@ -580,7 +734,7 @@ static RRAY_NOINLINE void csg_filter(const SceneView& s, MemberSlots* m) {
       } else {  // CSG_DIFFERENCE
         allowed = si == 1 ? !inr : inl;
       }
-      keep.set(i, m->valid.get(i) && allowed);
+      keep.set(i, allowed);
     }
     m->valid = keep;
   }
@@ -597,32 +751,40 @@ struct Node {
 // (first occluder ends the test) or, failing that, by the mesh? Under
 // kExt a torus tests its slots, and the CSG members' slots on the
 // segment are filtered first (rray_tpu whitted.py:1086-1128).
-template <bool kExt>
-RRAY_DEVICE bool blocked(const SceneView& s, V3 over, V3 dir, float dist) {
+template <bool kExt, int KB>
+RRAY_DEVICE bool blocked(const Scene& s, V3 over, V3 dir, float dist) {
   bool occ = false;
-  for (int j = 0; j < s.P && !occ; ++j) {
-    const float* p = s.prims + j * P_COLS;
-    if (kExt && s.member[j]) continue;
-    if (kExt && s.kinds[j] == TORUS) {
+  for (int j = 0; j < s.P() && !occ; ++j) {
+    const float* p = s.prim(j);
+    const int kind = s.kind(j);
+    if (KB > 0 && s.member(j)) continue;
+    if (kExt && kind == TORUS) {
       float t[4];
       bool ok[4];
       torus_slots(affine_pt(p, over), affine_vec(p, dir), p[31], t, ok);
+#pragma unroll
       for (int k = 0; k < 4; ++k)
         occ = occ || (ok[k] && t[k] >= 0.0f && t[k] < dist);
       continue;
     }
-    occ = occludes(s.kinds[j], p, p + 21, over, dir, dist);
+    occ = occludes(kind, p, p + 21, over, dir, dist);
   }
-  if (kExt && !occ && s.C > 0) {
-    MemberSlots m;
-    member_slots(s, over, dir, &m);
-    csg_filter(s, &m);
-    for (int k = 0; k < m.K && !occ; ++k)
-      occ = m.valid.get(k) && m.t[k] >= 0.0f && m.t[k] < dist;
+  if constexpr (KB > 0) {
+    if (!occ && s.C() > 0) {
+      MemberSlots<KB> m;
+      member_slots(s, over, dir, &m);
+      csg_filter(s, &m);
+      constexpr int U = KB <= 8 ? KB : 1;
+#pragma unroll U
+      for (int k = 0; k < KB; ++k) {
+        if (k >= m.K || occ) break;
+        occ = m.valid.get(k) && m.t[k] >= 0.0f && m.t[k] < dist;
+      }
+    }
   }
-  if (!occ && s.T > 0)
-    occ = any_chunks(s.tris, T_COLS, s.T, s.tboxes, s.n_chunks, MESH_CHUNK,
-                     over, dir, dist);
+  if (!occ && s.T() > 0)
+    occ = any_chunks(s.tris(), T_COLS, s.T(), s.tboxes(), s.at(D_CHUNKS),
+                     MESH_CHUNK, over, dir, dist);
   return occ;
 }
 
@@ -630,45 +792,44 @@ RRAY_DEVICE bool blocked(const SceneView& s, V3 over, V3 dir, float dist) {
 // an area light of level lv the share of its lv^2 jittered samples that
 // are blocked, cnt * float(1/n) as rray_tpu whitted.py:1164 scales it.
 // All path rows of a level draw with seeds[level, li].
-template <bool kExt>
-RRAY_DEVICE float shadow_frac(const SceneView& s, int li, int level,
-                              V3 over) {
-  const float* L = s.lights + li * L_COLS;
-  const int lv = s.levels[li];
+template <bool kExt, int KB>
+RRAY_DEVICE float shadow_frac(const Scene& s, int li, int level, V3 over) {
+  const float* L = s.light(li);
+  const int lv = s.level(li);
   if (lv == 0) {
     V3 to = v3(L[0] - over.x, L[1] - over.y, L[2] - over.z);
     float dist = sqrtf(dot(to, to));
     V3 dir = scale(to, 1.0f / fmaxf(dist, 1e-30f));
-    return blocked<kExt>(s, over, dir, dist) ? 1.0f : 0.0f;
+    return blocked<kExt, KB>(s, over, dir, dist) ? 1.0f : 0.0f;
   }
   const int n = lv * lv;
-  const uint32_t hb = point_base(s.seeds[level * s.L + li], over.x, over.y,
-                                 over.z);
+  const uint32_t hb = point_base(s.seed(level, li), over.x, over.y, over.z);
   float cnt = 0.0f;
   for (int k = 0; k < n; ++k) {
     V3 dir;
     float dist = area_sample(L + 6, hb, k, lv, over, &dir);
-    cnt = cnt + (blocked<kExt>(s, over, dir, dist) ? 1.0f : 0.0f);
+    cnt = cnt + (blocked<kExt, KB>(s, over, dir, dist) ? 1.0f : 0.0f);
   }
   return cnt * (float)(1.0 / n);
 }
 
-template <bool kExt>
-RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
-                                  bool has_refl, bool has_refr) {
+template <bool kExt, int KB>
+RRAY_DEVICE Node node_eval(const Scene& s, Stack stk, V3 o, V3 d, int level) {
+  const bool has_refl = s.at(D_REFL) != 0, has_refr = s.at(D_REFR) != 0;
+  const int P = s.P();
   // Closest hit: per-prim minimum, then a strict < across prims, so the
   // lowest prim id wins ties; CSG members fold last (below).
   float best_t = INFINITY;
   int win = -1;
-  float t[5];
-  bool ok[5];
-  for (int i = 0; i < s.P; ++i) {
-    if (kExt && s.member[i]) continue;
-    const float* p = s.prims + i * P_COLS;
-    int n = slots_of<kExt>(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d),
-                           t, ok);
+  float t[MAX_SLOTS];
+  bool ok[MAX_SLOTS];
+  for (int i = 0; i < P; ++i) {
+    if (KB > 0 && s.member(i)) continue;
+    const float* p = s.prim(i);
+    slots_of<kExt>(s.kind(i), p, affine_pt(p, o), affine_vec(p, d), t, ok);
     float tp = INFINITY;
-    for (int k = 0; k < n; ++k)
+#pragma unroll
+    for (int k = 0; k < MAX_SLOTS; ++k)
       tp = fminf(tp, (ok[k] && t[k] >= 0.0f) ? t[k] : INFINITY);
     if (tp < best_t) {
       best_t = tp;
@@ -679,26 +840,31 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
   // (rray_tpu _mesh_closest): a mesh winner takes its group's prim row
   // and carries the interpolated vertex normal.
   V3 mesh_n = v3(0.0f, 0.0f, 0.0f);
-  if (s.T > 0) {
-    TriHit m = closest_chunks(s.tris, T_COLS, s.T, s.tboxes, s.n_chunks,
-                              MESH_CHUNK, o, d, best_t);
+  if (s.T() > 0) {
+    TriHit m = closest_chunks(s.tris(), T_COLS, s.T(), s.tboxes(),
+                              s.at(D_CHUNKS), MESH_CHUNK, o, d, best_t);
     if (m.t < best_t) {
-      const float* g = s.tris + (size_t)m.idx * T_COLS;
+      const float* g = s.tris() + m.idx * T_COLS;
       best_t = m.t;
-      win = s.P + (int)g[18];
+      win = P + (int)g[18];
       mesh_n = hit_normal(g, m.u, m.v);
     }
   }
   // The CSG-filtered member slots, folded after the non-members and the
   // mesh with a strict < (rray_tpu whitted.py:902-924).
-  if (kExt && s.C > 0) {
-    MemberSlots m;
-    member_slots(s, o, d, &m);
-    csg_filter(s, &m);
-    for (int k = 0; k < m.K; ++k) {
-      if (m.valid.get(k) && m.t[k] >= 0.0f && m.t[k] < best_t) {
-        best_t = m.t[k];
-        win = m.pid[k];
+  if constexpr (KB > 0) {
+    if (s.C() > 0) {
+      MemberSlots<KB> m;
+      member_slots(s, o, d, &m);
+      csg_filter(s, &m);
+      constexpr int U = KB <= 8 ? KB : 1;
+#pragma unroll U
+      for (int k = 0; k < KB; ++k) {
+        if (k >= m.K) break;
+        if (m.valid.get(k) && m.t[k] >= 0.0f && m.t[k] < best_t) {
+          best_t = m.t[k];
+          win = m.pid[k];
+        }
       }
     }
   }
@@ -712,13 +878,13 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
     out.refl_w = out.refr_w = 0.0f;
     return out;
   }
-  const float* pw = s.prims + win * P_COLS;
+  const float* pw = s.prim(win);
   V3 point = add(o, scale(d, best_t));
   V3 eyev = neg(d);
   V3 normalv = normalize(
-      win >= s.P ? mesh_n
-                 : nmat_vec(pw, local_normal_of<kExt>(s.kinds[win], pw,
-                                                      affine_pt(pw, point))));
+      win >= P ? mesh_n
+               : nmat_vec(pw, local_normal_of<kExt>(s.kind(win), pw,
+                                                    affine_pt(pw, point))));
   bool inside = dot(normalv, eyev) < 0.0f;
   normalv = scale(normalv, inside ? -1.0f : 1.0f);
   V3 over = add(point, scale(normalv, EPS_OFF));
@@ -731,13 +897,13 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
     float t_hit = best_t;
     float tol = TOL * fmaxf(1.0f, fabsf(t_hit));
     float bts = -INFINITY, btl = -INFINITY, ior_s = 1.0f, ior_l = 1.0f;
-    for (int i = 0; i < s.P; ++i) {
-      const float* p = s.prims + i * P_COLS;
-      int n = slots_of<kExt>(s.kinds[i], p, affine_pt(p, o), affine_vec(p, d),
-                             t, ok);
+    for (int i = 0; i < P; ++i) {
+      const float* p = s.prim(i);
+      slots_of<kExt>(s.kind(i), p, affine_pt(p, o), affine_vec(p, d), t, ok);
       int cnt_s = 0, cnt_l = 0;
       float last_s = -INFINITY, last_l = -INFINITY;
-      for (int k = 0; k < n; ++k) {
+#pragma unroll
+      for (int k = 0; k < MAX_SLOTS; ++k) {
         bool is_hit = (i == win) && (fabsf(t[k] - t_hit) <= tol);
         bool before = ok[k] && (t[k] < t_hit);
         bool in_s = before && !is_hit;
@@ -763,22 +929,16 @@ RRAY_DEVICE Node node_eval(const SceneView& s, V3 o, V3 d, int level,
   // Pattern at the over point, on the winner's object space; under kExt
   // an image leaf maps its points to uv on the winner's shape and reads
   // its texel in place.
-  V3 base;
-  if constexpr (kExt) {
-    base = eval_pattern_ext<MAX_PATTERN_DEPTH>(
-        s, s.roots[win], affine_pt(pw, over), win < s.P ? s.kinds[win] : -1,
-        pw);
-  } else {
-    base = eval_pattern<MAX_PATTERN_DEPTH>(s, s.roots[win], affine_pt(pw, over));
-  }
+  V3 base = eval_program<kExt>(s, stk, s.root(win), affine_pt(pw, over),
+                               win < P ? s.kind(win) : -1, pw);
 
   // Phong per light (light.rs:98-140), shaded from the light's position
   // (an area light's centre), with its shadowed fraction.
   float amb = pw[24], dif = pw[25], spe = pw[26], shi = pw[27];
   V3 surface = v3(0.0f, 0.0f, 0.0f);
-  for (int li = 0; li < s.L; ++li) {
-    const float* L = s.lights + li * L_COLS;
-    float unshadow = 1.0f - shadow_frac<kExt>(s, li, level, over);
+  for (int li = 0; li < s.L(); ++li) {
+    const float* L = s.light(li);
+    float unshadow = 1.0f - shadow_frac<kExt, KB>(s, li, level, over);
     V3 effective = v3(base.x * L[3], base.y * L[4], base.z * L[5]);
     V3 lightv = normalize(v3(L[0] - over.x, L[1] - over.y, L[2] - over.z));
     V3 ambient = scale(effective, amb);
@@ -840,11 +1000,66 @@ RRAY_DEVICE Row dead_row() {
   return r;
 }
 
+// Row r of a path-row array: for up to 4 rows by a select over constant
+// indices (the array stays in registers), else by index.
+template <int N>
+RRAY_DEVICE Row get_row(const Row (&a)[N], int r) {
+  if constexpr (N <= 4) {
+    Row x = a[0];
+#pragma unroll
+    for (int k = 1; k < N; ++k)
+      if (r == k) x = a[k];
+    return x;
+  } else {
+    return a[r];
+  }
+}
+
+template <int N>
+RRAY_DEVICE void set_row(Row (&a)[N], int r, const Row& v) {
+  if constexpr (N <= 4) {
+#pragma unroll
+    for (int k = 0; k < N; ++k)
+      if (r == k) a[k] = v;
+  } else {
+    a[r] = v;
+  }
+}
+
+// Stable top-W by weight: odd-even transposition over the 2W child rows,
+// swapping on a strict < (= lax.sort's tie order).
+RRAY_DEVICE void swap_down(Row& a, Row& b) {
+  if (a.c[6] < b.c[6]) {
+    Row tmp = a;
+    a = b;
+    b = tmp;
+  }
+}
+
+template <int W>
+RRAY_DEVICE void sort_rows(Row (&ch)[2 * W]) {
+  if constexpr (W <= 2) {  // unrolled: the rows stay in registers
+#pragma unroll
+    for (int rnd = 0; rnd < 2 * W; ++rnd) {
+#pragma unroll
+      for (int k = rnd % 2; k < 2 * W - 1; k += 2) swap_down(ch[k], ch[k + 1]);
+    }
+  } else {
+    for (int rnd = 0; rnd < 2 * W; ++rnd) {
+      for (int k = rnd % 2; k < 2 * W - 1; k += 2) swap_down(ch[k], ch[k + 1]);
+    }
+  }
+}
+
 // Spawn modes: both reflection and refraction -> 2W children + stable
 // top-W; exactly one -> a width-1 chain (W == 1); neither -> one level.
-template <int W, bool kExt>
-RRAY_DEVICE void trace_ray(const SceneView& s, V3 ro, V3 rd, int depth,
-                           bool has_refl, bool has_refr, float* rgb) {
+// `stk` is the thread's pattern stack (as many frames as the scene's
+// pattern programs push: kernels/whitted.py pattern_program).
+template <int W, bool kExt, int KB>
+RRAY_DEVICE void trace_ray(const Scene& s, Stack stk, V3 ro, V3 rd,
+                           float* rgb) {
+  const bool has_refl = s.at(D_REFL) != 0, has_refr = s.at(D_REFR) != 0;
+  const int depth = s.at(D_DEPTH);
   const bool both = has_refl && has_refr;
   const int spawn = both ? 2 : ((has_refl || has_refr) ? 1 : 0);
   Row st[W];
@@ -854,37 +1069,30 @@ RRAY_DEVICE void trace_ray(const SceneView& s, V3 ro, V3 rd, int depth,
   float acc_r = 0.0f, acc_g = 0.0f, acc_b = 0.0f;
   for (int level = 0; level <= depth; ++level) {
     const int spawn_here = level == depth ? 0 : spawn;
+#pragma unroll
     for (int r = 0; r < 2 * W; ++r) ch[r] = dead_row();
 #pragma unroll 1  // one copy of the node's code, not W
     for (int r = 0; r < W; ++r) {
-      float w = st[r].c[6];
+      const Row cur = get_row(st, r);
+      float w = cur.c[6];
       if (w == 0.0f) continue;  // dead path row: contributes nothing
-      V3 o = v3(st[r].c[0], st[r].c[1], st[r].c[2]);
-      V3 d = v3(st[r].c[3], st[r].c[4], st[r].c[5]);
-      Node nd = node_eval<kExt>(s, o, d, level, has_refl, has_refr);
+      V3 o = v3(cur.c[0], cur.c[1], cur.c[2]);
+      V3 d = v3(cur.c[3], cur.c[4], cur.c[5]);
+      Node nd = node_eval<kExt, KB>(s, stk, o, d, level);
       acc_r = acc_r + nd.surface.x * w;
       acc_g = acc_g + nd.surface.y * w;
       acc_b = acc_b + nd.surface.z * w;
       if (spawn_here == 2) {
-        ch[r] = make_row(nd.over, nd.reflectv, w * nd.refl_w);
-        ch[W + r] = make_row(nd.under, nd.refr_dir, w * nd.refr_w);
+        set_row(ch, r, make_row(nd.over, nd.reflectv, w * nd.refl_w));
+        set_row(ch, W + r, make_row(nd.under, nd.refr_dir, w * nd.refr_w));
       } else if (spawn_here == 1) {
-        ch[r] = has_refl ? make_row(nd.over, nd.reflectv, w * nd.refl_w)
+        ch[0] = has_refl ? make_row(nd.over, nd.reflectv, w * nd.refl_w)
                          : make_row(nd.under, nd.refr_dir, w * nd.refr_w);
       }
     }
     if (spawn_here == 2) {
-      // Stable top-W by weight: odd-even transposition over the 2W
-      // child rows, swapping on a strict < (= lax.sort's tie order).
-      for (int rnd = 0; rnd < 2 * W; ++rnd) {
-        for (int k = rnd % 2; k < 2 * W - 1; k += 2) {
-          if (ch[k].c[6] < ch[k + 1].c[6]) {
-            Row tmp = ch[k];
-            ch[k] = ch[k + 1];
-            ch[k + 1] = tmp;
-          }
-        }
-      }
+      sort_rows<W>(ch);
+#pragma unroll
       for (int r = 0; r < W; ++r) st[r] = ch[r];
     } else if (spawn_here == 1) {
       st[0] = ch[0];

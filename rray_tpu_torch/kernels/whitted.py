@@ -15,10 +15,12 @@ analytic operands through the pairwise-parity filter `soa.csg_keeps` on
 closest hits and shadow segments, Perlin noise and perturbed patterns,
 and image textures read inside the kernel). The CUDA source is
 kernels/csrc/whitted.cu: one thread runs one primary ray's whole tree
-with its path state in registers and local memory, the small scene
-tables staged in shared memory, the triangle and texel tables read from
-global memory. Stage e is a compile-time switch of the kernel (`ext`),
-so scenes without it run the same machine code as before.
+with its path state in registers, the scene tables (the mesh included,
+packed by `kernel_tables`) staged once per block in shared memory, the
+texel table read from global memory; blocks shade 16x8 pixel tiles of
+the raster when the caller passes its width. Stage e is a compile-time
+switch of the kernel (`ext`), so scenes without it run kernels without
+its code.
 
 Textures: rray_tpu's kernel emits a multiplier and a flat texel index
 and completes the image outside the kernel (a Mosaic workaround for
@@ -34,8 +36,11 @@ XLA path, while the kernel is float32 only, as the TPU kernel is.
 """
 from __future__ import annotations
 
+import ctypes
 import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..config import EPSILON, hit_match_tol, offset_eps
@@ -50,18 +55,36 @@ CHEAP_PATTERNS = ("solid", "stripe", "gradient", "ring", "checker", "blend")
 # The pattern nodes the kernel evaluates (rray_tpu whitted.py:64): the
 # cheap ones, Perlin noise and perturbation, and image leaves.
 KERNEL_PATTERNS = CHEAP_PATTERNS + ("noise", "perturbed", "image")
-# Pattern node codes shared with csrc/whitted_device.cuh.
+# Pattern node codes shared with csrc/whitted_device.cuh (PType), then
+# the pattern programs' control ops.
 PATTERN_CODES = {name: i for i, name in enumerate(KERNEL_PATTERNS)}
+OP_JUMP, OP_MID, OP_COMBINE, OP_POPSCALE, OP_END = 9, 10, 11, 12, 13
 # Path-row capacities the CUDA kernel is instantiated for.
 WIDTHS = (1, 2, 4, 8, 16, 32)
 MAX_PRIMS = 16
-# Shared-memory and recursion bounds of csrc/whitted.cu: the tables stay
-# under the 48 KB of static shared memory a block gets without opt-in,
-# and pattern trees are evaluated by a template recursion of this depth.
+# Table bounds of csrc/whitted.cu. The scene tables and the pattern
+# stacks live in dynamic shared memory up to Hopper's opt-in limit of 227
+# KB per block, less the kernel's static 16 bytes (its mbarrier); a
+# pattern tree is at most this deep, so a thread's stack holds at most
+# MAX_PATTERN_DEPTH - 1 frames.
 MAX_PATTERN_ROWS = 256
 MAX_LIGHTS = 64
 MAX_PATTERN_DEPTH = 8
-SMEM_BYTES = 48 * 1024
+SMEM_BYTES = 227 * 1024 - 16
+# Threads per block (a 16x8 pixel tile) and the words of a pattern-stack
+# frame (csrc/whitted.cu kThreads, whitted_device.cuh FRAME_WORDS).
+THREADS, TILE_W, TILE_H = 128, 16, 8
+FRAME_WORDS = 6
+# CSG member-slot buckets the stage-e kernel is instantiated for at W = 1
+# (csrc/whitted_device.cuh MemberSlots): 8 slots unrolled in registers,
+# or the general form for up to 16 prims x 5 slots.
+SLOT_BUCKETS = (8, 80)
+# Descriptor words of a launch, in csrc/whitted_device.cuh Desc order:
+# word offsets of the staged tables, then counts and flags.
+DESC_FIELDS = ("prims", "pats", "lights", "kinds", "roots", "prog",
+               "levels", "seeds", "pmeta", "member", "csg_ops", "csg_side",
+               "tris", "tboxes", "P", "L", "T", "n_chunks", "C", "depth",
+               "has_refl", "has_refr", "width", "R", "words")
 # The in-kernel mesh (rray_tpu whitted.py:297-307): at most 1024
 # triangles, culled in Morton-ordered chunks of 24, at most 8 (shade
 # class, pattern) material groups. Triangle rows: p1 e1 e2 (0-8), vertex
@@ -75,8 +98,10 @@ T_COLS = 19
 MAX_TEXELS = 1 << 24
 
 # Kernel launches made by `whitted_compact` in this process (CPU calls,
-# which run the plain version, do not count).
+# which run the plain version, do not count), and the last launch's
+# shape: {"W", "ext", "KB", "smem", "blocks_per_sm"}.
 launches = 0
+last_launch: dict = {}
 
 
 def _tree_all(node, names) -> bool:
@@ -965,54 +990,6 @@ def whitted_compact_reference(ro_comps, rd_comps, prim_tbl, pat_tbl,
 # The CUDA kernel's wrapper.
 # ---------------------------------------------------------------------------
 
-def int_table(kinds, pat_descrs, prim_pat, n_rows: int, levels=(),
-              csg=None, tex_meta=None):
-    """The kernel's int table: analytic prim kinds[P], the pattern root
-    row of every prim-table row[P + G], then per pattern row its node
-    type[N], child a row[N], child b row[N] (-1 where a node has no
-    child), then each light's sample level[L] (0: point light) — the
-    statics that rray_tpu's kernel unrolls at trace time, as data the
-    CUDA kernel interprets. For a scene of stage e (`csg` given) there
-    follow per pattern row four meta ints[N, 4] (noise and perturbed:
-    the octave count; image: H, W, texel-table offset, format), then the
-    CSG member flag per prim[P], the CSG op codes[C] and the [C, P]
-    side table, innermost CSG first."""
-    ptype = [0] * n_rows
-    pa = [-1] * n_rows
-    pb = [-1] * n_rows
-    meta = [[0, 0, 0, 0] for _ in range(n_rows)]
-    n_children = {"solid": 0, "image": 0, "perturbed": 1}
-
-    def walk(descr):
-        if descr is None:
-            return -1
-        name, idx, octaves, da, db = descr
-        if name not in PATTERN_CODES:
-            raise ValueError(f"the kernel takes no {name!r} pattern")
-        ptype[idx] = PATTERN_CODES[name]
-        pa[idx], pb[idx] = walk(da), walk(db)
-        if sum(c >= 0 for c in (pa[idx], pb[idx])) != n_children.get(name, 2):
-            raise ValueError(f"{name} pattern node with children "
-                             f"{pa[idx], pb[idx]}")
-        if name in ("noise", "perturbed"):
-            meta[idx][0] = octaves
-        return idx
-
-    for descr in pat_descrs:
-        walk(descr)
-    roots = [pat_descrs[prim_pat[i]][1] for i in range(len(prim_pat))]
-    ints = list(kinds) + roots + ptype + pa + pb + list(levels)
-    if csg is None:
-        return ints
-    for row, h, w, off, fmt in tex_meta or ():
-        meta[row] = [h, w, off, fmt]
-    member, ops_sides = csg
-    member = member or (False,) * len(kinds)
-    return ints + [v for m in meta for v in m] + [int(m) for m in member] \
-        + [op for op, _ in ops_sides] + [v for _, side in ops_sides
-                                         for v in side]
-
-
 def _descr_depth(descr) -> int:
     if descr is None:
         return 0
@@ -1032,10 +1009,193 @@ def uses_ext(kinds, pat_descrs, csg) -> bool:
         _descr_names(d) - set(CHEAP_PATTERNS) for d in pat_descrs)
 
 
+def pattern_program(pat_descrs, prim_pat):
+    """Flatten pack_patterns' trees into the kernel's pattern program ->
+    (instructions [op, row, target, aux], the program start of every
+    prim-table row, the stack frames a thread needs).
+
+    Each tree is emitted in pre-order with its control ops
+    (csrc/whitted_device.cuh eval_program runs them): a stripe, ring,
+    checker or noise node is followed by child a's code, a jump over
+    child b's, and child b's code, its `target` the start of b's code,
+    so the kernel runs only the child the node shows (a noise node also
+    pushes its factor, which POPSCALE after b applies); a perturbed
+    node's child follows it; a gradient or blend node pushes its point,
+    then come a's code, MID, b's code and COMBINE (aux: the node type).
+    Frames: one per pending gradient, blend or noise node."""
+    prog = []
+    n_children = {"solid": 0, "image": 0, "perturbed": 1}
+
+    def emit(descr) -> int:
+        name, row, _, da, db = descr
+        if name not in PATTERN_CODES:
+            raise ValueError(f"the kernel takes no {name!r} pattern")
+        if sum(c is not None for c in (da, db)) != n_children.get(name, 2):
+            raise ValueError(f"{name} pattern node with children {da, db}")
+        code = PATTERN_CODES[name]
+        at = len(prog)
+        prog.append([code, row, 0, 0])
+        if name in ("solid", "image"):
+            return 0
+        if name == "perturbed":
+            return emit(da)
+        if name in ("gradient", "blend"):
+            fa = emit(da)
+            prog.append([OP_MID, 0, 0, 0])
+            fb = emit(db)
+            prog.append([OP_COMBINE, row, 0, code])
+            return 1 + max(fa, fb)
+        fa = emit(da)
+        jump = len(prog)
+        prog.append([OP_JUMP, 0, 0, 0])
+        prog[at][2] = len(prog)
+        fb = emit(db)
+        prog[jump][2] = len(prog)
+        if name == "noise":
+            prog.append([OP_POPSCALE, 0, 0, 0])
+            return 1 + max(fa, fb)
+        return max(fa, fb)
+
+    starts, frames = [], 0
+    for descr in pat_descrs:
+        starts.append(len(prog))
+        frames = max(frames, emit(descr))
+        prog.append([OP_END, 0, 0, 0])
+    return prog, [starts[p] for p in prim_pat], frames
+
+
+# Hit slots per prim kind (csrc/whitted_device.cuh's slot forms).
+SLOTS_PER_KIND = {sd.SPHERE: 2, sd.PLANE: 1, sd.CUBE: 2, sd.CYLINDER: 4,
+                  sd.CONE: 5, sd.TORUS: 4}
+
+
+def slot_bucket(kinds, csg) -> int:
+    """The CSG member-slot bucket of the stage-e kernel at W = 1: the
+    smallest of SLOT_BUCKETS that holds the scene's member slots."""
+    member = csg[0] or (False,) * len(kinds)
+    K = sum(SLOTS_PER_KIND[k] for k, m in zip(kinds, member) if m)
+    return next(b for b in SLOT_BUCKETS if K <= b)
+
+
+
+def tile_ray_index(R: int, width: int = 0):
+    """The kernel's ray per (tile, thread) slot, -1 where the slot is
+    masked: csrc/whitted.cu tile_ray, mirrored. With a raster width,
+    tiles are 16x8 pixels in row-major tile order, warp w of a tile
+    covering the 8x4 sub-tile (w % 2, w // 2) and lane l its pixel
+    (l % 8, l // 8); without one, tile k holds rays [128 k, 128 k + 128)."""
+    t = torch.arange(THREADS)
+    if width <= 0:
+        i = torch.arange((R + THREADS - 1) // THREADS)[:, None] * THREADS + t
+        return torch.where(i < R, i, -1).reshape(-1)
+    rows = (R + width - 1) // width
+    tiles_x = (width + TILE_W - 1) // TILE_W
+    tiles = tiles_x * ((rows + TILE_H - 1) // TILE_H)
+    tile = torch.arange(tiles)[:, None]
+    warp, lane = t // 32, t % 32
+    x = (tile % tiles_x) * TILE_W + (warp % 2) * 8 + lane % 8
+    y = (tile // tiles_x) * TILE_H + (warp // 2) * 4 + lane // 8
+    i = y * width + x
+    return torch.where((x < width) & (i < R), i, -1).reshape(-1)
+
+
+class KernelTables(NamedTuple):
+    """One launch's staged tables: `tables` int32 words (float tables
+    bit for bit) on the inputs' device, `desc` the DESC_FIELDS words,
+    `ext`, the slot bucket `KB`, `smem` bytes of dynamic shared memory
+    (the tables and THREADS pattern stacks of `frames` frames), `sizes`
+    the bytes of each table, for the error message."""
+    tables: torch.Tensor
+    desc: list
+    ext: bool
+    KB: int
+    smem: int
+    frames: int
+    sizes: dict
+
+
+def kernel_tables(prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs, prim_pat,
+                  depth, W, has_refl, has_refr, tri_tbl=None, tri_boxes=None,
+                  *, light_levels, seeds, csg=((), ()), tex_meta=(), R=0,
+                  width=0) -> KernelTables:
+    """Pack the kernel's inputs into the block of tables it stages in
+    shared memory (csrc/whitted_device.cuh Scene): float rows prims [P +
+    G, 32], pats [N, 17], lights [L, 15]; ints kinds [P], the pattern
+    program start of every prim row [P + G], the program [n, 4], light
+    levels [L], jitter seeds [depth + 1, L]; for stage e pattern meta [N,
+    4] (noise and perturbed: octaves; image: H, W, texel offset, format),
+    CSG member flags [P], ops [C] and sides [C, P] innermost first; the
+    mesh rows [Tp, 19] and chunk boxes [6, n_chunks + 1]. Each table
+    starts on a 16-byte boundary, as the bulk copy moves whole 16-byte
+    units. These are rray_tpu's trace-time statics as data the CUDA
+    kernel interprets."""
+    P, N, L = len(kinds), pat_tbl.shape[0], light_tbl.shape[0]
+    ext = uses_ext(kinds, pat_descrs, csg)
+    prog, roots, frames = pattern_program(pat_descrs, prim_pat)
+    member, ops_sides = csg
+    parts, desc = [], dict.fromkeys(DESC_FIELDS, 0)
+    sizes = {}
+
+    def words(t):
+        return t.detach().to("cpu", torch.float32).contiguous().reshape(
+            -1).view(torch.int32).numpy()
+
+    def add(name, arr, label):
+        desc[name] = sum(len(a) for a in parts)
+        arr = np.asarray(arr, np.int32).reshape(-1)
+        sizes[label] = 4 * len(arr)
+        parts.append(np.concatenate(
+            [arr, np.zeros((-len(arr)) % 4, np.int32)]))
+
+    add("prims", words(prim_tbl), "prims")
+    add("pats", words(pat_tbl), "pattern rows")
+    add("lights", words(light_tbl), "lights")
+    add("kinds", list(kinds), "prim kinds")
+    add("roots", roots, "pattern roots")
+    add("prog", prog or [[OP_END, 0, 0, 0]], "pattern programs")
+    add("levels", list(light_levels), "light levels")
+    add("seeds", seeds.detach().cpu().numpy(), "jitter seeds")
+    if ext:
+        meta = [[0, 0, 0, 0] for _ in range(N)]
+
+        def walk(descr):
+            if descr is not None:
+                if descr[0] in ("noise", "perturbed"):
+                    meta[descr[1]][0] = descr[2]
+                walk(descr[3])
+                walk(descr[4])
+
+        for descr in pat_descrs:
+            walk(descr)
+        for row, h, w, off, fmt in tex_meta or ():
+            meta[row] = [h, w, off, fmt]
+        add("pmeta", meta, "pattern meta")
+        add("member", [int(m) for m in member or (False,) * P],
+            "CSG members")
+        add("csg_ops", [op for op, _ in ops_sides], "CSG ops")
+        add("csg_side", [v for _, side in ops_sides for v in side],
+            "CSG sides")
+    if tri_tbl is not None:
+        add("tris", words(tri_tbl), "mesh")
+        add("tboxes", words(tri_boxes), "mesh chunk boxes")
+        desc["T"] = tri_tbl.shape[0]
+        desc["n_chunks"] = tri_boxes.shape[1] - 1
+    desc.update(P=P, L=L, C=len(ops_sides), depth=depth,
+                has_refl=int(has_refl), has_refr=int(has_refr),
+                width=int(width or 0), R=R,
+                words=sum(len(a) for a in parts))
+    stack = 4 * frames * FRAME_WORDS * THREADS
+    sizes["pattern stacks"] = stack
+    tables = torch.from_numpy(np.concatenate(parts)).to(prim_tbl.device)
+    return KernelTables(tables, [desc[k] for k in DESC_FIELDS], ext,
+                        slot_bucket(kinds, csg) if ext and W == 1 else 0,
+                        4 * desc["words"] + stack, frames, sizes)
+
+
 def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
             tri_boxes=None, *, light_levels, seeds, csg=((), ()),
-            tex_tbl=None, tex_meta=()):
+            tex_tbl=None, tex_meta=(), width=None):
     global launches
     from . import build
 
@@ -1062,16 +1222,16 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
         raise ValueError("pattern or light tables past the kernel's bounds")
     if depth < 0:
         raise ValueError(f"depth={depth}")
+    if width is not None and not 0 < width <= max(R, 1):
+        raise ValueError(f"raster width {width} for {R} rays")
     levels, seeds = _light_args(light_tbl, light_levels, seeds, depth)
     build.check_arg("seeds", seeds, (depth + 1, L), device, torch.int32)
     member, ops_sides = csg
     C = len(ops_sides)
-    ext = uses_ext(kinds, pat_descrs, csg)
     if C and (len(member) != P or any(len(side) != P for _, side in ops_sides)
               or has_refr):
         raise ValueError(f"CSG tables for {P} prims (and no refraction) "
                          f"expected: {csg}")
-    n_tex = 0
     if tex_tbl is not None:
         n_tex = tex_tbl.shape[0]
         build.check_arg("tex_tbl", tex_tbl, (n_tex,), device)
@@ -1079,15 +1239,6 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             raise ValueError(f"a texel table of {n_tex} entries at depth "
                              f"{depth}: the kernel takes textures below "
                              f"{MAX_TEXELS} texels at depth 0")
-    ints = int_table(kinds, pat_descrs, prim_pat, N, levels,
-                     csg if ext else None, tex_meta)
-    smem = 4 * (prim_tbl.numel() + pat_tbl.numel() + light_tbl.numel()
-                + len(ints) + seeds.numel())
-    if smem > SMEM_BYTES:
-        raise ValueError(f"{smem} bytes of scene tables (depth {depth}, {L} "
-                         f"lights, {C} CSG nodes) past the kernel's "
-                         f"{SMEM_BYTES}")
-    Tp = n_chunks = 0
     if tri_tbl is not None:
         Tp, n_chunks = tri_tbl.shape[0], tri_boxes.shape[1] - 1
         build.check_arg("tri_tbl", tri_tbl, (Tp, T_COLS), device)
@@ -1100,28 +1251,53 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             raise ValueError("the in-kernel mesh takes no refraction")
     elif G or P == 0:
         raise ValueError(f"{P} prims and {G} group rows without a mesh")
-    ints = torch.tensor(ints, dtype=torch.int32, device=device)
+    kt = kernel_tables(prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs,
+                       prim_pat, depth, W, has_refl, has_refr, tri_tbl,
+                       tri_boxes, light_levels=levels, seeds=seeds, csg=csg,
+                       tex_meta=tex_meta, R=R, width=width)
+    if kt.smem > SMEM_BYTES:
+        tables = ", ".join(f"{k} {v}" for k, v in kt.sizes.items() if v)
+        raise ValueError(f"{kt.smem} bytes of scene tables and pattern "
+                         f"stacks ({tables}) past the {SMEM_BYTES} bytes of "
+                         f"shared memory a block may opt in to on Hopper")
     outs = [torch.empty(R, dtype=torch.float32, device=device)
             for _ in range(3)]
+    # The tile scheduler's counter: tiles taken past the persistent grid.
+    counter = torch.zeros(1, dtype=torch.int32, device=device)
+    desc = (ctypes.c_int * len(kt.desc))(*kt.desc)
+    blocks = ctypes.c_int(0)
     ptr = build.ptr
     with torch.cuda.device(device):
         rc = build.load_library().whitted_compact_launch(
             *(ptr(c) for c in tuple(ro_comps) + tuple(rd_comps)),
-            *(ptr(o) for o in outs), ptr(prim_tbl), P, G, ptr(pat_tbl), N,
-            ptr(light_tbl), L, ptr(ints), ints.numel(), ptr(seeds),
-            ptr(tri_tbl), Tp, ptr(tri_boxes), n_chunks, ptr(tex_tbl), C, R,
-            depth, W, int(has_refl), int(has_refr), int(ext),
+            *(ptr(o) for o in outs), ptr(kt.tables), desc, ptr(tex_tbl),
+            ptr(counter), W, int(kt.ext), kt.KB, kt.smem,
+            ctypes.byref(blocks),
             build.stream(device))
     build.check_launch("whitted", rc)
     launches += 1
+    last_launch.update(W=W, ext=kt.ext, KB=kt.KB, smem=kt.smem,
+                       blocks_per_sm=blocks.value)
     return tuple(outs)
+
+
+def blocks_per_sm(W: int, ext: bool, KB: int, smem: int) -> int:
+    """Resident blocks per SM of one kernel instantiation at `smem` bytes
+    of dynamic shared memory (the occupancy calculator on the current
+    card); raises on a CUDA error."""
+    from . import build
+
+    n = build.load_library().whitted_blocks_per_sm(W, int(ext), KB, smem)
+    if n < 0:
+        build.check_launch("whitted occupancy", -n)
+    return n
 
 
 def whitted_compact(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl,
                     kinds, pat_descrs, prim_pat, depth: int, W: int,
                     has_refl: bool, has_refr: bool, tri_tbl=None,
                     tri_boxes=None, *, light_levels, seeds, csg=((), ()),
-                    tex_tbl=None, tex_meta=()):
+                    tex_tbl=None, tex_meta=(), width=None):
     """Whitted evaluation of [R] primary rays -> (r, g, b) [R] tensors.
 
     ro/rd_comps: 3-tuples of [R] tensors; prim_tbl [P+G,32], pat_tbl
@@ -1132,12 +1308,17 @@ def whitted_compact(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl,
     light's sample level (0: point light) and seeds the [depth+1, L]
     int32 jitter seeds (ops/jitter.py seed_table); csg is csg_meta's
     (member flags, (op, sides) list), tex_tbl/tex_meta pack_texels'
-    texel table and image-leaf meta. CPU tensors run the plain version;
-    CUDA tensors launch the kernel (float32 only)."""
+    texel table and image-leaf meta. `width` is the raster width of
+    camera rays in row-major order: the kernel then shades them in 16x8
+    pixel tiles (tile_ray_index); without it, rays keep row order. The
+    result is the same either way. CPU tensors run the plain version
+    (which ignores `width`); CUDA tensors launch the kernel (float32
+    only)."""
     args = (ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl,
             tri_boxes)
-    fn = (whitted_compact_reference if ro_comps[0].device.type == "cpu"
-          else _launch)
-    return fn(*args, light_levels=light_levels, seeds=seeds, csg=csg,
+    kw = dict(light_levels=light_levels, seeds=seeds, csg=csg,
               tex_tbl=tex_tbl, tex_meta=tex_meta)
+    if ro_comps[0].device.type == "cpu":
+        return whitted_compact_reference(*args, **kw)
+    return _launch(*args, **kw, width=width)

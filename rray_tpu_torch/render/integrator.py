@@ -193,9 +193,10 @@ def render(scene: SceneData, cam: CameraData,
     node = route(scene)
     ro, rd = all_rays_soa(cam)
     if node == "kernel":
+        # The raster width lets the kernel shade the rays in pixel tiles.
         rgb = whitted.whitted_compact(
             (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z),
-            **whitted.kernel_inputs(scene, settings, seed))
+            **whitted.kernel_inputs(scene, settings, seed), width=cam.hsize)
     else:
         out = color_at_fast(scene, ro, rd, settings.depth, settings,
                             jitter.seed_table(seed, settings.depth,

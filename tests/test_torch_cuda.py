@@ -290,3 +290,55 @@ def test_fast_node_renders_textured_reflective_config5(cuda, tmp_path):
     assert integrator.route(compile_scene(shapes, lights)) == "fast"
     image = api.render_scene_from_file(path, 64, 36, "", device="cuda")
     assert np.isfinite(image).all() and image.max() > 0.1
+
+
+def _ragged_case(stage, tmp_path, device):
+    """(camera spec, scene) of one stage of the whitted kernel: a (core:
+    example1), c (area lights: config 3), d (the in-kernel mesh) and e
+    (config 5: CSG, torus, noise, texture)."""
+    if stage == "d":
+        path = ms.write_scene(str(tmp_path), "mesh", lat_lon=(11, 11))
+    else:
+        path = os.path.join(BASE, "examples", {
+            "a": "example1.yaml", "c": "area_light.yaml",
+            "e": "csg_showcase.yaml"}[stage])
+    cam_spec, lights, shapes = load_scene_file(path)
+    return cam_spec, compile_scene(shapes, lights, dtype=torch.float32,
+                                   device=device)
+
+
+@pytest.mark.parametrize("stage", ["a", "c", "d", "e"])
+@pytest.mark.parametrize("w,h", [(161, 97), (7, 5), (300, 1)])
+def test_tiled_kernel_matches_plain_version(cuda, stage, w, h, tmp_path):
+    """The tiled, persistent kernel (16x8 pixel tiles, given the raster
+    width) at ragged raster sizes: every ray shaded once, at its own
+    index, as the plain version shades it (stage c and e images equal
+    bit for bit on the card at 800x600 and 1920x1080; the budget is
+    test_stage_e_kernel_matches_plain_version's)."""
+    cam_spec, scene = _ragged_case(stage, tmp_path, cuda)
+    cam = Camera(w, h, cam_spec["fov"])
+    cam.transform = cam_spec["transform"]
+    ro, rd = all_rays_soa(compile_camera(cam, torch.float32, cuda))
+    rays = ((ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z))
+    inputs = whitted.kernel_inputs(scene, RenderSettings(), seed=3)
+    before = whitted.launches
+    kern = torch.stack(whitted.whitted_compact(*rays, **inputs, width=w))
+    assert whitted.launches == before + 1
+    rows = torch.stack(whitted.whitted_compact(*rays, **inputs))
+    plain = torch.stack(whitted.whitted_compact_reference(*rays, **inputs))
+    torch.cuda.synchronize()
+    assert bool(torch.equal(kern, rows))
+    diff = (kern - plain).abs().amax(0)
+    assert bool(torch.isfinite(kern).all())
+    assert float(diff.max()) <= 1.0 / 255.0
+    assert float((diff > 1e-4).double().mean()) <= 1e-3
+
+
+def test_blocks_per_sm_reports_occupancy(cuda):
+    """The occupancy entry answers for every instantiation the wrapper
+    launches, and more shared memory never raises the count."""
+    for W, ext, KB in [(w, False, 0) for w in whitted.WIDTHS] + [
+            (1, True, 8), (1, True, 80), (2, True, 0), (32, True, 0)]:
+        small = whitted.blocks_per_sm(W, ext, KB, 0)
+        big = whitted.blocks_per_sm(W, ext, KB, 100 * 1024)
+        assert 1 <= big <= small <= 16

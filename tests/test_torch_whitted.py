@@ -10,6 +10,7 @@ import torch
 
 import torch_parity as tp
 from rray_tpu_torch import api
+from rray_tpu_torch.config import RenderSettings
 from rray_tpu_torch.kernels import whitted
 from rray_tpu_torch.ops import jitter
 from rray_tpu_torch.render import integrator
@@ -94,13 +95,23 @@ def test_applicable_gating():
 
 
 def test_int_table_layout():
+    """The kernel's int tables (kernel_tables): prim kinds, each prim
+    row's pattern program start, the programs as [op, row, target, aux]
+    and the light levels."""
     _, tscene = tp.scenes(tp.EXAMPLE1, "float32")
-    _, descrs = whitted.pack_patterns(tscene)
-    ints = whitted.int_table(tscene.prim_kinds, descrs,
-                             tscene.prim_pattern_static, 4)
-    # plane (kind 1) with checker root row 0, sphere (kind 0) with solid
-    # root row 3; checker's children are rows 1 and 2.
-    assert ints == [1, 0, 0, 3, 4, 0, 0, 0, 1, -1, -1, -1, 2, -1, -1, -1]
+    kt = whitted.kernel_tables(
+        **whitted.kernel_inputs(tscene, RenderSettings()), R=8)
+    words, at = kt.tables.tolist(), dict(zip(whitted.DESC_FIELDS, kt.desc))
+    # plane (kind 1) with its checker program at 0, sphere (kind 0) with
+    # its solid at 5; the checker (4, row 0) goes on to child a (solid
+    # row 1) or to 3 (solid row 2); a ends with a jump (9) past b to 4.
+    assert words[at["kinds"]:at["kinds"] + 2] == [1, 0]
+    assert words[at["roots"]:at["roots"] + 2] == [0, 5]
+    assert words[at["prog"]:at["prog"] + 28] == [
+        4, 0, 3, 0, 0, 1, 0, 0, 9, 0, 4, 0, 0, 2, 0, 0, 13, 0, 0, 0,
+        0, 3, 0, 0, 13, 0, 0, 0]
+    assert words[at["levels"]] == 0
+    assert (kt.frames, kt.ext, kt.KB) == (0, False, 0)
 
 
 def test_cuda_only_wrapper_checks_run_before_launch():

@@ -1,8 +1,9 @@
 """The CUDA kernels' device code against the plain versions, on the CPU.
 
 kernels/csrc/whitted_device.cuh holds everything one thread of the
-whitted kernel runs (trace_ray<W, kExt> and the node, slot, shadow,
-area sample, pattern, CSG and mesh-fold functions) and the area-shadow
+whitted kernel runs (trace_ray<W, kExt, KB> and the node, slot, shadow,
+area sample, pattern program, CSG and mesh-fold functions, over the
+tables kernels/whitted.py kernel_tables packs) and the area-shadow
 kernel's per-origin body (area_count), mesh_device.cuh what one thread
 of the triangle and BVH kernels runs (Möller–Trumbore, the chunk folds,
 the heap walk, the output writer), jitter_device.cuh the area lights'
@@ -36,43 +37,62 @@ CSRC = os.path.join(BASE, "rray_tpu_torch", "kernels", "csrc")
 
 HARNESS = r"""
 #include <math.h>
+#include <string.h>
 static inline float rsqrtf(float x) { return 1.0f / sqrtf(x); }
 #define RRAY_DEVICE inline
 #define RRAY_NOINLINE
 #include "whitted_device.cuh"
 using namespace rray;
-template <int W, bool E>
-static void run(const SceneView& s, const float* const* rays, float* const* out,
-                int R, int depth, bool refl, bool refr) {
-  for (int i = 0; i < R; ++i) {
+// The kernel's scene from kernels/whitted.py kernel_tables' words; the
+// pattern stack a local array (a column of shared memory on the card).
+static SceneDesc make_desc(const int* desc, const float* texels) {
+  SceneDesc d;
+  memcpy(d.w, desc, sizeof d.w);
+  d.texels = texels;
+  return d;
+}
+template <int W, bool E, int KB>
+static void run(const Scene& s, const float* const* rays, float* const* out) {
+  float frames[MAX_FRAMES * FRAME_WORDS];
+  const Stack stk = {frames, 1};
+  for (int i = 0; i < s.at(D_R); ++i) {
     float rgb[3];
-    trace_ray<W, E>(s, v3(rays[0][i], rays[1][i], rays[2][i]),
-                    v3(rays[3][i], rays[4][i], rays[5][i]), depth, refl, refr,
-                    rgb);
+    trace_ray<W, E, KB>(s, stk, v3(rays[0][i], rays[1][i], rays[2][i]),
+                        v3(rays[3][i], rays[4][i], rays[5][i]), rgb);
     for (int c = 0; c < 3; ++c) out[c][i] = rgb[c];
   }
 }
 extern "C" void trace_all(const float* const* rays, float* const* out,
-                          const float* prims, int P, int G, const float* pats,
-                          int N, const float* lights, int L, const int* ints,
-                          const int* seeds, const float* tris, int T,
-                          const float* tboxes, int n_chunks,
-                          const float* texels, int C, int R, int depth, int W,
-                          int refl, int refr, int ext) {
-  SceneView s;
-  s.prims = prims; s.pats = pats; s.lights = lights; s.kinds = ints;
-  s.roots = ints + P; s.ptype = ints + 2 * P + G; s.pa = s.ptype + N;
-  s.pb = s.pa + N; s.levels = s.pb + N; s.pmeta = s.levels + L;
-  s.member = s.pmeta + 4 * N; s.csg_ops = s.member + P;
-  s.csg_side = s.csg_ops + C; s.seeds = seeds; s.tris = tris;
-  s.tboxes = tboxes; s.texels = texels; s.P = P; s.L = L; s.T = T;
-  s.n_chunks = n_chunks; s.C = C;
-  switch (W * 2 + (ext != 0)) {
-    case 2: run<1, false>(s, rays, out, R, depth, refl, refr); break;
-    case 8: run<4, false>(s, rays, out, R, depth, refl, refr); break;
-    case 64: run<32, false>(s, rays, out, R, depth, refl, refr); break;
-    case 3: run<1, true>(s, rays, out, R, depth, refl, refr); break;
-    case 9: run<4, true>(s, rays, out, R, depth, refl, refr); break;
+                          const float* tables, const int* desc,
+                          const float* texels, int W, int ext, int KB) {
+  const SceneDesc d = make_desc(desc, texels);
+  const Scene s = {&d, tables};
+  switch (W * 1000 + (ext != 0) * 100 + KB) {
+    case 1000: run<1, false, 0>(s, rays, out); break;
+    case 4000: run<4, false, 0>(s, rays, out); break;
+    case 32000: run<32, false, 0>(s, rays, out); break;
+    case 1108: run<1, true, 8>(s, rays, out); break;
+    case 1180: run<1, true, 80>(s, rays, out); break;
+    case 4100: run<4, true, 0>(s, rays, out); break;
+  }
+}
+// One pattern program from instruction `pc` at points pts, on a prim of
+// kind `kind` (row pw) for image leaves.
+extern "C" void pattern_all(const float* tables, const int* desc,
+                            const float* texels, int pc,
+                            const float* const* pts, int kind,
+                            const float* pw, float* const* out, int R) {
+  const SceneDesc d = make_desc(desc, texels);
+  const Scene s = {&d, tables};
+  float frames[MAX_FRAMES * FRAME_WORDS];
+  const Stack stk = {frames, 1};
+  for (int i = 0; i < R; ++i) {
+    const V3 c = eval_program<true>(s, stk, pc,
+                                    v3(pts[0][i], pts[1][i], pts[2][i]),
+                                    kind, pw);
+    out[0][i] = c.x;
+    out[1][i] = c.y;
+    out[2][i] = c.z;
   }
 }
 // Stage e's building blocks, one value per input.
@@ -85,13 +105,11 @@ extern "C" void noise_all(const float* const* pts, int octaves,
 extern "C" void quartic_all(const float* const* coeffs, float* roots,
                             int* valids, int R) {
   for (int i = 0; i < R; ++i) {
-    float r[4];
-    bool v[4];
-    solve_quartic(coeffs[0][i], coeffs[1][i], coeffs[2][i], coeffs[3][i],
-                  coeffs[4][i], r, v);
+    const Roots4 q = solve_quartic(coeffs[0][i], coeffs[1][i], coeffs[2][i],
+                                   coeffs[3][i], coeffs[4][i]);
     for (int k = 0; k < 4; ++k) {
-      roots[k * R + i] = r[k];
-      valids[k * R + i] = v[k];
+      roots[k * R + i] = q.r[k];
+      valids[k * R + i] = (q.valid >> k) & 1u;
     }
   }
 }
@@ -178,27 +196,22 @@ def _ptrs(xs):
 def _host_trace(lib, rays, prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs,
                 prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
                 tri_boxes=None, light_levels=None, seeds=None, csg=((), ()),
-                tex_tbl=None, tex_meta=()):
+                tex_tbl=None, tex_meta=(), KB=None):
+    """The host-compiled trace_ray over the kernel's staged tables, as
+    the wrapper packs them; KB overrides the CSG slot bucket."""
     R = rays[0].shape[0]
     arrs = [_np(r) for r in rays]
     outs = [np.empty(R, np.float32) for _ in range(3)]
-    tables = [_np(t) for t in (prim_tbl, pat_tbl, light_tbl, tri_tbl,
-                               tri_boxes, seeds, tex_tbl)]
-    ext = whitted.uses_ext(kinds, pat_descrs, csg)
-    ints = np.asarray(whitted.int_table(kinds, pat_descrs, prim_pat,
-                                        pat_tbl.shape[0], light_levels,
-                                        csg if ext else None, tex_meta),
-                      np.int32)
-    T = 0 if tri_tbl is None else tri_tbl.shape[0]
-    n_chunks = 0 if tri_boxes is None else tri_boxes.shape[1] - 1
+    kt = whitted.kernel_tables(
+        prim_tbl, pat_tbl, light_tbl, kinds, pat_descrs, prim_pat, depth, W,
+        has_refl, has_refr, tri_tbl, tri_boxes, light_levels=light_levels,
+        seeds=seeds, csg=csg, tex_meta=tex_meta, R=R)
+    assert kt.frames <= 7
+    tables, desc = _np(kt.tables), np.asarray(kt.desc, np.int32)
     i = ctypes.c_int
-    lib.trace_all(_ptrs(arrs), _ptrs(outs), _c(tables[0]), i(len(kinds)),
-                  i(len(prim_pat) - len(kinds)), _c(tables[1]),
-                  i(pat_tbl.shape[0]), _c(tables[2]),
-                  i(light_tbl.shape[0]), _c(ints), _c(tables[5]),
-                  _c(tables[3]), i(T), _c(tables[4]), i(n_chunks),
-                  _c(tables[6]), i(len(csg[1])), i(R), i(depth), i(W),
-                  i(has_refl), i(has_refr), i(ext))
+    lib.trace_all(_ptrs(arrs), _ptrs(outs), _c(tables), _c(desc),
+                  _c(_np(tex_tbl)), i(W), i(kt.ext),
+                  i(kt.KB if KB is None else KB))
     return np.stack(outs)
 
 
@@ -247,7 +260,13 @@ def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
                                  seed=11)
     plain = np.stack([c.numpy() for c in whitted.whitted_compact_reference(
         rays[:3], rays[3:], **args)])
-    host = _host_trace(host_lib, rays, **args)
+    # A CSG scene runs in both slot buckets (registers and the general
+    # form); both must give the same image.
+    buckets = whitted.SLOT_BUCKETS if args.get("csg", ((), ()))[1] else (None,)
+    hosts = [_host_trace(host_lib, rays, **args, KB=kb) for kb in buckets]
+    for other in hosts[1:]:
+        np.testing.assert_array_equal(other, hosts[0])
+    host = hosts[0]
     # Same operations in the same order; glibc's powf/sqrtf-based rsqrt
     # and PyTorch's vectorized pow/rsqrt may differ by an ulp, which the
     # shininess exponent can grow to ~1e-7 (measured max 1.3e-7). A
@@ -472,3 +491,145 @@ def test_noise_device_code_matches_plain_version(host_lib):
                                    octaves, torch.tensor(persistence,
                                                          dtype=torch.float32))
         np.testing.assert_array_equal(out, want.numpy())
+
+
+def _host_patterns(lib, scene, rows, pts, tmp_path=None):
+    """Every prim row's pattern program (kernels/whitted.py
+    pattern_program), evaluated by the host-compiled eval_program at
+    pattern-space points `pts`, and the plain version's tree evaluation
+    -> [(host [3, R], plain [3, R])] per prim row in `rows`."""
+    inputs = whitted.kernel_inputs(scene, RenderSettings())
+    args = {k: v for k, v in inputs.items() if k != "tex_tbl"}
+    kt = whitted.kernel_tables(**args, R=1)
+    roots = whitted.pattern_program(inputs["pat_descrs"],
+                                    inputs["prim_pat"])[1]
+    tables, desc = _np(kt.tables), np.asarray(kt.desc, np.int32)
+    texels = _np(inputs.get("tex_tbl"))
+    tex = (inputs["tex_tbl"], inputs["tex_meta"]) if texels is not None \
+        else None
+    prims, pat = inputs["prim_tbl"].tolist(), inputs["pat_tbl"].tolist()
+    P = len(inputs["kinds"])
+    arrs = [np.ascontiguousarray(c, np.float32) for c in pts]
+    tpts = whitted.V3(*(torch.from_numpy(c) for c in arrs))
+    out = []
+    for r in rows:
+        kind = inputs["kinds"][r] if r < P else -1
+        prim = np.asarray(prims[r], np.float32)
+        host = [np.empty(arrs[0].shape[0], np.float32) for _ in range(3)]
+        lib.pattern_all(_c(tables), _c(desc), _c(texels),
+                        ctypes.c_int(roots[r]), _ptrs(arrs), ctypes.c_int(kind),
+                        _c(prim), _ptrs(host), ctypes.c_int(arrs[0].shape[0]))
+        uv = (lambda q, r=r: whitted._uv_kind(inputs["kinds"][r], prims[r],
+                                              q)) if r < P else None
+        plain = whitted._eval_pattern(
+            inputs["pat_descrs"][inputs["prim_pat"][r]], pat, tpts, uv, tex)
+        out.append((np.stack(host), np.stack([c.numpy() for c in
+                                              (plain.x, plain.y, plain.z)])))
+    return out
+
+
+def _pattern_points(n=3000, seed=9):
+    return np.random.default_rng(seed).uniform(-2.5, 2.5, (3, n))
+
+
+def _assert_patterns_match(pairs):
+    # The same operations in the same order; atan2/acos in double, noise
+    # bit for bit. Only an ulp of a sqrt (PyTorch's CPU sqrt is not
+    # correctly rounded) can move a ring or uv boundary.
+    for host, plain in pairs:
+        assert np.isfinite(host).all()
+        same = (host == plain).all(0)
+        assert same.mean() >= 0.999, (same.mean(), np.abs(host - plain).max())
+
+
+@pytest.mark.parametrize("name", ["example1.yaml", "glass.yaml",
+                                  "area_light.yaml", "csg_showcase.yaml",
+                                  "csg5r", "tex5r"])
+def test_pattern_programs_match_plain_trees(host_lib, name, tmp_path):
+    """Every pattern tree of the example scenes and of config 5's csg5r
+    and tex5r variants, flattened into the kernel's program and run by
+    the host-compiled device code, equals the plain version's tree."""
+    if name == "tex5r":
+        path = ms.write_config5(str(tmp_path), name, floor_reflective=0.3,
+                                split_csg=True)
+    else:
+        path = _scene_path(name, tmp_path)
+    _, lights, shapes = load_scene_file(path)
+    scene = compile_scene(shapes, lights, dtype=torch.float32)
+    rows = range(len(whitted.kernel_inputs(scene, RenderSettings())
+                     ["prim_pat"]))
+    _assert_patterns_match(_host_patterns(host_lib, scene, rows,
+                                          _pattern_points()))
+
+
+def _texture(seed, eight_bit):
+    rng = np.random.default_rng(seed)
+    img = rng.integers(0, 256, (5, 7, 3)) / 255.0
+    return img if eight_bit else img * 0.5 + 0.123456
+
+
+def _synthetic_trees():
+    """Pattern trees the example scenes lack: the depth-8 limit with every
+    node type on the way down (and 7 pending gradient/blend frames), and
+    select nodes over image and noise leaves."""
+    from rray_tpu_torch import mathutils as mu
+    from rray_tpu_torch.scene.data import Pattern
+
+    def solid(*c):
+        return Pattern.solid(list(c))
+
+    def node(kind, a=None, b=None, s=1.0, **kw):
+        return Pattern(kind, mu.scale(s, 1.3 * s, 0.8 * s), a=a, b=b, **kw)
+
+    def noise(a, b, s=1.0):
+        return node("noise", a, b, s, scale=1.5, octaves=2, persistence=0.6)
+
+    image = Pattern("image", mu.scale(0.7, 0.7, 0.7),
+                    texture=_texture(1, True))
+    leaf = image
+    for kind in ("ring", "stripe", "perturbed", "blend", "checker", "noise",
+                 "gradient"):
+        if kind == "perturbed":
+            leaf = node(kind, leaf, scale=0.3, octaves=2, persistence=0.5)
+        elif kind == "noise":
+            leaf = noise(leaf, solid(0.2, 0.9, 0.4), 0.9)
+        elif kind == "blend":
+            leaf = node(kind, leaf, solid(0.1, 0.2, 0.3), 1.1, scale=0.3)
+        else:
+            leaf = node(kind, leaf, solid(0.9, 0.5, 0.1), 0.7)
+    deep_mixed = leaf
+    leaf = solid(0.3, 0.6, 0.9)
+    for k in range(7):  # seven nested binary nodes: seven frames
+        leaf = node("gradient" if k % 2 else "blend", leaf,
+                    solid(0.1 * k, 0.5, 0.2), 0.9 + 0.1 * k, scale=0.25)
+    deep_binary = leaf
+    float_image = Pattern("image", mu.identity(), texture=_texture(2, False))
+    selects = [
+        node("stripe", image, noise(solid(1, 0, 0), solid(0, 0, 1)), 0.6),
+        node("checker", noise(float_image, solid(0, 1, 0)), image, 0.8),
+        node("ring", noise(solid(1, 1, 0), image, 1.2), float_image, 0.5),
+    ]
+    return [deep_mixed, deep_binary] + selects
+
+
+@pytest.mark.parametrize("kind", ["sphere", "cube", "cylinder", "torus"])
+def test_pattern_programs_depth_limit_and_select_leaves(host_lib, kind):
+    """The depth-8 limit (every node type, and seven pending frames) and
+    stripe, checker and ring nodes over image and noise leaves, on four
+    prim kinds' uv mappings: the program equals the plain tree."""
+    from rray_tpu_torch.scene.data import Material, PointLight, Shape
+
+    trees = _synthetic_trees()
+    shapes = [Shape(kind, material=Material(pattern=t), minimum=-1.0,
+                    maximum=1.0, closed=True, minor_radius=0.4)
+              for t in trees]
+    scene = compile_scene(shapes, [PointLight(np.array([-5.0, 5.0, -5.0]),
+                                              np.ones(3))],
+                          dtype=torch.float32)
+    inputs = whitted.kernel_inputs(scene, RenderSettings())
+    depths = [whitted._descr_depth(d) for d in inputs["pat_descrs"]]
+    assert max(depths) == whitted.MAX_PATTERN_DEPTH
+    assert whitted.pattern_program(inputs["pat_descrs"],
+                                   inputs["prim_pat"])[2] == 7
+    _assert_patterns_match(_host_patterns(host_lib, scene, range(len(trees)),
+                                          _pattern_points(seed=4)))
