@@ -13,11 +13,12 @@ shapes the main path gives it, drives the main path
 scenes (config 3, examples/area_light.yaml, also at aa=3) and two
 variants of config 5, and config 5 itself (examples/csg_showcase.yaml:
 CSG, a torus, Perlin noise, an image texture) at 1920x1080, aa=5,
-counting each kernel's launches per scene, and times kernels and plain
-versions (CUDA events; each kernel's own device time with
-torch.profiler), config 5's main-path launch on its full 9600x5400
-raster included. Bounds count the least work of every level's live
-path rows. It prints the card, one line per phase, a JSON line
+counting each kernel's launches per scene (and the BVH trees built:
+one per scene), and times kernels and plain versions (CUDA events; each
+kernel's own device time with torch.profiler), config 5's main-path
+launch on its full 9600x5400 raster included, and the BVH kernel's on
+area4b's 2.4 M-ray shadow call and on a 49,612-triangle mesh. Bounds
+count the least work of every level's live path rows. It prints the card, one line per phase, a JSON line
 describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before
 the last line; without CUDA it exits 1 at once.
 
@@ -35,7 +36,11 @@ mesh benchmark cells; the area scenes swap the point light for config
     area21  20 spheres (5x4) over a reflective  fast node + area-shadow
             floor: 21 analytic prims            kernel, depth 5
     area4b  mesh4b under the area light         fast node: BVH any-hit
-                                                per shadow sample
+                                                per row of shadow samples
+    mesh50b one 49,612-triangle sphere          BVH kernel alone, tables
+                                                past shared memory
+    area801 800 spheres over a reflective       area-shadow kernel alone,
+            floor, area light                   prim rows past 327
     csg5r   config 5, a perturbed stripe on the whitted kernel, stages c+e,
             torus, reflective floor, the area   depth 5
             light
@@ -101,6 +106,12 @@ PEAK_INT_PER_S = 33.5e12
 # same affine plus ~20; a ray-triangle test is Moller-Trumbore (~50:
 # 9+5 cross/det, 1 div, 3+6 u, 9+6 q/v, 6 t, ~11 compares and sums).
 OPS_PRIM, OPS_OCCLUDE, OPS_TRI = 60, 56, 50
+# The area-shadow function's least work splits an occlusion test: the
+# origin's object-space point (affine of a point, 18) once per origin
+# and prim, then per sample the direction's affine (15) and the ~20 of
+# the slot form.
+OPS_ORIGIN_AFFINE = 18
+OPS_SEGMENT_TEST = OPS_OCCLUDE - OPS_ORIGIN_AFFINE
 # An area-light shadow sample, counted from jitter_device.cuh and
 # area_sample: the hash base per origin (3 fmix32 of 8 integer ops, 3
 # products, 3 xors: 30), two draws per sample (xor, product, fmix32,
@@ -138,6 +149,11 @@ SCENES = {
     "area4": dict(lat_lon=(11, 11), area_level=5),
     "area21": dict(lat_lon=None, spheres=20, reflective=0.3, area_level=5),
     "area4b": dict(lat_lon=(40, 40), area_level=5),
+}
+# Scenes of the kernel phases only: mesh_scenes.write_scene arguments.
+PHASE_SCENES = {
+    "mesh50b": dict(lat_lon=(158, 158)),
+    "area801": dict(lat_lon=None, spheres=800, reflective=0.3, area_level=5),
 }
 # Config 5's variants: mesh_scenes.write_config5 arguments, by name.
 CONFIG5 = {
@@ -363,7 +379,7 @@ def plain_kernels():
 
     def plain(fn):
         return lambda *a, **k: fn(*a, **{key: v for key, v in k.items()
-                                         if key != "leaf"}, chunk=128)
+                                         if key != "tables"}, chunk=128)
 
     saved = (triangles.closest_triangle, triangles.any_triangle,
              bvh.bvh_closest_triangle, analytic.area_shadow_fraction)
@@ -685,19 +701,82 @@ def main_launch_phase(torch, path, results, aa=5, chunk=1920 * 1080):
                                    bound=bound, max_abs=max_abs)
 
 
-def area_phase(torch, name, path, results):
+def area_work(torch, args):
+    """Least work of area_shadow_fraction on these inputs -> (float ops,
+    integer ops, counts, the PR 3 count's float ops): every origin's hash
+    base and every sample's draws and segment; a blocked sample one
+    occlusion test; an open sample a test of every prim its segment
+    enters (its padded world box, analytic.occluder_bounds; unbounded
+    prims always), the origin's
+    object-space point once per origin and prim so tested. PR 3 counted
+    P full occlusion tests per open sample."""
+    from rray_tpu_torch.kernels import analytic
+    from rray_tpu_torch.ops import jitter
+    from rray_tpu_torch.ops.vec import V3
+
+    over, seed, light, params, kinds, level = args[:6]
+    R, P, n = over[0].shape[0], len(kinds), level * level
+    box = analytic.occluder_bounds(params, kinds)
+    lo, hi, bounded = box[:, :3], box[:, 3:6], box[:, 6] != 0
+    o = V3(*over)
+    hb = jitter.point_base(seed, o.x, o.y, o.z)
+    cuv, rows = light.tolist(), params.tolist()
+    counts = dict(blocked=0, segment_tests=0, origin_prims=0)
+    for r0 in range(0, R, RAY_STEP * 8):
+        oc = V3(*(c[r0:r0 + RAY_STEP * 8] for c in over))
+        hc = hb[r0:r0 + RAY_STEP * 8]
+        tested = torch.zeros((oc.x.shape[0], P), dtype=torch.bool,
+                             device=DEVICE)
+        for s in range(n):
+            d, dist = analytic.area_sample(cuv, hc, s, level, oc)
+            occ = torch.zeros_like(oc.x, dtype=torch.bool)
+            for kind, p in zip(kinds, rows):
+                occ = occ | analytic._occludes(kind, p.__getitem__, oc.x,
+                                               oc.y, oc.z, d.x, d.y, d.z, dist)
+            inv = [1.0 / torch.where(c.abs() < 1e-30,
+                                     torch.where(c < 0, -1e-30, 1e-30), c)
+                   for c in (d.x, d.y, d.z)]
+            oo = (oc.x, oc.y, oc.z)
+            t1 = [(lo[None, :, j] - oo[j][:, None]) * inv[j][:, None]
+                  for j in range(3)]
+            t2 = [(hi[None, :, j] - oo[j][:, None]) * inv[j][:, None]
+                  for j in range(3)]
+            tmin = torch.stack([torch.minimum(a, b) for a, b in zip(t1, t2)]
+                               ).amax(0)
+            tmax = torch.stack([torch.maximum(a, b) for a, b in zip(t1, t2)]
+                               ).amin(0)
+            enter = ((tmin <= tmax) & (tmax >= 0.0) & (tmin < dist[:, None])
+                     | ~bounded[None, :]) & ~occ[:, None]
+            counts["blocked"] += int(occ.sum())
+            counts["segment_tests"] += int(enter.sum())
+            tested |= enter
+        counts["origin_prims"] += int(tested.sum())
+    samples = R * n
+    n_ops = (samples * OPS_SAMPLE_FP + counts["blocked"] * OPS_OCCLUDE
+             + counts["segment_tests"] * OPS_SEGMENT_TEST
+             + counts["origin_prims"] * OPS_ORIGIN_AFFINE)
+    old_ops = (samples * OPS_SAMPLE_FP + counts["blocked"] * OPS_OCCLUDE
+               + (samples - counts["blocked"]) * P * OPS_OCCLUDE)
+    n_int = R * OPS_HASH_BASE + samples * OPS_SAMPLE_INT
+    return n_ops, n_int, counts, old_ops
+
+
+def area_phase(torch, name, path, results, size=(WIDTH, HEIGHT),
+               timed=True):
     """The area-shadow kernel (B5) against its plain version on the
     inputs the fast node gives it at the primary level of one scene: its
-    first call's origins, seed, light and prim rows."""
+    first call's origins, seed, light and prim rows (camera rays at
+    `size`)."""
     from rray_tpu_torch.config import RenderSettings
     from rray_tpu_torch.kernels import analytic
     from rray_tpu_torch.ops import jitter
     from rray_tpu_torch.render import integrator
 
-    scene, (ro, rd) = camera_scene(path, torch)
+    scene, (ro, rd) = camera_scene(path, torch, size=size)
     calls = []
     kernel = analytic.area_shadow_fraction
-    analytic.area_shadow_fraction = lambda *a: calls.append(a) or kernel(*a)
+    analytic.area_shadow_fraction = lambda *a, **k: calls.append(
+        a + (k["bounds"],)) or kernel(*a, **k)
     try:
         integrator._fast_node_eval(
             scene, ro, rd, RenderSettings(),
@@ -713,22 +792,73 @@ def area_phase(torch, name, path, results):
     kern, plain = fn(), plain_fn()
     torch.cuda.synchronize()
     err = compare_fractions(torch, kern, plain, f"area_shadow_fraction {name}")
-    # Least work: every origin's hash base, every sample's draws and
-    # segment, one occlusion test for a blocked sample and P for an open
-    # one. Bytes: origins in, fraction out, the light and prim rows.
-    over, _, _, params, kinds, level = args
-    R, P, n = over[0].shape[0], len(kinds), level * level
-    samples = R * n
-    n_blocked = int(torch.round(plain * n).sum())
-    n_ops = (samples * OPS_SAMPLE_FP + (samples - n_blocked) * P * OPS_OCCLUDE
-             + n_blocked * OPS_OCCLUDE)
-    n_int = R * OPS_HASH_BASE + samples * OPS_SAMPLE_INT
-    n_bytes = 4 * (4 * R + params.numel() + 9 + P)
+    if not timed:
+        return
+    # Bytes: origins in, fraction out, the light and prim rows.
+    over, _, _, params, kinds, level = args[:6]
+    R, P = over[0].shape[0], len(kinds)
+    n_ops, n_int, counts, old_ops = area_work(torch, args)
+    n_bytes = 4 * (4 * R + params.numel() + 9 + P)  # the function's inputs
+    old = bound_ms(n_bytes, old_ops, n_int)
     print(f"work area_shadow_fraction {name}: {R} origins, {P} prims, "
-          f"{samples} samples, {n_blocked} blocked")
+          f"{R * level * level} samples, {counts['blocked']} blocked, "
+          f"{counts['segment_tests']} open segment-prim tests where the "
+          f"segment enters the prim's bounds, {counts['origin_prims']} "
+          f"origin-prim transforms; PR 3's count {old[0]:.5f} ms "
+          f"({old[2]})")
     results.setdefault("area_shadow_fraction", []).append(dict(
         what=name, fn=fn, plain_fn=plain_fn, max_abs=err,
         bound=bound_ms(n_bytes, n_ops, n_int)))
+
+
+def bvh_shadow_call_phase(torch, name, path, results):
+    """The BVH kernel (B4) on the first any-hit call the fast node makes
+    for an area light over a mesh (one row of level samples for every
+    origin: level x 480 k rays), with the scene's tables, against its
+    plain version."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.kernels import bvh
+    from rray_tpu_torch.ops import jitter
+    from rray_tpu_torch.render import integrator
+
+    scene, (ro, rd) = camera_scene(path, torch)
+    calls = []
+    kernel = bvh.bvh_closest_triangle
+
+    def spy(*a, **k):
+        if k.get("any_hit"):
+            calls.append((a, k))
+        return kernel(*a, **k)
+
+    bvh.bvh_closest_triangle = spy
+    try:
+        integrator._fast_node_eval(
+            scene, ro, rd, RenderSettings(),
+            jitter.seed_table(0, 0, len(scene.lights))[0].tolist())
+    finally:
+        bvh.bvh_closest_triangle = kernel
+    if not calls:
+        fail(f"{name}: the fast node made no BVH any-hit call")
+    a, k = calls[0]
+    fn = functools.partial(bvh.bvh_closest_triangle, *a, **k)
+    plain_fn = functools.partial(
+        bvh.bvh_closest_triangle_reference, *a, chunk=64,
+        **{key: v for key, v in k.items() if key != "tables"})
+    dist = k["dist"]
+    kf, pf = (fn()[0] < dist).int(), (plain_fn()[0] < dist).int()
+    torch.cuda.synchronize()
+    R = dist.shape[0]
+    err = compare_flags(torch, kf, pf,
+                        f"bvh_closest_triangle {name} shadow call ({R} rays)")
+    geom, T = a[2], a[2][0].shape[0]
+    occluded = pf != 0
+    tests = triangle_tests(torch, (a[0], a[1]), geom,
+                           torch.where(occluded, -math.inf, dist)) \
+        + int(occluded.sum())
+    results.setdefault("bvh_closest_triangle", []).append(dict(
+        what=f"{name} shadow call ({R} rays)", fn=fn, plain_fn=plain_fn,
+        max_abs=err,
+        bound=bound_ms(4 * (7 * R + 9 * T) + 4 * R, tests * OPS_TRI)))
 
 
 def triangle_phase(torch, name, path, results):
@@ -747,11 +877,11 @@ def triangle_phase(torch, name, path, results):
     use_bvh = T >= settings.bvh_min_tris
     t_an = soa.analytic_closest(scene, ro, rd)[0]
     tri = soa._tri_comps(scene, normals=True)
-    aux = (scene.tri_prim.float(), scene.tri_class.float())
+    aux = soa._tri_aux(scene)
     if use_bvh:
+        tables = soa._bvh_tables(scene)
         closest = functools.partial(bvh.bvh_closest_triangle, *rays, tri,
-                                    dist=t_an, aux=aux,
-                                    leaf=settings.bvh_leaf)
+                                    dist=t_an, aux=aux, tables=tables)
         closest_plain = functools.partial(
             bvh.bvh_closest_triangle_reference, *rays, tri, dist=t_an,
             aux=aux, chunk=128)
@@ -787,8 +917,7 @@ def triangle_phase(torch, name, path, results):
     geom = tri[:9]
     if use_bvh:
         any_k = functools.partial(bvh.bvh_closest_triangle, *srays, geom,
-                                  dist=dist, any_hit=True,
-                                  leaf=settings.bvh_leaf)
+                                  dist=dist, any_hit=True, tables=tables)
         any_p = functools.partial(bvh.bvh_closest_triangle_reference,
                                   *srays, geom, dist=dist, any_hit=True,
                                   chunk=128)
@@ -856,17 +985,21 @@ def main_path(torch, np, scene_paths):
 
     from rray_tpu_torch import api
 
+    from rray_tpu_torch.kernels import bvh
+
     images, total = {}, launch_counts(reset=True)
     with tempfile.TemporaryDirectory() as tmp:
         for name, aa, expect in RUNS:
             w, h = size_of(name)
             png = os.path.join(tmp, f"{name}_aa{aa}.png")
+            builds = bvh.tree_builds
             launch_counts(reset=True)
             t0 = time.perf_counter()
             image = api.render_scene_from_file(scene_paths[name], w, h, png,
                                                aa=aa, device=DEVICE)
             wall = time.perf_counter() - t0
             counts = launch_counts()
+            builds = bvh.tree_builds - builds
             shape = np.asarray(Image.open(png)).shape
             if shape != (h, w, 4):
                 fail(f"{png}: PNG shape {shape}")
@@ -875,8 +1008,12 @@ def main_path(torch, np, scene_paths):
             images[(name, aa)] = image
             print(f"main path {name} {w}x{h} aa={aa}: PNG {shape}, "
                   f"{wall * 1e3:.1f} ms wall, PNG write included, launches "
-                  f"{json.dumps({k: n for k, n in counts.items() if n})} "
-                  f"[{card_state()}]")
+                  f"{json.dumps({k: n for k, n in counts.items() if n})}, "
+                  f"BVH trees built {builds} [{card_state()}]")
+            if builds != (1 if counts["bvh_closest_triangle"] else 0):
+                fail(f"{name} aa={aa}: {builds} BVH trees built for "
+                     f"{counts['bvh_closest_triangle']} BVH launches (one "
+                     f"per scene)")
             for kname in expect:
                 if counts[kname] < 1:
                     fail(f"the main path on {name} aa={aa} launched {kname} "
@@ -1060,7 +1197,7 @@ def main() -> int:
     tmp = tempfile.TemporaryDirectory()
     scene_paths = {name: os.path.join(ROOT, path) for name, path in EXAMPLES}
     scene_paths.update({name: mesh_scenes.write_scene(tmp.name, name, **kw)
-                        for name, kw in SCENES.items()})
+                        for name, kw in {**SCENES, **PHASE_SCENES}.items()})
     scene_paths.update({name: mesh_scenes.write_config5(tmp.name, name, **kw)
                         for name, kw in CONFIG5.items()})
     for name, want in (("csg", "kernel"), ("csg5r", "kernel"),
@@ -1079,7 +1216,11 @@ def main() -> int:
     main_launch_phase(torch, scene_paths["csg"], results)
     for name in ("mesh9", "mesh4b"):
         triangle_phase(torch, name, scene_paths[name], results)
+    bvh_shadow_call_phase(torch, "area4b", scene_paths["area4b"], results)
+    triangle_phase(torch, "mesh50b", scene_paths["mesh50b"], results)
     area_phase(torch, "area21", scene_paths["area21"], results)
+    area_phase(torch, "area801 200x150", scene_paths["area801"], results,
+               (200, 150), timed=False)
 
     images, counts = main_path(torch, np, scene_paths)
     # Main-path images against the plain versions': the whitted kernel's
@@ -1137,7 +1278,7 @@ def main() -> int:
               f"[{card}]")
     device_names = {"closest_triangle": "closest_kernel",
                     "any_triangle": "any_kernel",
-                    "bvh_closest_triangle": "bvh_kernel",
+                    "bvh_closest_triangle": "bvh_",
                     "area_shadow_fraction": "area_kernel"}
     for kname, dname in device_names.items():
         for res in results[kname]:

@@ -47,7 +47,9 @@ class RenderSettings:
     # Meshes with at least this many triangles take the BVH kernel on the
     # fast node; smaller ones the linear chunk kernels.
     bvh_min_tris: int = 1024
-    # BVH leaf size (triangles per leaf; auto_leaf may raise it).
+    # rray_tpu's BVH leaf size (triangles per leaf, raised to fit its
+    # TPU kernel's 2048 leaves). The port's card tree does not read it: its
+    # leaves hold kernels/bvh.py LEAF triangles, whatever the mesh size.
     bvh_leaf: int = 128
     # Compact-wavefront capacity: max live paths PER PIXEL per depth
     # level when both reflection and refraction spawn; a pixel holding

@@ -6,24 +6,31 @@ Port of rray_tpu's Pallas kernel `rray_tpu/kernels/analytic.py::
 area_shadow_fraction` (ROADMAP B5): for each shadow origin, the share of
 an area light's level^2 jittered samples (light.rs:47-65,
 scene.rs:181-214) that some analytic prim blocks. The torch fast node
-calls it for area lights in scenes without a mesh. The CUDA source is
-kernels/csrc/area.cu: one thread per origin, the samples a loop in
-registers, the prims' parameter rows in shared memory (in global memory
-past 722 prims, so any number of prims runs in the kernel).
+calls it for area lights in scenes without a mesh, with the prim rows
+and their padded world boxes built once per scene (`scene_occluders`).
+The CUDA source is kernels/csrc/area.cu: one thread per origin,
+prim-major over chunks of 16 samples (`area_count`),
+skipping a bounded prim whose box misses the box of the origin and the
+light (a conservative cull: the count is the same), the prims' rows in
+shared memory (in global memory past 327 prims, so any number of prims
+runs in the kernel).
 
 One deliberate difference from the TPU kernel's signature: it reads a
 [2n, R] draw array, while this function takes the int32 seed and draws
 from the point-keyed hash of ops/jitter.py (the kernel hashes in
 registers). The function is the same: the shadowed fraction of the
 points for that seed, equal to rray_tpu's XLA loop fed the same seed.
-Both the kernel and the plain version count, and the wrapper divides by
-n (`count / n`, as rray_tpu's caller divides outside its kernel).
+Both the kernel and the plain version count, then divide by n once
+(`count / n`, as rray_tpu's caller divides outside its kernel).
 
 `_occludes` is the predicate both area kernels and the whitted kernel's
 shadow rays use; its CUDA form is `occludes` in
 kernels/csrc/whitted_device.cuh.
 """
 from __future__ import annotations
+
+import functools
+import math
 
 import torch
 
@@ -33,6 +40,8 @@ from ..scene import data as sd
 
 OCCLUSION_KINDS = (sd.SPHERE, sd.PLANE, sd.CUBE, sd.CYLINDER, sd.CONE)
 N_PARAMS = 16  # 12 affine + up to 3 extras, padded
+N_BOUNDS = 8   # lo xyz, hi xyz, bounded, padding
+BOUND_PAD = 1e-4  # relative padding of the occluders' world boxes
 
 # Kernel launches made by `area_shadow_fraction` in this process (CPU
 # calls, which run the plain version, do not count).
@@ -94,6 +103,53 @@ def occlusion_params(scene, pids):
     return torch.stack(rows)
 
 
+def occluder_bounds(params, kinds):
+    """[P, 8] float32 world boxes of the occluders from their rows: lo
+    xyz, hi xyz (the object-space extent through the inverse of the
+    row's affine, in float64, padded by BOUND_PAD * max(1, |x|), far
+    more than float32 rounds), then 1 for a bounded prim (sphere, cube,
+    cylinder or cone with finite ends), 0 for the rest (planes), whose
+    box is never read."""
+    p = params.detach().to("cpu", torch.float64)
+    out = torch.zeros((len(kinds), N_BOUNDS), dtype=torch.float64)
+    for k, kind in enumerate(kinds):
+        y0, y1 = float(p[k, 12]), float(p[k, 13])
+        m = max(abs(y0), abs(y1))
+        ext = {sd.SPHERE: ((-1.0, 1.0),) * 3, sd.CUBE: ((-1.0, 1.0),) * 3,
+               sd.CYLINDER: ((-1.0, 1.0), (y0, y1), (-1.0, 1.0)),
+               sd.CONE: ((-m, m), (y0, y1), (-m, m))}.get(kind)
+        if ext is None or not all(map(math.isfinite, sum(ext, ()))):
+            continue
+        affine = p[k, :12].reshape(3, 4)
+        inv = torch.linalg.inv(affine[:, :3])
+        corners = torch.tensor([[x, y, z] for x in ext[0] for y in ext[1]
+                                for z in ext[2]], dtype=torch.float64)
+        world = (corners - affine[:, 3]) @ inv.T
+        pad = BOUND_PAD * torch.clamp_min(world.abs().amax(0), 1.0)
+        out[k, :3] = world.amin(0) - pad
+        out[k, 3:6] = world.amax(0) + pad
+        out[k, 6] = 1.0
+    return out.float().to(params.device)
+
+
+def scene_occluders(scene):
+    """The scene's prims as the area-shadow kernel takes them: ([P, 16]
+    rows of `occlusion_params`, the P kinds, [P, 8] `occluder_bounds`),
+    built once per scene."""
+    def make():
+        params = occlusion_params(scene, range(len(scene.prim_kinds)))
+        kinds = tuple(scene.prim_kinds)
+        return params, kinds, occluder_bounds(params, kinds)
+
+    return scene.cached("occluders", make)
+
+
+@functools.lru_cache(maxsize=16)
+def _kinds_on(kinds, device):
+    """The kinds as an int32 tensor on `device`, once per kinds tuple."""
+    return torch.tensor(kinds, dtype=torch.int32, device=device)
+
+
 def area_sample(cuv, hb, s, level: int, over: V3):
     """Sample s of an area light's level x level jittered grid
     (light.rs:47-65; rray_tpu whitted.py:1149-1163, integrator.py
@@ -115,10 +171,12 @@ def area_sample(cuv, hb, s, level: int, over: V3):
 
 
 def area_shadow_fraction_reference(over_comps, seed: int, light_params,
-                                   prim_params, kinds, level: int):
+                                   prim_params, kinds, level: int,
+                                   bounds=None):
     """Plain PyTorch version of `area_shadow_fraction` (the sample loop
     of rray_tpu integrator.py:107-148, one sample per step; the count is
-    an exact integer sum in any order)."""
+    an exact integer sum in any order). It tests every prim: `bounds`
+    only let the kernel skip work."""
     over = V3(*over_comps)
     hb = jitter.point_base(seed, over.x, over.y, over.z)
     cuv = light_params.tolist()
@@ -135,7 +193,8 @@ def area_shadow_fraction_reference(over_comps, seed: int, light_params,
     return div(count, level * level)
 
 
-def _launch(over_comps, seed, light_params, prim_params, kinds, level):
+def _launch(over_comps, seed, light_params, prim_params, kinds, level,
+            bounds=None):
     global launches
     from . import build
 
@@ -148,33 +207,37 @@ def _launch(over_comps, seed, light_params, prim_params, kinds, level):
     if P == 0 or any(k not in OCCLUSION_KINDS for k in kinds):
         raise ValueError(f"the kernel takes one or more analytic sphere/"
                          f"plane/cube/cylinder/cone prims: {kinds}")
+    if bounds is None:
+        bounds = occluder_bounds(prim_params, kinds)
+    build.check_arg("bounds", bounds, (P, N_BOUNDS), device)
     if level < 1 or not -2 ** 31 <= int(seed) < 2 ** 31:
         raise ValueError(f"level={level}, seed={seed}: the kernel takes a "
                          "level >= 1 and an int32 seed")
-    kinds_t = torch.tensor(kinds, dtype=torch.int32, device=device)
-    count = torch.empty(R, dtype=torch.float32, device=device)
+    kinds_t = _kinds_on(kinds, device)
+    frac = torch.empty(R, dtype=torch.float32, device=device)
     ptr = build.ptr
     with torch.cuda.device(device):
         rc = build.load_library().area_shadow_launch(
             *(ptr(c) for c in over_comps), ptr(light_params),
-            ptr(prim_params), ptr(kinds_t), P, level, int(seed), ptr(count),
-            R, build.stream(device))
+            ptr(prim_params), ptr(bounds), ptr(kinds_t), P, level, int(seed),
+            ptr(frac), R, build.stream(device))
     build.check_launch("area_shadow_fraction", rc)
     launches += 1
-    return div(count, level * level)
+    return frac
 
 
 def area_shadow_fraction(over_comps, seed: int, light_params, prim_params,
-                         kinds, level: int):
+                         kinds, level: int, bounds=None):
     """Shadowed fraction over level^2 jittered samples -> [R].
 
     over_comps: 3-tuple of [R] shadow origins; seed: the int32 jitter
     seed (ops/jitter.py seed_table); light_params: [9] corner, uvec,
     vvec; prim_params: [P, 16] rows of `occlusion_params`; kinds: the P
-    prim kinds (OCCLUSION_KINDS). CPU tensors run the plain version;
-    CUDA tensors launch the kernel (float32 only)."""
+    prim kinds (OCCLUSION_KINDS); bounds: their `occluder_bounds` (made
+    here when not given). CPU tensors run the plain version; CUDA
+    tensors launch the kernel (float32 only)."""
     if over_comps[0].device.type == "cpu":
         return area_shadow_fraction_reference(over_comps, seed, light_params,
                                               prim_params, kinds, level)
     return _launch(over_comps, seed, light_params, prim_params, tuple(kinds),
-                   level)
+                   level, bounds)

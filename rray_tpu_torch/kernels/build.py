@@ -33,7 +33,8 @@ _UNITS = (("whitted.cu", ()),
           ("triangles.cu", ()), ("bvh.cu", ()), ("area.cu", ()))
 _SOURCES = ("whitted.cu", "triangles.cu", "bvh.cu", "area.cu",
             "vec_device.cuh", "mesh_device.cuh", "whitted_device.cuh",
-            "jitter_device.cuh", "quartic_device.cuh", "noise_device.cuh")
+            "jitter_device.cuh", "quartic_device.cuh", "noise_device.cuh",
+            "stage_device.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "rray_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -128,11 +129,11 @@ def load_library():
             [ptr] * 7 + [ptr, i32, i32, ptr, i32, i32, ptr, i32, ptr])
         lib.bvh_closest_launch.restype = i32
         lib.bvh_closest_launch.argtypes = (
-            [ptr] * 7 + [ptr, i32, i32, ptr, ptr] + [i32] * 6
-            + [ptr, ptr, i32, ptr])
+            [ptr] * 7 + [ptr] + [i32] * 6 + [ptr] + [i32] * 3
+            + [ptr, ptr, i32, i32, ptr, ptr])
         lib.area_shadow_launch.restype = i32
         lib.area_shadow_launch.argtypes = (
-            [ptr] * 6 + [i32] * 3 + [ptr, i32, ptr])
+            [ptr] * 7 + [i32] * 3 + [ptr, i32, ptr])
         lib.whitted_error_string.restype = ctypes.c_char_p
         lib.whitted_error_string.argtypes = [i32]
         _LIB = lib

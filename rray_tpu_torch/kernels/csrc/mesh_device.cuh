@@ -5,15 +5,14 @@
 // where the table carries them, the vertex normals n1 n2 n3 (9-17), then
 // payload columns. One thread tests one ray against rows in index order;
 // the threads of a warp that test the same row read one broadcast row.
-// Box tables are component-major [6, n] (lo xyz, hi xyz), as rray_tpu
-// lays them out for SMEM.
+// The chunk kernels' box tables are component-major [6, n] (lo xyz, hi
+// xyz), as rray_tpu lays them out for SMEM; the BVH kernel's tree has its
+// own layout (below).
 #pragma once
 
 #include "vec_device.cuh"
 
 namespace rray {
-
-constexpr int BVH_STACK = 32;  // heap depth <= log2(2048 leaves) + 1 = 12
 
 struct TriHit {
   float t, u, v;  // t = +inf: no hit
@@ -153,58 +152,163 @@ RRAY_DEVICE bool any_chunks(const float* tris, int ncols, int T,
   return false;
 }
 
-// Closest hit with t < limit (any_hit: t = 0 at the first hit with
-// t < limit) over rray_tpu's implicit-heap BVH: node n's children are 2n
-// and 2n + 1, leaves are the nodes [Lp, 2Lp) and leaf n covers rows
-// [(n - Lp) * leaf, + leaf); node boxes [6, 2Lp], sub-leaf boxes every
-// `subl` rows [6, Lp * leaf / subl]. The walk keeps its own stack and
-// visits the left child first, as the TPU kernel does; a hit replaces
-// the best on (t, index), so the lowest index wins ties in any order.
-// Subtrees that hold no row (padding leaves) are skipped.
-RRAY_DEVICE TriHit bvh_walk(const float* tris, int ncols, int T,
-                            const float* nodes, const float* subs, int Lp,
-                            int leaf, int subl, V3 o, V3 d, float limit,
-                            bool any_hit) {
-  TriHit h = {INFINITY, 0.0f, 0.0f, 0};
-  V3 inv = v3(inv_dir(d.x), inv_dir(d.y), inv_dir(d.z));
-  const int nn = 2 * Lp;
-  const int ns = Lp * (leaf / subl);
-  int stack[BVH_STACK];
-  int sp = 0;
-  stack[sp++] = 1;
-  while (sp > 0) {
-    const int n = stack[--sp];
-    int first = n;  // leftmost leaf under n
-    while (first < Lp) first <<= 1;
-    if ((first - Lp) * leaf >= T) continue;
-    if (!box_enter(nodes, nn, n, o, inv, fminf(h.t, limit))) continue;
-    if (n < Lp) {
-      stack[sp++] = 2 * n + 1;
-      stack[sp++] = 2 * n;
-      continue;
-    }
-    const int s0 = (n - Lp) * (leaf / subl);
-    for (int s = s0; s < s0 + leaf / subl; ++s) {
-      if (!box_enter(subs, ns, s, o, inv, fminf(h.t, limit))) continue;
-      const int end = (s + 1) * subl < T ? (s + 1) * subl : T;
-      for (int i = s * subl; i < end; ++i) {
-        float u, v;
-        float t = mt(tris + (size_t)i * ncols, o, d, &u, &v);
-        if (!(t < limit)) continue;
-        if (any_hit) {
-          h.t = 0.0f;
-          return h;
-        }
-        if (t < h.t || (t == h.t && i < h.idx)) {
-          h.t = t;
-          h.u = u;
-          h.v = v;
-          h.idx = i;
-        }
-      }
+// ---- the BVH kernel's tree (kernels/bvh.py card_tables) -----------------
+// rray_tpu's implicit heap over Morton-ordered leaves of `leaf` rows:
+// node n's children are 2n and 2n + 1, the leaves are the nodes [Lp, 2Lp)
+// and leaf c covers rows [(c - Lp) * leaf, + leaf) (the last live leaf
+// fewer, up to T). Node rows are BVH_NODE floats, 64 B, four 16-byte
+// loads: the x, y and z slabs of both children (left lo, left hi, right
+// lo, right hi), then the children's live row counts as int32 bits. Row
+// 0 holds the root's slabs in the left places. A child without rows
+// (padding) has count 0 and is never entered, so no box is inverted.
+// Walk rows are BVH_TRI floats, 48 B: p1 e1 e2 and three zeros.
+constexpr int BVH_NODE = 16;
+constexpr int BVH_TRI = 12;
+
+// Slab test of one box (box_enter's expressions): entered in front of
+// the ray and before `bound`; *tnear its entry t.
+RRAY_DEVICE bool slab(float lx, float hx, float ly, float hy, float lz,
+                      float hz, V3 o, V3 inv, float bound, float* tnear) {
+  float tx1 = (lx - o.x) * inv.x;
+  float tx2 = (hx - o.x) * inv.x;
+  float ty1 = (ly - o.y) * inv.y;
+  float ty2 = (hy - o.y) * inv.y;
+  float tz1 = (lz - o.z) * inv.z;
+  float tz2 = (hz - o.z) * inv.z;
+  float tmin = fmaxf(fmaxf(fminf(tx1, tx2), fminf(ty1, ty2)), fminf(tz1, tz2));
+  float tmax = fminf(fminf(fmaxf(tx1, tx2), fmaxf(ty1, ty2)), fmaxf(tz1, tz2));
+  *tnear = tmin;
+  return tmin <= tmax && tmax >= 0.0f && tmin < bound;
+}
+
+// Child `side` (0 left, 1 right) of node row `row`, against `bound`.
+RRAY_DEVICE bool child_enter(const float* row, int side, V3 o, V3 inv,
+                             float bound) {
+  float t;
+  const int k = 2 * side;
+  return slab(row[k], row[k + 1], row[4 + k], row[5 + k], row[8 + k],
+              row[9 + k], o, inv, bound, &t);
+}
+
+// Votes of a warp's lanes: on the card every lane of a warp walks the
+// BVH together (bvh_walk), on the host a walk is one lane.
+#ifdef __CUDACC__
+RRAY_DEVICE bool warp_any(bool x) { return __any_sync(0xffffffffu, x); }
+RRAY_DEVICE int warp_count(bool x) {
+  return __popc(__ballot_sync(0xffffffffu, x));
+}
+#else
+RRAY_DEVICE bool warp_any(bool x) { return x; }
+RRAY_DEVICE int warp_count(bool x) { return x ? 1 : 0; }
+#endif
+
+// Rows [r0, r1) of the walk table, for this lane where `on`, into h
+// (closest: on (t, index), so the lowest index wins ties in any visit
+// order). Returns whether some row has t < limit (any-hit: the lane is
+// done).
+RRAY_DEVICE bool leaf_rows(const float* walk, int r0, int r1, V3 o, V3 d,
+                           float limit, bool any_hit, bool on, TriHit* h) {
+  bool hit = false;
+  for (int i = r0; i < r1; ++i) {
+    const float* r = walk + (size_t)i * BVH_TRI;
+    const F4 a = ld4(r), b = ld4(r + 4), c = ld4(r + 8);
+    if (!on || (hit && any_hit)) continue;
+    const float g[9] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w, c.x};
+    float u, v;
+    const float t = mt(g, o, d, &u, &v);
+    if (!(t < limit)) continue;
+    hit = true;
+    if (!any_hit && (t < h->t || (t == h->t && i < h->idx))) {
+      h->t = t;
+      h->u = u;
+      h->v = v;
+      h->idx = i;
     }
   }
-  return h;
+  return hit;
+}
+
+// Closest hit with t < limit (any_hit: t = 0 at the first hit with
+// t < limit) over the card's tree, for this lane where `active`. The
+// lanes of a warp walk together: one visit reads a node row once for the
+// warp (a broadcast), every lane tests its ray against both children's
+// boxes, and the warp goes on to the children some lane enters, the one
+// nearer for more lanes first; the other is marked in a 32-bit trail,
+// one bit per depth, so the walk keeps no stack: in the implicit heap
+// the pending node at depth k is the sibling of the current node's
+// ancestor at that depth. A leaf's rows are read once for the warp and
+// tested by the lanes that enter its box. Backtracking takes the deepest
+// marked depth and tests that node's box again for every lane against
+// its best t since (closest-hit). Boxes are culled per lane against
+// min(its best t, limit); a lane tests a superset of the rows its own
+// walk would, which changes no result.
+RRAY_DEVICE TriHit bvh_walk(const float* nodes, const float* walk, int T,
+                            int Lp, int leaf, V3 o, V3 d, float limit,
+                            bool any_hit, bool active) {
+  TriHit h = {INFINITY, 0.0f, 0.0f, 0};
+  const V3 inv = v3(inv_dir(d.x), inv_dir(d.y), inv_dir(d.z));
+  bool live = active && child_enter(nodes, 0, o, inv, limit);
+  if (!warp_any(live)) return h;
+  if (Lp == 1) {
+    if (leaf_rows(walk, 0, T, o, d, limit, any_hit, live, &h) && any_hit)
+      h.t = 0.0f;
+    return h;
+  }
+  unsigned n = 1, cur = 1, trail = 0;
+  for (;;) {
+    // n: an internal node whose box some lane enters.
+    const float* row = nodes + (size_t)n * BVH_NODE;
+    const F4 x = ld4(row), y = ld4(row + 4), z = ld4(row + 8);
+    const F4 m = ld4(row + 12);
+    const float bound = fminf(h.t, limit);
+    float t0, t1;
+    const bool in0 = live && bits_int(m.x) > 0 &&
+                     slab(x.x, x.y, y.x, y.y, z.x, z.y, o, inv, bound, &t0);
+    const bool in1 = live && bits_int(m.y) > 0 &&
+                     slab(x.z, x.w, y.z, y.w, z.z, z.w, o, inv, bound, &t1);
+    const bool any0 = warp_any(in0), any1 = warp_any(in1);
+    unsigned next = 0;
+    bool enter = false;  // this lane enters `next`
+    if (any0 && any1) {
+      const bool right = warp_count(in1 && (!in0 || t1 < t0)) >
+                         warp_count(in0 && (!in1 || t0 <= t1));
+      next = 2 * n + (right ? 1u : 0u);
+      enter = right ? in1 : in0;
+      trail |= 1u << (top_bit(n) + 1);
+    } else if (any0 || any1) {
+      next = 2 * n + (any1 ? 1u : 0u);
+      enter = any1 ? in1 : in0;
+    }
+    cur = n;
+    // Test leaves and backtrack until an internal node is next.
+    for (;;) {
+      if (next >= (unsigned)Lp) {
+        const int r0 = (int)(next - Lp) * leaf;
+        const int r1 = r0 + leaf < T ? r0 + leaf : T;
+        if (leaf_rows(walk, r0, r1, o, d, limit, any_hit, enter, &h) &&
+            any_hit) {
+          h.t = 0.0f;
+          live = false;
+        }
+        if (!warp_any(live)) return h;
+        cur = next;
+      } else if (next != 0) {
+        break;
+      }
+      next = 0;
+      if (trail == 0) return h;
+      const int k = top_bit(trail);
+      trail &= ~(1u << k);
+      const unsigned sib = (cur >> (top_bit(cur) - k)) ^ 1u;
+      enter = live && child_enter(nodes + (size_t)(sib >> 1) * BVH_NODE,
+                                  sib & 1u, o, inv, fminf(h.t, limit));
+      if (warp_any(enter))
+        next = sib;
+      else
+        cur = sib;
+    }
+    n = next;
+  }
 }
 
 }  // namespace rray

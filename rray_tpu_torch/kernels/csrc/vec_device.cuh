@@ -10,6 +10,9 @@
 #pragma once
 
 #include <math.h>
+#ifndef __CUDACC__
+#include <string.h>
+#endif
 
 namespace rray {
 
@@ -27,5 +30,51 @@ RRAY_DEVICE V3 normalize(V3 a) {
   return scale(a, rsqrtf(fmaxf(dot(a, a), 1e-18f)));
 }
 RRAY_DEVICE V3 reflect(V3 v, V3 n) { return sub(v, scale(n, 2.0f * dot(v, n))); }
+
+// Four floats from a 16-byte-aligned address: one 16-byte load on the card.
+struct F4 { float x, y, z, w; };
+RRAY_DEVICE F4 ld4(const float* p) {
+#ifdef __CUDACC__
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  F4 r = {v.x, v.y, v.z, v.w};
+#else
+  F4 r = {p[0], p[1], p[2], p[3]};
+#endif
+  return r;
+}
+
+// The int32 whose bits a table float carries.
+RRAY_DEVICE int bits_int(float f) {
+#ifdef __CUDACC__
+  return __float_as_int(f);
+#else
+  int i;
+  memcpy(&i, &f, sizeof i);
+  return i;
+#endif
+}
+
+// Index of the highest and of the lowest set bit of x > 0; set bits.
+RRAY_DEVICE int top_bit(unsigned x) {
+#ifdef __CUDACC__
+  return 31 - __clz(x);
+#else
+  return 31 - __builtin_clz(x);
+#endif
+}
+RRAY_DEVICE int low_bit(unsigned x) {
+#ifdef __CUDACC__
+  return __ffs(x) - 1;
+#else
+  return __builtin_ctz(x);
+#endif
+}
+RRAY_DEVICE int bit_count(unsigned x) {
+#ifdef __CUDACC__
+  return __popc(x);
+#else
+  return __builtin_popcount(x);
+#endif
+}
 
 }  // namespace rray

@@ -68,6 +68,7 @@
 
 #define RRAY_DEVICE __device__ __forceinline__
 #define RRAY_NOINLINE __device__ __noinline__
+#include "stage_device.cuh"
 #include "whitted_device.cuh"
 
 namespace {
@@ -76,7 +77,6 @@ using rray::SceneDesc;
 
 constexpr int kThreads = 128;  // a 16x8 tile; warp w the 8x4 sub-tile w
 constexpr int kTileW = 16, kTileH = 8;
-constexpr int kChunkBytes = 32 * 1024;  // one bulk copy's size at most
 
 // Resident blocks per SM asked of ptxas (registers <= 65536 / (128 *
 // blocks)), from its report of each instantiation without a bound: 1 for
@@ -86,44 +86,6 @@ constexpr int kChunkBytes = 32 * 1024;  // one bulk copy's size at most
 template <int W, bool kExt, int KB>
 constexpr int min_blocks() {
   return 1;
-}
-
-// Copies `bytes` (a multiple of 16, both addresses 16-byte aligned) of
-// scene tables from global to shared memory with bulk asynchronous
-// copies that complete on one mbarrier; every thread waits for them.
-__device__ __forceinline__ void stage_tables(float* dst, const float* src,
-                                             unsigned bytes, uint64_t* bar) {
-  const unsigned b = static_cast<unsigned>(__cvta_generic_to_shared(bar));
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;" ::"r"(b)
-                 : "memory");
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
-  }
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                     b),
-                 "r"(bytes)
-                 : "memory");
-    for (unsigned off = 0; off < bytes; off += kChunkBytes) {
-      const unsigned n = bytes - off < kChunkBytes ? bytes - off : kChunkBytes;
-      asm volatile(
-          "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-          "[%0], [%1], %2, [%3];" ::"r"(d + off),
-          "l"(reinterpret_cast<const char*>(src) + off), "r"(n), "r"(b)
-          : "memory");
-    }
-  }
-  unsigned done = 0;
-  while (!done) {
-    asm volatile(
-        "{ .reg .pred p; mbarrier.try_wait.parity.shared::cta.b64 p, [%1], 0; "
-        "selp.u32 %0, 1, 0, p; }"
-        : "=r"(done)
-        : "r"(b)
-        : "memory");
-  }
 }
 
 // Ray index of thread `t` of tile `tile`, or -1. With a raster width the
@@ -166,7 +128,7 @@ __global__ void __launch_bounds__(kThreads, (min_blocks<W, kExt, KB>()))
   __shared__ uint64_t bar;
   __shared__ int next[2];
   const int words = desc.w[rray::D_WORDS];
-  stage_tables(smem, tables, 4u * words, &bar);
+  rray::stage_tables(smem, tables, 4u * words, &bar);
   const rray::Scene s = {&desc, smem};
   const rray::Stack stk = {smem + words + threadIdx.x, kThreads};
   const int width = desc.w[rray::D_WIDTH], R = desc.w[rray::D_R];

@@ -304,10 +304,11 @@ RRAY_DEVICE int prim_slots(int k, const float* ex, V3 o, V3 d, float* t,
 
 // ---- shadow predicate (rray_tpu kernels/analytic.py _occludes) ----------
 
-RRAY_DEVICE bool sphere_occludes(V3 o, V3 d, float dist) {
+// c = dot(o, o) - 1, a term of the origin alone (area_count computes it
+// once per origin and prim).
+RRAY_DEVICE bool sphere_occludes(V3 o, V3 d, float c, float dist) {
   float a = dot(d, d);
   float b = 2.0f * dot(d, o);
-  float c = dot(o, o) - 1.0f;
   bool real = b * b - 4.0f * a * c >= 0.0f;
   float fd = (a * dist + b) * dist + c;
   float s2 = b + 2.0f * a * dist;
@@ -322,13 +323,11 @@ RRAY_DEVICE bool plane_occludes(V3 o, V3 d, float dist) {
          (-oy_dy < dist * d.y * d.y);
 }
 
-// Does prim p (world->object affine at p[0..11], extras at ex) block
-// [0, dist) on the world-space shadow ray?
-RRAY_DEVICE bool occludes(int k, const float* p, const float* ex, V3 over,
-                                 V3 dir, float dist) {
-  V3 o = affine_pt(p, over);
-  V3 d = affine_vec(p, dir);
-  if (k == SPHERE) return sphere_occludes(o, d, dist);
+// Does a prim of kind k (extras at ex) block [0, dist) on the
+// object-space shadow ray (o, d)? c: dot(o, o) - 1 (sphere_occludes).
+RRAY_DEVICE bool occludes_local(int k, const float* ex, V3 o, float c, V3 d,
+                                float dist) {
+  if (k == SPHERE) return sphere_occludes(o, d, c, dist);
   if (k == PLANE) return plane_occludes(o, d, dist);
   float t[MAX_SLOTS];
   bool ok[MAX_SLOTS];
@@ -338,6 +337,14 @@ RRAY_DEVICE bool occludes(int k, const float* p, const float* ex, V3 over,
   for (int s = 0; s < MAX_SLOTS; ++s)
     hit = hit || (ok[s] && t[s] >= 0.0f && t[s] < dist);
   return hit;
+}
+
+// Does prim p (world->object affine at p[0..11], extras at ex) block
+// [0, dist) on the world-space shadow ray?
+RRAY_DEVICE bool occludes(int k, const float* p, const float* ex, V3 over,
+                                 V3 dir, float dist) {
+  V3 o = affine_pt(p, over);
+  return occludes_local(k, ex, o, dot(o, o) - 1.0f, affine_vec(p, dir), dist);
 }
 
 // Sample k of an area light's lv x lv jittered grid (light.rs:47-65;
@@ -356,26 +363,77 @@ RRAY_DEVICE float area_sample(const float* cuv, uint32_t hb, int k, int lv,
   return dist;
 }
 
+// Samples per chunk of the area-shadow kernel's body, and the floats a
+// thread keeps per sample: its segment's unit direction and length.
+constexpr int AREA_CHUNK = 16;
+constexpr int SEG_WORDS = 4;
+constexpr int B_COLS = 8;  // occluder bounds row: lo xyz, hi xyz, bounded
+
 // The area-shadow kernel's per-origin body (area.cu): how many of the
 // lv^2 samples of the light (cuv: corner, uvec, vvec) some prim blocks;
-// prims are [P, A_COLS] rows of the given kinds,
-// and the first occluder ends a sample's test.
+// prims are [P, A_COLS] rows of the given kinds. Prim-major: per chunk of
+// AREA_CHUNK samples, the segments are drawn once into `seg` (sample k's
+// four floats at seg + SEG_WORDS * k * stride: on the card a column of
+// shared memory, stride the block size), then each prim (its object-space
+// origin and sphere term computed once) is tested against the chunk's
+// samples that are still open (a mask), until none is. The (sample,
+// prim) pairs tested are those of the sample-major loop that stops a
+// sample at its first occluder, less those a conservative cull drops, so
+// the count is the same; on the card every lane of a warp stands on the
+// same prim (one kind, one broadcast row). The cull: where `bounds`
+// ([P, B_COLS] padded world boxes, kernels/analytic.py occluder_bounds)
+// marks a prim bounded and its box misses the box of the origin and the
+// light's parallelogram, which holds every segment, the prim is skipped.
 RRAY_DEVICE float area_count(const float* cuv, const float* params,
-                             const int* kinds, int P, int lv, int seed,
-                             V3 over) {
+                             const float* bounds, const int* kinds, int P,
+                             int lv, int seed, V3 over, float* seg,
+                             int stride) {
   const uint32_t hb = point_base(seed, over.x, over.y, over.z);
-  float cnt = 0.0f;
-  for (int k = 0; k < lv * lv; ++k) {
-    V3 dir;
-    float dist = area_sample(cuv, hb, k, lv, over, &dir);
-    bool occ = false;
-    for (int j = 0; j < P && !occ; ++j) {
-      const float* p = params + j * A_COLS;
-      occ = occludes(kinds[j], p, p + 12, over, dir, dist);
+  const int n = lv * lv;
+  float lo[3] = {over.x, over.y, over.z}, hi[3] = {over.x, over.y, over.z};
+#pragma unroll
+  for (int a = 0; a < 3; ++a) {
+    const float c = cuv[a], u = cuv[3 + a], v = cuv[6 + a];
+    const float q[4] = {c, c + u, c + v, c + u + v};
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      lo[a] = fminf(lo[a], q[k]);
+      hi[a] = fmaxf(hi[a], q[k]);
     }
-    cnt = cnt + (occ ? 1.0f : 0.0f);
   }
-  return cnt;
+  int cnt = 0;
+  for (int s0 = 0; s0 < n; s0 += AREA_CHUNK) {
+    const int m = n - s0 < AREA_CHUNK ? n - s0 : AREA_CHUNK;
+    for (int k = 0; k < m; ++k) {
+      V3 dir;
+      float* w = seg + SEG_WORDS * k * stride;
+      w[3] = area_sample(cuv, hb, s0 + k, lv, over, &dir);
+      w[0] = dir.x;
+      w[1] = dir.y;
+      w[2] = dir.z;
+    }
+    const unsigned drawn = m == 32 ? ~0u : (1u << m) - 1u;
+    unsigned open = drawn;
+    for (int j = 0; j < P && open; ++j) {
+      const float* b = bounds + j * B_COLS;
+      if (b[6] != 0.0f && (b[0] > hi[0] || b[1] > hi[1] || b[2] > hi[2] ||
+                           b[3] < lo[0] || b[4] < lo[1] || b[5] < lo[2]))
+        continue;
+      const float* p = params + j * A_COLS;
+      const int kind = kinds[j];
+      const V3 o = affine_pt(p, over);
+      const float c = dot(o, o) - 1.0f;
+      for (unsigned left = open; left; left &= left - 1u) {
+        const int k = low_bit(left);
+        const F4 w = ld4(seg + SEG_WORDS * k * stride);
+        if (occludes_local(kind, p + 12, o, c,
+                           affine_vec(p, v3(w.x, w.y, w.z)), w.w))
+          open &= ~(1u << k);
+      }
+    }
+    cnt += bit_count(drawn ^ open);
+  }
+  return (float)cnt;
 }
 
 // ---- normals and patterns -----------------------------------------------

@@ -323,10 +323,30 @@ def csg_keeps(ts, valids, ops_and_sides):
 
 
 def _tri_comps(scene, normals: bool):
+    """The triangle table's [T] columns p1 e1 e2 (and n1 n2 n3), once per
+    scene."""
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
     if normals:
         tabs += (scene.tri_n1, scene.tri_n2, scene.tri_n3)
-    return tuple(tbl[:, j].contiguous() for tbl in tabs for j in range(3))
+    return scene.cached(("tri_comps", normals), lambda: tuple(
+        tbl[:, j].contiguous() for tbl in tabs for j in range(3)))
+
+
+def _tri_aux(scene):
+    """The kernels' payload columns, prim id and shade class as floats
+    (exact below 2^24), once per scene."""
+    return scene.cached("tri_aux", lambda: (
+        scene.tri_prim.to(scene.dtype), scene.tri_class.to(scene.dtype)))
+
+
+def _bvh_tables(scene):
+    """The BVH kernel's tree and tables for the scene's mesh
+    (kernels/bvh.py card_tables, with normals and payload), built once
+    per scene; its closest and any-hit calls share them."""
+    from ..kernels import bvh
+
+    return scene.cached("bvh", lambda: bvh.card_tables(
+        _tri_comps(scene, normals=True), _tri_aux(scene)))
 
 
 def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
@@ -334,16 +354,16 @@ def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
     _pallas_triangle_best): the BVH kernel for meshes of at least
     settings.bvh_min_tris triangles, the linear chunk kernel below that.
     Returns (t, prim, cls, (nx, ny, nz), row); the kernels select the
-    winner's prim id and shade class as float payload columns (exact
-    below 2^24); row is its triangle-table row."""
+    winner's prim id and shade class as float payload columns; row is
+    its triangle-table row."""
     from ..kernels import bvh, triangles
 
     rays = (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z)
-    aux = (scene.tri_prim.to(ro.x.dtype), scene.tri_class.to(ro.x.dtype))
+    aux = _tri_aux(scene)
     tri = _tri_comps(scene, normals=True)
     if scene.counts[6] >= settings.bvh_min_tris:
         outs = bvh.bvh_closest_triangle(*rays, tri, dist=t_init, aux=aux,
-                                        leaf=settings.bvh_leaf)
+                                        tables=_bvh_tables(scene))
     else:
         outs = triangles.closest_triangle(*rays, tri, t_init=t_init, aux=aux)
     t, _, _, row, nx, ny, nz, prim, cls = outs
@@ -359,7 +379,7 @@ def _triangle_any(scene, ro: V3, rd: V3, settings, distance):
     tri = _tri_comps(scene, normals=False)
     if scene.counts[6] >= settings.bvh_min_tris:
         t = bvh.bvh_closest_triangle(*rays, tri, dist=distance, any_hit=True,
-                                     leaf=settings.bvh_leaf)[0]
+                                     tables=_bvh_tables(scene))[0]
         return t < distance
     return triangles.any_triangle(*rays, tri, distance) != 0
 

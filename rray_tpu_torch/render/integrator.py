@@ -82,11 +82,11 @@ def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
             and all(k in analytic.OCCLUSION_KINDS for k in kinds)):
         # The whole sample loop in one kernel (B5), which takes no tori
         # (nor does rray_tpu's); a torus scene takes the loop below.
+        params, kinds, bounds = analytic.scene_occluders(scene)
         return analytic.area_shadow_fraction(
             (over.x, over.y, over.z), seed,
-            torch.cat([light.corner, light.uvec, light.vvec]),
-            analytic.occlusion_params(scene, range(len(kinds))), kinds,
-            level)
+            torch.cat([light.corner, light.uvec, light.vvec]), params, kinds,
+            level, bounds=bounds)
     # `level` samples per step at [level * R] width, as rray_tpu groups
     # them: each step's any-hit is one triangle or BVH kernel call (one
     # sample per step made area4b's frame twice as long, host-side). The

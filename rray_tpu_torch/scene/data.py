@@ -259,6 +259,17 @@ class SceneData:
     n_classes: int = 0
     prim_class_static: Tuple[int, ...] = ()
     prim_pattern_static: Tuple[int, ...] = ()
+    # The kernels' tables derived from this scene's tensors, built at
+    # first use and kept for the scene's life (`cached`): the tensors are
+    # not changed after compile_scene.
+    kernel_cache: dict = dataclasses.field(default_factory=dict, repr=False,
+                                           compare=False)
+
+    def cached(self, key, make):
+        """make(), once per scene under `key`."""
+        if key not in self.kernel_cache:
+            self.kernel_cache[key] = make()
+        return self.kernel_cache[key]
 
     @property
     def dtype(self):

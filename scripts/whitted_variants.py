@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Write variants of this checkout's whitted kernel for whitted_ab.py.
+"""Write variants of this checkout's kernels for whitted_ab.py and
+fast_ab.py.
 
     python3 scripts/whitted_variants.py [OUT] [--only a,b]
 
 Each variant is a copy of `rray_tpu_torch/` under OUT/<name>/ (default
 build/variants, which .gitignore lists) with one design choice of
-csrc/whitted.cu undone or changed, so that whitted_ab.py can time the
-shipped kernel against it in turns on one card:
+a kernel undone or changed, so that whitted_ab.py (the whitted kernel)
+or fast_ab.py (the BVH kernel) can time the shipped kernel against it in
+turns on one card:
 
     grid      one 16x8 tile per block (no persistent grid): every block
               stages the tables itself and the hardware hands out tiles
@@ -19,6 +21,15 @@ shipped kernel against it in turns on one card:
     qinline   the torus quartic inlined at each call site
     noq       diagnostic, not a kernel: the torus quartic returns no
               roots (images differ), to show the quartic's share
+    bvhmiss   diagnostic: the BVH walk returns a miss at once (the cost of
+              reading rays and writing outputs)
+    bvhnoleaf diagnostic: the BVH walk tests no triangle (the cost of the
+              node visits alone)
+    bvh512    the BVH kernel's persistent staged grid with blocks of 512
+              threads (16 warps per SM) instead of 1024
+    areadraw  diagnostic: the area-shadow body draws every sample and
+              tests no prim (the cost of the draws)
+    areanocull the area-shadow body without its cull (every prim tested)
 """
 from __future__ import annotations
 
@@ -68,6 +79,22 @@ PATCHES = {
     "qinline": [(f"{CSRC}/quartic_device.cuh",
                  "static RRAY_NOINLINE Roots4 solve_quartic(",
                  "RRAY_DEVICE Roots4 solve_quartic(")],
+    "bvhmiss": [(f"{CSRC}/mesh_device.cuh",
+                 "  if (!warp_any(live)) return h;\n  if (Lp == 1) {",
+                 "  if (limit == limit) return h;\n  if (Lp == 1) {")],
+    "bvhnoleaf": [(f"{CSRC}/mesh_device.cuh",
+                   "float limit, bool any_hit, bool on, TriHit* h) {\n",
+                   "float limit, bool any_hit, bool on, TriHit* h) {\n"
+                   "  if (limit == limit) return false;\n")],
+    "bvh512": [(f"{CSRC}/bvh.cu",
+                "constexpr int kStagedThreads = 1024;",
+                "constexpr int kStagedThreads = 512;")],
+    "areadraw": [(f"{CSRC}/whitted_device.cuh",
+                  "    for (int j = 0; j < P && open; ++j) {",
+                  "    for (int j = 0; j < (P & 0x40000000) && open; ++j) {")],
+    "areanocull": [(f"{CSRC}/whitted_device.cuh",
+                    "      if (b[6] != 0.0f && (b[0] > hi[0]",
+                    "      if (b[6] != b[6] && (b[0] > hi[0]")],
     "noq": [(f"{CSRC}/quartic_device.cuh",
              "  float roots[4];\n  bool valids[4];",
              "  if (c4 == c4) {\n    Roots4 none = {{0.0f, 0.0f, 0.0f, 0.0f}, 0u};"

@@ -73,7 +73,7 @@ def test_fast_node_area_matches_xla_f64(name, tmp_path, monkeypatch):
 
 def test_any_number_of_analytic_prims_reaches_the_area_kernel(
         tmp_path, monkeypatch):
-    """801 analytic prims, past the 722 parameter rows that area.cu stages
+    """801 analytic prims, past the 327 prims whose rows area.cu stages
     in shared memory (it reads more from global memory): the fast node
     hands a mesh-free analytic area scene to B5 whatever its prim count,
     as rray_tpu does, and never to the plain sample loop."""
@@ -82,7 +82,7 @@ def test_any_number_of_analytic_prims_reaches_the_area_kernel(
     scene = compile_scene(shapes, lights)
     calls = []
     monkeypatch.setattr(analytic, "area_shadow_fraction",
-                        lambda *a: calls.append(a) or torch.zeros(4))
+                        lambda *a, **k: calls.append(a) or torch.zeros(4))
     monkeypatch.setattr(soa, "any_hit_soa",
                         lambda *a: pytest.fail("the plain sample loop ran"))
     over = V3(*(torch.zeros(4) for _ in range(3)))

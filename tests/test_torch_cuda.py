@@ -1,22 +1,30 @@
 """rray_tpu_torch's CUDA kernels on the card. Marked `cuda`: skipped where
 torch.cuda.is_available() is False; on a GPU machine (no JAX there, so
 without tests/conftest.py) run with
-`python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py`."""
+`python -m pytest --noconftest -q -m cuda tests/test_torch_cuda.py`,
+from any directory: the file puts the repository root on sys.path (with
+--noconftest pytest adds only tests/)."""
 import os
+import sys
 
 import numpy as np
 import pytest
 import torch
 
-from rray_tpu_torch import api
-from rray_tpu_torch.config import RenderSettings
-from rray_tpu_torch.io import mesh_scenes as ms
-from rray_tpu_torch.io.yaml_loader import load_scene_file
-from rray_tpu_torch.kernels import analytic, bvh, triangles, whitted
-from rray_tpu_torch.render.camera import Camera, all_rays_soa, compile_camera
-from rray_tpu_torch.scene.data import compile_scene
-
 BASE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+if BASE not in sys.path:
+    sys.path.insert(0, BASE)
+
+from rray_tpu_torch import api  # noqa: E402
+from rray_tpu_torch.config import RenderSettings  # noqa: E402
+from rray_tpu_torch.io import mesh_scenes as ms  # noqa: E402
+from rray_tpu_torch.io.yaml_loader import load_scene_file  # noqa: E402
+from rray_tpu_torch.kernels import (  # noqa: E402
+    analytic, bvh, triangles, whitted)
+from rray_tpu_torch.render.camera import (  # noqa: E402
+    Camera, all_rays_soa, compile_camera)
+from rray_tpu_torch.scene.data import compile_scene  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 
@@ -100,10 +108,17 @@ def _seeded(T, device, seed=1):
             tuple(t(c) for c in cols), t(rng.uniform(4.0, 12.0, R)))
 
 
-@pytest.mark.parametrize("kind", ["closest", "any", "bvh", "bvh_any"])
+@pytest.mark.parametrize("kind", ["closest", "any", "bvh", "bvh_any",
+                                  "bvh_large", "bvh_large_any"])
 def test_triangle_kernels_match_plain_versions(cuda, kind):
+    """B2, B3 and B4; the BVH kernel on 1536 triangles stages its tables
+    in shared memory, on 20,000 (bvh_large) it reads them through L1."""
     use_bvh = kind.startswith("bvh")
-    rays, cols, bound = _seeded(1536 if use_bvh else 200, cuda)
+    T = 20000 if "large" in kind else 1536 if use_bvh else 200
+    rays, cols, bound = _seeded(T, cuda)
+    if use_bvh:
+        assert (4 * bvh.card_tables(cols[:9]).block.numel()
+                <= bvh.STAGE_BYTES) == (T == 1536)
     aux = (torch.arange(cols[0].shape[0], dtype=torch.float32, device=cuda),)
     if kind == "any":
         before = triangles.any_launches
@@ -112,9 +127,9 @@ def test_triangle_kernels_match_plain_versions(cuda, kind):
         assert triangles.any_launches == before + 1
         assert float((kern == plain).double().mean()) >= 0.999
         return
-    if kind == "bvh_any":
+    if kind.endswith("any"):
         kern = bvh.bvh_closest_triangle(*rays, cols[:9], dist=bound,
-                                        any_hit=True, leaf=128)
+                                        any_hit=True)
         plain = bvh.bvh_closest_triangle_reference(*rays, cols[:9],
                                                    dist=bound, any_hit=True)
         assert float((kern[0] == plain[0]).double().mean()) >= 0.999
@@ -161,14 +176,15 @@ def _area_scene(tmp_path, device, **kw):
 
 
 @pytest.mark.parametrize("spheres,level,n_origins", [
-    (20, 1, 50000), (20, 3, 50000), (20, 5, 50000), (800, 2, 4096)])
+    (20, 1, 50000), (20, 3, 50000), (20, 5, 50000), (20, 7, 50000),
+    (800, 2, 4096)])
 def test_area_shadow_kernel_matches_plain_version(cuda, spheres, level,
                                                   n_origins, tmp_path):
-    """B5 on 21 analytic prims, and on 801: past the 722 parameter rows
-    that area.cu stages in shared memory it reads them from global
-    memory. The same blocked count as the plain version on at least
-    99.99% of origins (an rsqrtf- or sqrtf-free predicate; the draws are
-    integer-exact)."""
+    """B5 on 21 analytic prims (level 7: 49 samples, four chunks of the
+    prim-major body), and on 801: past the 327 prims whose rows area.cu
+    stages in shared memory it reads them from global memory. The same
+    blocked count as the plain version on at least 99.99% of origins (an
+    rsqrtf- or sqrtf-free predicate; the draws are integer-exact)."""
     _, scene = _area_scene(tmp_path, cuda, lat_lon=None, spheres=spheres,
                            reflective=0.3, area_level=level)
     rng = np.random.default_rng(level)

@@ -30,6 +30,7 @@ from rray_tpu_torch.io.yaml_loader import load_scene_file
 from rray_tpu_torch.kernels import analytic, bvh, triangles, whitted
 from rray_tpu_torch.ops import jitter
 from rray_tpu_torch.render.camera import Camera, all_rays_soa, compile_camera
+from rray_tpu_torch.scene import data as sd
 from rray_tpu_torch.scene.data import compile_scene
 
 BASE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -115,11 +116,13 @@ extern "C" void quartic_all(const float* const* coeffs, float* roots,
 }
 // The area-shadow kernel's body (area.cu) and the jitter hash.
 extern "C" void area_all(const float* const* over, const float* light,
-                         const float* params, const int* kinds, int P,
-                         int level, int seed, float* count, int R) {
+                         const float* params, const float* bounds,
+                         const int* kinds, int P, int level, int seed,
+                         float* count, int R) {
+  float seg[SEG_WORDS * AREA_CHUNK];
   for (int i = 0; i < R; ++i)
-    count[i] = area_count(light, params, kinds, P, level, seed,
-                          v3(over[0][i], over[1][i], over[2][i]));
+    count[i] = area_count(light, params, bounds, kinds, P, level, seed,
+                          v3(over[0][i], over[1][i], over[2][i]), seg, 1);
 }
 extern "C" void jitter_all(const float* const* pts, int seed, int n,
                            unsigned* base, float* draws, int R) {
@@ -152,15 +155,15 @@ extern "C" void any_all(const float* const* rays, const float* dist,
                         v3(rays[3][i], rays[4][i], rays[5][i]), dist[i]);
 }
 extern "C" void bvh_all(const float* const* rays, const float* dist,
-                        const float* tris, int ncols, int T,
-                        const float* nodes, const float* subs, int Lp,
-                        int leaf, int subl, int any_hit, int normals,
-                        int n_aux, float* fout, int* iout, int R) {
+                        const float* block, int node_words, int T, int Lp,
+                        int leaf, int any_hit, const float* tris, int ncols,
+                        int normals, int n_aux, float* fout, int* iout,
+                        int R) {
   for (int i = 0; i < R; ++i) {
-    TriHit h = bvh_walk(tris, ncols, T, nodes, subs, Lp, leaf, subl,
+    TriHit h = bvh_walk(block, block + node_words, T, Lp, leaf,
                         v3(rays[0][i], rays[1][i], rays[2][i]),
                         v3(rays[3][i], rays[4][i], rays[5][i]),
-                        dist ? dist[i] : INFINITY, any_hit != 0);
+                        dist ? dist[i] : INFINITY, any_hit != 0, true);
     write_hit(h, tris, ncols, normals, n_aux, fout, iout, R, i);
   }
 }
@@ -304,12 +307,14 @@ def _seeded_mesh(T, seed, normals):
 
 
 @pytest.mark.parametrize("kind", ["closest", "closest_bounded", "any", "bvh",
-                                  "bvh_bounded", "bvh_any"])
+                                  "bvh_bounded", "bvh_any", "bvh_large"])
 def test_triangle_device_code_matches_plain_versions(host_lib, kind):
-    """mesh_device.cuh's chunk folds and heap walk (with the kernels'
-    output writer) against kernels/triangles.py and kernels/bvh.py."""
+    """mesh_device.cuh's chunk folds and BVH walk over the card's tables
+    (with the kernels' output writer) against kernels/triangles.py and
+    kernels/bvh.py; bvh_large has 20,000 triangles, past the 2048 leaves
+    of 8 at which rray_tpu's TPU budget would raise the leaf."""
     use_bvh = kind.startswith("bvh")
-    T = 1536 if use_bvh else 200
+    T = {"bvh_large": 20000}.get(kind, 1536 if use_bvh else 200)
     rays, cols, bound = _seeded_mesh(T, 3 if use_bvh else 2,
                                      normals=not kind.endswith("any"))
     R = rays[0].shape[0]
@@ -333,12 +338,12 @@ def test_triangle_device_code_matches_plain_versions(host_lib, kind):
     fout = np.empty((n_float, R), np.float32)
     iout = np.empty(R, np.int32)
     if use_bvh:
-        leaf = bvh.auto_leaf(T, 128)
-        nodes, subs, Lp = bvh.build_tree(cols[0:3], cols[3:6], cols[6:9],
-                                         leaf, 64)
-        host_lib.bvh_all(_ptrs(ray_arrs), _c(_np(bound)), _c(tbl),
-                         i(tbl.shape[1]), i(T), _c(_np(nodes)), _c(_np(subs)),
-                         i(Lp), i(leaf), i(64), i(kind == "bvh_any"),
+        tables = bvh.card_tables(cols, aux)
+        assert tables.leaf == bvh.LEAF  # no leaf cap, 20,000 triangles too
+        host_lib.bvh_all(_ptrs(ray_arrs), _c(_np(bound)),
+                         _c(_np(tables.block)), i(tables.Lp * bvh.NODE),
+                         i(T), i(tables.Lp), i(tables.leaf),
+                         i(kind == "bvh_any"), _c(tbl), i(tbl.shape[1]),
                          i(len(cols) == 18), i(len(aux)), _c(fout), _c(iout),
                          i(R))
         plain = bvh.bvh_closest_triangle(rays[:3], rays[3:], cols, dist=bound,
@@ -392,11 +397,14 @@ def test_jitter_device_code_matches_plain_version(host_lib):
         np.testing.assert_array_equal(draws, want.numpy())
 
 
-@pytest.mark.parametrize("level", [1, 3, 5])
+@pytest.mark.parametrize("level", [1, 3, 5, 7])
 def test_area_count_device_code_matches_plain_version(host_lib, level):
-    """The area-shadow kernel's body (area_count) against
-    area_shadow_fraction_reference on the shadow fixture's six analytic
-    occluders: the same counts on every origin."""
+    """The area-shadow kernel's prim-major body (area_count) against
+    area_shadow_fraction_reference on the shadow fixture's analytic
+    occluders (all five kinds): the same counts on every origin, bit for
+    bit; levels 5 and 7 take 2 and 4 chunks of 16 samples. With the
+    occluders' boxes the body skips prims (the cull), without them (all
+    marked unbounded) it tests every one: both counts equal."""
     path = _scene_path("area_light.yaml", None)
     _, lights, shapes = load_scene_file(path)
     from rray_tpu_torch.scene.data import Shape
@@ -418,13 +426,18 @@ def test_area_count_device_code_matches_plain_version(host_lib, level):
     R = pts[0].shape[0]
     count = np.empty(R, np.float32)
     kinds = np.asarray(scene.prim_kinds, np.int32)
-    host_lib.area_all(_ptrs(pts), _c(_np(lp)), _c(_np(params)), _c(kinds),
-                      ctypes.c_int(len(kinds)), ctypes.c_int(level),
-                      ctypes.c_int(-77), _c(count), ctypes.c_int(R))
+    bounds = analytic.occluder_bounds(params, scene.prim_kinds)
+    assert bounds[:, 6].tolist() == [float(k != sd.PLANE)
+                                     for k in scene.prim_kinds]
     frac = analytic.area_shadow_fraction_reference(
         tuple(torch.from_numpy(c) for c in pts), -77, lp, params,
         scene.prim_kinds, level)
-    np.testing.assert_array_equal(count / (level * level), frac.numpy())
+    for b in (bounds, torch.zeros_like(bounds)):
+        host_lib.area_all(_ptrs(pts), _c(_np(lp)), _c(_np(params)),
+                          _c(_np(b)), _c(kinds), ctypes.c_int(len(kinds)),
+                          ctypes.c_int(level), ctypes.c_int(-77), _c(count),
+                          ctypes.c_int(R))
+        np.testing.assert_array_equal(count / (level * level), frac.numpy())
     assert 0.05 < frac.mean() < 0.95
 
 
