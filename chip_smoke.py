@@ -9,18 +9,22 @@ It builds the port's CUDA kernels from the sources in this checkout,
 holds each kernel against its plain PyTorch version on the card at the
 shapes the main path gives it, drives the main path
 (rray_tpu_torch.api.render_scene_from_file, what the CLI calls) at
-800x600 over the example scenes, four mesh scenes, four area-light
+800x600 over the example scenes, four mesh scenes, five area-light
 scenes (config 3, examples/area_light.yaml, also at aa=3) and two
 variants of config 5, and config 5 itself (examples/csg_showcase.yaml:
 CSG, a torus, Perlin noise, an image texture) at 1920x1080, aa=5,
-counting each kernel's launches per scene (and the BVH trees built:
-one per scene), and times kernels and plain versions (CUDA events; each
-kernel's own device time with torch.profiler), config 5's main-path
-launch on its full 9600x5400 raster included, and the BVH kernel's on
-area4b's 2.4 M-ray shadow call and on a 49,612-triangle mesh. Bounds
-count the least work of every level's live path rows. It prints the card, one line per phase, a JSON line
-describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before
-the last line; without CUDA it exits 1 at once.
+counting each kernel's launches per scene (and the BVH trees built: one
+per scene, and the triangle kernels' tables: one per scene), and times
+kernels and plain versions (CUDA events; each kernel's own device time
+with torch.profiler), config 5's main-path launch on its full 9600x5400
+raster included, the BVH kernel's on area4b's 2.4 M-ray shadow call and
+on a 49,612-triangle mesh, and the triangle kernels' on area9's 2.4
+M-ray shadow call and on a 1008-triangle mesh, with the BVH kernel on
+mesh9's rays beside them as a yardstick. Bounds count the least work of
+every level's live path rows. It prints the card, one line per phase, a
+JSON line describing the kernels, and last a JSON line naming the
+device. Any failure exits non-zero before the last line; without CUDA it
+exits 1 at once.
 
 The generated scenes are written as YAML + OBJ into a temporary
 directory by rray_tpu_torch/io/mesh_scenes.py, the writer the CPU tests
@@ -37,6 +41,11 @@ mesh benchmark cells; the area scenes swap the point light for config
             floor: 21 analytic prims            kernel, depth 5
     area4b  mesh4b under the area light         fast node: BVH any-hit
                                                 per row of shadow samples
+    area9   mesh9 under the area light          fast node: closest_triangle,
+                                                any_triangle per row of
+                                                shadow samples
+    mesh9k  nine 112-triangle spheres           triangle kernels alone,
+                                                1008 triangles
     mesh50b one 49,612-triangle sphere          BVH kernel alone, tables
                                                 past shared memory
     area801 800 spheres over a reflective       area-shadow kernel alone,
@@ -149,9 +158,11 @@ SCENES = {
     "area4": dict(lat_lon=(11, 11), area_level=5),
     "area21": dict(lat_lon=None, spheres=20, reflective=0.3, area_level=5),
     "area4b": dict(lat_lon=(40, 40), area_level=5),
+    "area9": dict(lat_lon=(6, 6), grid=True, area_level=5),
 }
 # Scenes of the kernel phases only: mesh_scenes.write_scene arguments.
 PHASE_SCENES = {
+    "mesh9k": dict(lat_lon=(8, 8), grid=True),
     "mesh50b": dict(lat_lon=(158, 158)),
     "area801": dict(lat_lon=None, spheres=800, reflective=0.3, area_level=5),
 }
@@ -811,61 +822,72 @@ def area_phase(torch, name, path, results, size=(WIDTH, HEIGHT),
         bound=bound_ms(n_bytes, n_ops, n_int)))
 
 
-def bvh_shadow_call_phase(torch, name, path, results):
-    """The BVH kernel (B4) on the first any-hit call the fast node makes
-    for an area light over a mesh (one row of level samples for every
-    origin: level x 480 k rays), with the scene's tables, against its
-    plain version."""
+def shadow_call_phase(torch, name, path, results):
+    """The fast node's any-hit kernel (B3 below bvh_min_tris triangles,
+    else B4) on the first any-hit call it makes for an area light over a
+    mesh (one row of level samples for every origin: level x 480 k
+    rays), with the scene's tables, against its plain version."""
     from rray_tpu_torch.config import RenderSettings
-    from rray_tpu_torch.kernels import bvh
+    from rray_tpu_torch.kernels import bvh, triangles
     from rray_tpu_torch.ops import jitter
     from rray_tpu_torch.render import integrator
 
     scene, (ro, rd) = camera_scene(path, torch)
+    use_bvh = scene.counts[6] >= RenderSettings().bvh_min_tris
+    module, attr = ((bvh, "bvh_closest_triangle") if use_bvh
+                    else (triangles, "any_triangle"))
     calls = []
-    kernel = bvh.bvh_closest_triangle
+    kernel = getattr(module, attr)
 
     def spy(*a, **k):
-        if k.get("any_hit"):
+        if k.get("any_hit") or not use_bvh:
             calls.append((a, k))
         return kernel(*a, **k)
 
-    bvh.bvh_closest_triangle = spy
+    setattr(module, attr, spy)
     try:
         integrator._fast_node_eval(
             scene, ro, rd, RenderSettings(),
             jitter.seed_table(0, 0, len(scene.lights))[0].tolist())
     finally:
-        bvh.bvh_closest_triangle = kernel
+        setattr(module, attr, kernel)
     if not calls:
-        fail(f"{name}: the fast node made no BVH any-hit call")
+        fail(f"{name}: the fast node made no {attr} any-hit call")
     a, k = calls[0]
-    fn = functools.partial(bvh.bvh_closest_triangle, *a, **k)
+    fn = functools.partial(kernel, *a, **k)
+    plain = (bvh.bvh_closest_triangle_reference if use_bvh
+             else triangles.any_triangle_reference)
     plain_fn = functools.partial(
-        bvh.bvh_closest_triangle_reference, *a, chunk=64,
+        plain, *a, chunk=64,
         **{key: v for key, v in k.items() if key != "tables"})
-    dist = k["dist"]
-    kf, pf = (fn()[0] < dist).int(), (plain_fn()[0] < dist).int()
+    if use_bvh:
+        dist = k["dist"]
+        kf, pf = (fn()[0] < dist).int(), (plain_fn()[0] < dist).int()
+    else:
+        dist = a[3]
+        kf, pf = fn(), plain_fn()
     torch.cuda.synchronize()
     R = dist.shape[0]
-    err = compare_flags(torch, kf, pf,
-                        f"bvh_closest_triangle {name} shadow call ({R} rays)")
+    err = compare_flags(torch, kf, pf, f"{attr} {name} shadow call ({R} rays)")
     geom, T = a[2], a[2][0].shape[0]
     occluded = pf != 0
     tests = triangle_tests(torch, (a[0], a[1]), geom,
                            torch.where(occluded, -math.inf, dist)) \
         + int(occluded.sum())
-    results.setdefault("bvh_closest_triangle", []).append(dict(
+    results.setdefault(attr, []).append(dict(
         what=f"{name} shadow call ({R} rays)", fn=fn, plain_fn=plain_fn,
         max_abs=err,
         bound=bound_ms(4 * (7 * R + 9 * T) + 4 * R, tests * OPS_TRI)))
 
 
-def triangle_phase(torch, name, path, results):
+def triangle_phase(torch, name, path, results, yardstick=False):
     """The fast node's triangle kernel (B2 or B4) against its plain
     version on the camera rays, closest hit seeded with the analytic
-    hit, with normals and payload as the fast node asks; then shadow
-    any-hit (B3 or B4) from the hit points toward the light."""
+    hit, with normals and payload as the fast node asks and the scene's
+    tables; then shadow any-hit (B3 or B4) from the hit points toward
+    the light. With `yardstick`, B2's and B3's calls are also made on
+    the BVH kernel with a tree of the same triangles (card_tables), for
+    its time beside theirs; the scene does not route there."""
     from rray_tpu_torch.config import RenderSettings
     from rray_tpu_torch.kernels import bvh, triangles
     from rray_tpu_torch.ops import soa
@@ -886,8 +908,9 @@ def triangle_phase(torch, name, path, results):
             bvh.bvh_closest_triangle_reference, *rays, tri, dist=t_an,
             aux=aux, chunk=128)
     else:
+        tables = soa._tri_tables(scene)
         closest = functools.partial(triangles.closest_triangle, *rays, tri,
-                                    t_init=t_an, aux=aux)
+                                    t_init=t_an, aux=aux, tables=tables)
         closest_plain = functools.partial(
             triangles.closest_triangle_reference, *rays, tri, t_init=t_an,
             aux=aux, chunk=128)
@@ -896,6 +919,14 @@ def triangle_phase(torch, name, path, results):
     torch.cuda.synchronize()
     kname = "bvh_closest_triangle" if use_bvh else "closest_triangle"
     err = compare_hits(torch, kern, plain, len(aux), f"{kname} {name} closest")
+    if yardstick:
+        card_tables = bvh.card_tables(tri, aux)
+        yard = functools.partial(bvh.bvh_closest_triangle, *rays, tri,
+                                 dist=t_an, aux=aux, tables=card_tables)
+        compare_hits(torch, yard(), plain, len(aux),
+                     f"yardstick bvh_closest_triangle {name} closest")
+        results.setdefault("yardstick", []).append(dict(
+            what=f"{name} closest", fn=yard))
     R = ro.x.shape[0]
     t_hit = torch.minimum(t_an, plain[0])
     tests = triangle_tests(torch, rays, tri, t_hit)
@@ -924,7 +955,8 @@ def triangle_phase(torch, name, path, results):
         flags = lambda out: (out[0] < dist).int()
         aname = "bvh_closest_triangle"
     else:
-        any_k = functools.partial(triangles.any_triangle, *srays, geom, dist)
+        any_k = functools.partial(triangles.any_triangle, *srays, geom, dist,
+                                  tables=tables)
         any_p = functools.partial(triangles.any_triangle_reference, *srays,
                                   geom, dist, chunk=128)
         flags = lambda out: out
@@ -932,6 +964,13 @@ def triangle_phase(torch, name, path, results):
     kf, pf = flags(any_k()), flags(any_p())
     torch.cuda.synchronize()
     err = compare_flags(torch, kf, pf, f"{aname} {name} shadow")
+    if yardstick:
+        yard = functools.partial(bvh.bvh_closest_triangle, *srays, geom,
+                                 dist=dist, any_hit=True, tables=card_tables)
+        compare_flags(torch, (yard()[0] < dist).int(), pf,
+                      f"yardstick bvh_closest_triangle {name} shadow")
+        results.setdefault("yardstick", []).append(dict(
+            what=f"{name} shadow", fn=yard))
     # An occluded ray needs one test (its hit), an open one every
     # triangle whose AABB it enters before the light.
     occluded = pf != 0
@@ -945,7 +984,8 @@ def triangle_phase(torch, name, path, results):
 
 
 # The main path's runs: (scene, aa, the kernels that scene's path must
-# launch).
+# launch), and the launches a run must make at least where one is not
+# enough (area9: one any-hit call per row of its level-5 samples).
 RUNS = (("glass", 1, ("whitted_compact",)),
         ("example1", 1, ("whitted_compact",)),
         ("example1", 2, ("whitted_compact",)),
@@ -958,9 +998,11 @@ RUNS = (("glass", 1, ("whitted_compact",)),
         ("area4", 1, ("whitted_compact",)),
         ("area21", 1, ("area_shadow_fraction",)),
         ("area4b", 1, ("bvh_closest_triangle",)),
+        ("area9", 1, ("closest_triangle", "any_triangle")),
         ("csg5r", 1, ("whitted_compact",)),
         ("tex5r", 1, ()),
         ("csg", 5, ("whitted_compact",)))
+MIN_LAUNCHES = {("area9", "any_triangle"): 5}
 
 
 def launch_counts(reset=False):
@@ -985,7 +1027,7 @@ def main_path(torch, np, scene_paths):
 
     from rray_tpu_torch import api
 
-    from rray_tpu_torch.kernels import bvh
+    from rray_tpu_torch.kernels import bvh, triangles
 
     images, total = {}, launch_counts(reset=True)
     with tempfile.TemporaryDirectory() as tmp:
@@ -993,6 +1035,7 @@ def main_path(torch, np, scene_paths):
             w, h = size_of(name)
             png = os.path.join(tmp, f"{name}_aa{aa}.png")
             builds = bvh.tree_builds
+            tri_builds = triangles.table_builds
             launch_counts(reset=True)
             t0 = time.perf_counter()
             image = api.render_scene_from_file(scene_paths[name], w, h, png,
@@ -1000,6 +1043,7 @@ def main_path(torch, np, scene_paths):
             wall = time.perf_counter() - t0
             counts = launch_counts()
             builds = bvh.tree_builds - builds
+            tri_builds = triangles.table_builds - tri_builds
             shape = np.asarray(Image.open(png)).shape
             if shape != (h, w, 4):
                 fail(f"{png}: PNG shape {shape}")
@@ -1009,13 +1053,19 @@ def main_path(torch, np, scene_paths):
             print(f"main path {name} {w}x{h} aa={aa}: PNG {shape}, "
                   f"{wall * 1e3:.1f} ms wall, PNG write included, launches "
                   f"{json.dumps({k: n for k, n in counts.items() if n})}, "
-                  f"BVH trees built {builds} [{card_state()}]")
+                  f"BVH trees built {builds}, triangle tables built "
+                  f"{tri_builds} [{card_state()}]")
             if builds != (1 if counts["bvh_closest_triangle"] else 0):
                 fail(f"{name} aa={aa}: {builds} BVH trees built for "
                      f"{counts['bvh_closest_triangle']} BVH launches (one "
                      f"per scene)")
+            tri_launches = counts["closest_triangle"] + counts["any_triangle"]
+            if tri_builds != (1 if tri_launches else 0):
+                fail(f"{name} aa={aa}: {tri_builds} triangle tables built "
+                     f"for {tri_launches} triangle-kernel launches (one per "
+                     f"scene)")
             for kname in expect:
-                if counts[kname] < 1:
+                if counts[kname] < MIN_LAUNCHES.get((name, kname), 1):
                     fail(f"the main path on {name} aa={aa} launched {kname} "
                          f"{counts[kname]} times")
             total = {k: total[k] + counts[k] for k in total}
@@ -1214,9 +1264,12 @@ def main() -> int:
         whitted_phase(torch, name, scene_paths[name], results, aa)
     whitted_phase(torch, "csg", scene_paths["csg"], results, 5, CSG_STRIDE)
     main_launch_phase(torch, scene_paths["csg"], results)
-    for name in ("mesh9", "mesh4b"):
+    triangle_phase(torch, "mesh9", scene_paths["mesh9"], results,
+                   yardstick=True)
+    for name in ("mesh9k", "mesh4b"):
         triangle_phase(torch, name, scene_paths[name], results)
-    bvh_shadow_call_phase(torch, "area4b", scene_paths["area4b"], results)
+    shadow_call_phase(torch, "area4b", scene_paths["area4b"], results)
+    shadow_call_phase(torch, "area9", scene_paths["area9"], results)
     triangle_phase(torch, "mesh50b", scene_paths["mesh50b"], results)
     area_phase(torch, "area21", scene_paths["area21"], results)
     area_phase(torch, "area801 200x150", scene_paths["area801"], results,
@@ -1242,7 +1295,7 @@ def main() -> int:
         torch, torch.from_numpy(images[("area", 1)]).to(DEVICE).unbind(-1),
         torch.from_numpy(plain).to(DEVICE).unbind(-1), "main path area aa=1")
     print(f"parity main path area aa=1: max |kernel - plain| {diff:.3e}")
-    for name in ("mesh9", "mesh4b", "area21", "area4b"):
+    for name in ("mesh9", "mesh4b", "area21", "area4b", "area9"):
         with plain_kernels():
             plain = api.render_scene_from_file(scene_paths[name], WIDTH,
                                                HEIGHT, "", device=DEVICE)
@@ -1250,8 +1303,8 @@ def main() -> int:
             torch, torch.from_numpy(images[(name, 1)]).to(DEVICE).unbind(-1),
             torch.from_numpy(plain).to(DEVICE).unbind(-1), f"main path {name}")
         print(f"parity main path {name}: max |kernels - plain| {diff:.3e}")
-    for name, aa, reps in (("mesh4", 1, 5), ("mesh4b", 1, 5), ("area", 3, 5),
-                           ("csg", 5, 3)):
+    for name, aa, reps in (("mesh4", 1, 5), ("mesh9", 1, 5), ("mesh4b", 1, 5),
+                           ("area", 3, 5), ("csg", 5, 3)):
         frame_breakdown(torch, np, name, scene_paths[name], aa, reps)
     tmp.cleanup()
 
@@ -1289,6 +1342,12 @@ def main() -> int:
                   f"{res['ms']:.5f} ms, call {res['call_ms']:.5f} ms, plain "
                   f"{res['plain_ms']:.4f} ms, bound {res['bound'][0]:.5f} ms "
                   f"({res['bound'][2]}) [{card}]")
+
+    for res in results["yardstick"]:
+        _, reps = window_ms(torch, res["fn"])
+        ms = kernel_ms(torch, res["fn"], "bvh_", reps)
+        print(f"yardstick bvh_closest_triangle {res['what']} (card_tables; "
+              f"not a route): kernel {ms:.5f} ms on the device [{card}]")
 
     sources = {"whitted_compact": ("whitted.cu", "whitted.py:1464"),
                "closest_triangle": ("triangles.cu", "triangles.py:385"),

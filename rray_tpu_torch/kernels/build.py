@@ -122,11 +122,11 @@ def load_library():
         lib.whitted_blocks_per_sm.argtypes = [i32] * 4
         lib.closest_triangle_launch.restype = i32
         lib.closest_triangle_launch.argtypes = (
-            [ptr] * 7 + [ptr, i32, i32, ptr] + [i32] * 4 + [ptr, ptr, i32,
-                                                          ptr])
+            [ptr] * 8 + [i32] * 4 + [ptr] + [i32] * 3
+            + [ptr, ptr, i32, i32, ptr, ptr])
         lib.any_triangle_launch.restype = i32
         lib.any_triangle_launch.argtypes = (
-            [ptr] * 7 + [ptr, i32, i32, ptr, i32, i32, ptr, i32, ptr])
+            [ptr] * 8 + [i32] * 4 + [ptr, i32, i32, ptr, ptr])
         lib.bvh_closest_launch.restype = i32
         lib.bvh_closest_launch.argtypes = (
             [ptr] * 7 + [ptr] + [i32] * 6 + [ptr] + [i32] * 3
@@ -145,15 +145,30 @@ def error_string(code: int) -> str:
 
 
 def ptr(t):
-    """A tensor's device pointer for ctypes (None: a null pointer)."""
-    return ctypes.c_void_p(None if t is None else t.data_ptr())
+    """A tensor's device pointer for a c_void_p argument (None: a null
+    pointer)."""
+    return None if t is None else t.data_ptr()
 
 
 def stream(device):
-    """PyTorch's current CUDA stream on `device`, for ctypes."""
+    """PyTorch's current CUDA stream on `device`, for a c_void_p
+    argument."""
     import torch
 
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def device_guard(device):
+    """The context in which to launch on `device`: torch.cuda.device,
+    unless `device` is current already (the check costs less than
+    switching)."""
+    import contextlib
+
+    import torch
+
+    if device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
 
 
 def check_arg(name, t, shape, device, dtype=None):
@@ -162,6 +177,9 @@ def check_arg(name, t, shape, device, dtype=None):
     import torch
 
     dtype = dtype or torch.float32
+    if (t.device == device and t.dtype == dtype and t.shape == shape
+            and t.is_contiguous()):
+        return
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype != dtype:

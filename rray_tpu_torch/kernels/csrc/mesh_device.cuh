@@ -5,9 +5,9 @@
 // where the table carries them, the vertex normals n1 n2 n3 (9-17), then
 // payload columns. One thread tests one ray against rows in index order;
 // the threads of a warp that test the same row read one broadcast row.
-// The chunk kernels' box tables are component-major [6, n] (lo xyz, hi
-// xyz), as rray_tpu lays them out for SMEM; the BVH kernel's tree has its
-// own layout (below).
+// The in-kernel mesh's chunk boxes are component-major [6, n] (lo xyz, hi
+// xyz), as rray_tpu lays them out for SMEM; the BVH kernel's tree and
+// the triangle kernels' culled fold have their own layouts (below).
 #pragma once
 
 #include "vec_device.cuh"
@@ -309,6 +309,67 @@ RRAY_DEVICE TriHit bvh_walk(const float* nodes, const float* walk, int T,
     }
     n = next;
   }
+}
+
+// ---- the triangle kernels' culled fold (kernels/triangles.py) --------
+// One block of floats (chunk_tables): box rows of TRI_BOX floats, 32 B,
+// two 16-byte loads (lo xyz, 0, hi xyz, 0): the whole table's box, then
+// one per chunk of `chunk` rows, then one per group of `group` rows
+// (`chunk` a multiple of `group`; the last chunk and group may be
+// partial, and every box covers only the rows it has); then the T walk
+// rows (BVH_TRI floats: p1 e1 e2 and three zeros).
+constexpr int TRI_BOX = 8;
+
+// Slab test of the box row at b (slab's expressions).
+RRAY_DEVICE bool box_row(const float* b, V3 o, V3 inv, float bound) {
+  const F4 lo = ld4(b), hi = ld4(b + 4);
+  float t;
+  return slab(lo.x, hi.x, lo.y, hi.y, lo.z, hi.z, o, inv, bound, &t);
+}
+
+// Closest hit with t < limit (any_hit: t = 0 at the first hit with
+// t < limit) over the block, for this lane where `active`. The lanes of
+// a warp fold together: every lane tests its ray against a box, against
+// min(its best t, limit), and the warp goes into the box when some lane
+// enters it; a group's rows are read once for the warp (a broadcast) and
+// tested by the lanes that entered its box (leaf_rows). Chunks, groups
+// and rows go in index order, and a lane skips a box only when it does
+// not enter it before its best t, so every row a lane skips has a higher
+// index than its best or lies behind it: the result is the exhaustive
+// scan's. An any-hit lane is done at its first hit, and the warp leaves
+// when no lane is live.
+RRAY_DEVICE TriHit group_fold(const float* block, int T, int group,
+                              int chunk, V3 o, V3 d, float limit,
+                              bool any_hit, bool active) {
+  TriHit h = {INFINITY, 0.0f, 0.0f, 0};
+  const V3 inv = v3(inv_dir(d.x), inv_dir(d.y), inv_dir(d.z));
+  const int n_chunks = (T + chunk - 1) / chunk;
+  const int n_groups = (T + group - 1) / group;
+  const int per = chunk / group;
+  const float* cbox = block + TRI_BOX;
+  const float* gbox = cbox + (size_t)n_chunks * TRI_BOX;
+  const float* rows = gbox + (size_t)n_groups * TRI_BOX;
+  bool live = active && box_row(block, o, inv, limit);
+  for (int c = 0; c < n_chunks && warp_any(live); ++c) {
+    const bool in = live && box_row(cbox + (size_t)c * TRI_BOX, o, inv,
+                                    fminf(h.t, limit));
+    if (!warp_any(in)) continue;
+    const int g1 = (c + 1) * per < n_groups ? (c + 1) * per : n_groups;
+    for (int g = c * per; g < g1; ++g) {
+      const bool on = in && live &&
+                      box_row(gbox + (size_t)g * TRI_BOX, o, inv,
+                              fminf(h.t, limit));
+      if (!warp_any(on)) continue;
+      const int r0 = g * group;
+      const int r1 = r0 + group < T ? r0 + group : T;
+      if (leaf_rows(rows, r0, r1, o, d, limit, any_hit, on, &h) &&
+          any_hit) {
+        h.t = 0.0f;
+        live = false;
+      }
+    }
+  }
+  return h;
 }
 
 }  // namespace rray

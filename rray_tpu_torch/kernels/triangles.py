@@ -3,13 +3,18 @@ plain PyTorch versions, and the wrappers that pick between them.
 
 Port of rray_tpu's Pallas kernels `rray_tpu/kernels/triangles.py::
 closest_triangle` (ROADMAP B2) and `::any_triangle` (B3). The CUDA
-source is kernels/csrc/triangles.cu (device code in mesh_device.cuh):
-one thread per ray walks the Morton-ordered table chunk by chunk and
-skips a chunk whose AABB it does not enter before its own best t (or
-`dist`). The plain versions are rray_tpu's XLA chunk scan
-(`ops/soa.py::_tri_chunks/_tri_chunk_best/_tri_chunk_eval`), which
-rray_tpu's tests hold its kernels against, with the same Möller–Trumbore
-expression order as the kernel.
+source is kernels/csrc/triangles.cu (the fold is `group_fold` in
+mesh_device.cuh). Its tables (`chunk_tables`) are built once per table
+(the fast node: once per scene, ops/soa.py `_tri_tables`): the
+Morton-ordered rows as p1 e1 e2 in 48 B rows, and cull boxes over
+chunks of rows and over groups of GROUP rows inside each chunk. The 32
+rays of a warp fold together: a box is entered when some lane enters it
+before its best t (or `dist`), a group's rows are read once for the warp
+and tested by the lanes that entered its box, and the payload (normal,
+aux columns) is read for the winner only. The plain versions are
+rray_tpu's XLA chunk scan (`ops/soa.py::_tri_chunks/_tri_chunk_best/
+_tri_chunk_eval`), which rray_tpu's tests hold its kernels against, with
+the same Möller–Trumbore expression order as the kernel.
 
 Semantics (triangle.rs:72-94, scene.rs:97-136, 234-245): a hit has
 EPSILON <= |det|, 0 <= u, v, u + v <= 1 and t >= 0; the closest hit
@@ -25,19 +30,33 @@ launch the kernel (float32 only) or raise.
 """
 from __future__ import annotations
 
+from typing import NamedTuple, Optional
+
 import torch
 
+from . import build
 from ..config import EPSILON
 from ..ops.vec import V3
 
 CHUNK = 256         # chunk for meshes of 1024 triangles and more
 CHUNK_ALIGN = 8     # small meshes round their chunk up to this
 FAR = 1e30          # padding sentinel (rray_tpu kernels/triangles.py _FAR)
+# Rows per cull group of the CUDA kernels' tables (PERF.md: the group
+# sweep); the kernels' chunks are whole groups.
+GROUP = 4
+BOX = 8        # floats per box row (csrc/mesh_device.cuh TRI_BOX)
+ROW = 12       # floats per geometry row (BVH_TRI)
+# Tables up to this size are staged in shared memory by a persistent
+# grid (the 227 KB a block may opt in to); larger ones are read through
+# L1.
+STAGE_BYTES = 227 * 1024
 
 # Kernel launches made by the wrappers in this process (CPU calls, which
-# run the plain versions, do not count).
+# run the plain versions, do not count), and kernel tables built
+# (`chunk_tables`).
 closest_launches = 0
 any_launches = 0
+table_builds = 0
 
 
 def chunk_size(T: int) -> int:
@@ -180,25 +199,26 @@ def any_triangle_reference(ro_comps, rd_comps, tri_comps, dist,
 # ---------------------------------------------------------------------------
 
 def pack_table(tri_comps, aux=()):
-    """[T, K] row-major triangle table for the kernels: p1 e1 e2
-    (0-8), the vertex normals n1 n2 n3 (9-17) when given, then the aux
-    columns. One row per triangle, so the threads of a warp that test
-    the same triangle read one broadcast row."""
+    """[T, K] row-major payload table of the kernels: p1 e1 e2 (0-8),
+    the vertex normals n1 n2 n3 (9-17) when given, then the aux columns.
+    The kernels read the winner's row only (write_hit)."""
     return torch.stack(tuple(tri_comps) + tuple(aux), dim=1).contiguous()
 
 
 def check_rays(ro_comps, rd_comps, device, extra=()):
-    from . import build
-
+    """R, once every ray input is a contiguous float32 [R] tensor on
+    `device` (build.check_arg raises, naming the input, where one is
+    not)."""
     R = ro_comps[0].shape[0]
-    for k, c in enumerate(tuple(ro_comps) + tuple(rd_comps) + tuple(extra)):
-        build.check_arg(f"ray input {k}", c, (R,), device)
+    shape = (R,)
+    for k, c in enumerate((*ro_comps, *rd_comps, *extra)):
+        if not (c.device == device and c.dtype == torch.float32
+                and c.shape == shape and c.is_contiguous()):
+            build.check_arg(f"ray input {k}", c, shape, device)
     return R
 
 
 def check_table(tri_comps, aux, device):
-    from . import build
-
     if len(tri_comps) not in (9, 18):
         raise ValueError(f"{len(tri_comps)} triangle columns; the kernels "
                          "take 9 (p1 e1 e2) or 18 (with vertex normals)")
@@ -216,56 +236,107 @@ def hit_outputs(R, n_float, device):
             torch.empty(R, dtype=torch.int32, device=device))
 
 
-def _launch_closest(ro_comps, rd_comps, tri_comps, t_init, aux):
-    global closest_launches
-    from . import build
+class Tables(NamedTuple):
+    """The CUDA kernels' tables for one triangle table (`chunk_tables`)."""
 
+    block: torch.Tensor    # float32: box rows (whole, chunks, groups), rows
+    payload: torch.Tensor  # [T, K] p1 e1 e2 [n1 n2 n3] [aux] (write_hit)
+    T: int
+    group: int             # rows per group box
+    chunk: int             # rows per chunk box, a multiple of `group`
+    normals: bool
+    n_aux: int
+
+    @property
+    def words(self) -> int:
+        """Floats of the block: the whole table's box, one box per chunk
+        and per group, one row per triangle."""
+        T = self.T
+        return BOX * (1 + -(-T // self.chunk) + -(-T // self.group)) + ROW * T
+
+
+def box_rows(boxes):
+    """[6, n] component-major boxes -> [n * BOX] rows of lo xyz, 0, hi
+    xyz, 0 (two 16-byte loads each on the card)."""
+    zero = boxes.new_zeros((1, boxes.shape[1]))
+    return torch.cat([boxes[:3], zero, boxes[3:], zero]).t().reshape(-1)
+
+
+def chunk_tables(tri_comps, aux=(), group: int = GROUP) -> Tables:
+    """The CUDA kernels' tables for a triangle table (9 or 18 [T]
+    columns, and aux columns), built with torch ops on its device: one
+    float32 block of box rows (the whole table's, then one per chunk of
+    group * ceil(chunk_size(T) / group) rows, then one per group of
+    `group` rows; each exactly as chunk_boxes computes it) and the
+    geometry rows (p1 e1 e2 and three zeros), and the payload table
+    (pack_table) that the kernels read for the winner only."""
+    global table_builds
+    T = tri_comps[0].shape[0]
+    chunk = group * -(-chunk_size(T) // group)
+    geom = [c.float() for c in tri_comps[:9]]
+    chunks = chunk_boxes(geom, chunk)  # the last column: the whole table
+    rows = torch.zeros((T, ROW), dtype=torch.float32, device=geom[0].device)
+    rows[:, :9] = torch.stack(geom, 1)
+    block = torch.cat([box_rows(chunks[:, -1:]), box_rows(chunks[:, :-1]),
+                       box_rows(chunk_boxes(geom, group)[:, :-1]),
+                       rows.reshape(-1)])
+    table_builds += 1
+    return Tables(block, pack_table(tri_comps, aux), T, group, chunk,
+                  len(tri_comps) == 18, len(aux))
+
+
+def check_tables(tables: Tables, T: int, normals: bool, n_aux: int,
+                 any_hit: bool):
+    """Refuse tables built for another triangle table (any-hit reads no
+    payload, so it may take the closest call's tables)."""
+    if tables.T != T or (not any_hit and (tables.normals, tables.n_aux)
+                         != (normals, n_aux)):
+        raise ValueError(f"the tables hold {tables.T} triangles, normals "
+                         f"{tables.normals} and {tables.n_aux} aux columns; "
+                         f"the call asks {T}, {normals} and {n_aux}")
+
+
+def _launch(ro_comps, rd_comps, bound, tables: Tables, any_hit: bool):
+    """Launch the closest-hit (bound: t_init or None) or any-hit (bound:
+    dist) kernel over `tables`."""
+    global closest_launches, any_launches
     device = ro_comps[0].device
     R = check_rays(ro_comps, rd_comps, device,
-                   () if t_init is None else (t_init,))
-    T = check_table(tri_comps, aux, device)
-    normals = len(tri_comps) == 18
-    n_float = 3 + (3 if normals else 0) + len(aux)
-    fout, iout = hit_outputs(R, n_float, device)
-    chunk = chunk_size(T)
-    tbl = pack_table(tri_comps, aux)
-    boxes = chunk_boxes(tri_comps, chunk)
-    with torch.cuda.device(device):
-        rc = build.load_library().closest_triangle_launch(
-            *(build.ptr(c) for c in tuple(ro_comps) + tuple(rd_comps)),
-            build.ptr(t_init), build.ptr(tbl), tbl.shape[1], T,
-            build.ptr(boxes), boxes.shape[1] - 1, chunk, int(normals),
-            len(aux), build.ptr(fout), build.ptr(iout), R,
-            build.stream(device))
+                   () if bound is None else (bound,))
+    words = tables.words
+    build.check_arg("tables.block", tables.block, (words,), device)
+    staged = 4 * words <= STAGE_BYTES
+    # The int output (hit flags or winning rows) has one more word: the
+    # persistent grid's chunk counter, which the launch zeroes.
+    ints = torch.empty(R + 1, dtype=torch.int32, device=device)
+    head = (*(c.data_ptr() for c in (*ro_comps, *rd_comps)),
+            build.ptr(bound), tables.block.data_ptr(), words, tables.T,
+            tables.group, tables.chunk)
+    tail = (R, int(staged), ints.data_ptr() + 4 * R, build.stream(device))
+    lib = build.load_library()
+    if any_hit:
+        with build.device_guard(device):
+            rc = lib.any_triangle_launch(*head, ints.data_ptr(), *tail)
+        build.check_launch("any_triangle", rc)
+        any_launches += 1
+        return ints[:R]
+    build.check_arg("tables.payload", tables.payload,
+                    tuple(tables.payload.shape), device)
+    n_float = 3 + (3 if tables.normals else 0) + tables.n_aux
+    fout = torch.empty((n_float, R), dtype=torch.float32, device=device)
+    with build.device_guard(device):
+        rc = lib.closest_triangle_launch(
+            *head, tables.payload.data_ptr(), tables.payload.shape[1],
+            int(tables.normals), tables.n_aux, fout.data_ptr(),
+            ints.data_ptr(), *tail)
     build.check_launch("closest_triangle", rc)
     closest_launches += 1
     rows = fout.unbind(0)
-    return rows[:3] + (iout,) + rows[3:]
+    return rows[:3] + (ints[:R],) + rows[3:]
 
 
-def _launch_any(ro_comps, rd_comps, tri_comps, dist):
-    global any_launches
-    from . import build
-
-    device = ro_comps[0].device
-    R = check_rays(ro_comps, rd_comps, device, (dist,))
-    T = check_table(tri_comps[:9], (), device)
-    hit = torch.empty(R, dtype=torch.int32, device=device)
-    chunk = chunk_size(T)
-    tbl = pack_table(tri_comps[:9])
-    boxes = chunk_boxes(tri_comps, chunk)
-    with torch.cuda.device(device):
-        rc = build.load_library().any_triangle_launch(
-            *(build.ptr(c) for c in tuple(ro_comps) + tuple(rd_comps)),
-            build.ptr(dist), build.ptr(tbl), tbl.shape[1], T,
-            build.ptr(boxes), boxes.shape[1] - 1, chunk, build.ptr(hit), R,
-            build.stream(device))
-    build.check_launch("any_triangle", rc)
-    any_launches += 1
-    return hit
-
-
-def closest_triangle(ro_comps, rd_comps, tri_comps, t_init=None, aux=()):
+def closest_triangle(ro_comps, rd_comps, tri_comps, t_init=None, aux=(),
+                     tables: Optional[Tables] = None):
     """Closest hit over triangles -> (t, u, v, idx[, nx, ny, nz][, *aux])
     [R] tensors (idx int32).
 
@@ -274,16 +345,33 @@ def closest_triangle(ro_comps, rd_comps, tri_comps, t_init=None, aux=()):
     the winner's interpolated normal (unnormalized) is returned; `t_init`
     ([R], optional) keeps only hits with t < t_init; `aux` ([T] columns,
     e.g. prim id and shade class as floats) is selected for the winner.
-    The kernel culls by chunk_size(T) boxes."""
+    `tables`: the kernel's tables for these columns (chunk_tables);
+    without them the kernel's are built for this call. The plain version
+    takes no tables (it refuses tables built for other columns all the
+    same)."""
+    aux = tuple(aux)
+    if tables is not None:
+        check_tables(tables, tri_comps[0].shape[0], len(tri_comps) == 18,
+                     len(aux), any_hit=False)
     if ro_comps[0].device.type == "cpu":
         return closest_triangle_reference(ro_comps, rd_comps, tri_comps,
                                           t_init, aux)
-    return _launch_closest(ro_comps, rd_comps, tri_comps, t_init, tuple(aux))
+    if tables is None:
+        check_table(tri_comps, aux, ro_comps[0].device)
+        tables = chunk_tables(tri_comps, aux)
+    return _launch(ro_comps, rd_comps, t_init, tables, any_hit=False)
 
 
-def any_triangle(ro_comps, rd_comps, tri_comps, dist):
+def any_triangle(ro_comps, rd_comps, tri_comps, dist,
+                 tables: Optional[Tables] = None):
     """Shadow any-hit: is some triangle hit with 0 <= t < dist? -> [R]
-    int32 (1 = occluded). tri_comps: at least the 9 geometry columns."""
+    int32 (1 = occluded). tri_comps: at least the 9 geometry columns;
+    `tables`: as closest_triangle's (the closest call's may be shared)."""
+    if tables is not None:
+        check_tables(tables, tri_comps[0].shape[0], False, 0, any_hit=True)
     if ro_comps[0].device.type == "cpu":
         return any_triangle_reference(ro_comps, rd_comps, tri_comps, dist)
-    return _launch_any(ro_comps, rd_comps, tri_comps, dist)
+    if tables is None:
+        check_table(tri_comps[:9], (), ro_comps[0].device)
+        tables = chunk_tables(tri_comps[:9])
+    return _launch(ro_comps, rd_comps, dist, tables, any_hit=True)

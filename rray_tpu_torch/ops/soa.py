@@ -349,6 +349,16 @@ def _bvh_tables(scene):
         _tri_comps(scene, normals=True), _tri_aux(scene)))
 
 
+def _tri_tables(scene):
+    """The triangle kernels' tables for the scene's mesh
+    (kernels/triangles.py chunk_tables, with normals and payload), built
+    once per scene; its closest and any-hit calls share them."""
+    from ..kernels import triangles
+
+    return scene.cached("tri", lambda: triangles.chunk_tables(
+        _tri_comps(scene, normals=True), _tri_aux(scene)))
+
+
 def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
     """Closest triangle hit with t < t_init (rray_tpu soa.py
     _pallas_triangle_best): the BVH kernel for meshes of at least
@@ -365,7 +375,8 @@ def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
         outs = bvh.bvh_closest_triangle(*rays, tri, dist=t_init, aux=aux,
                                         tables=_bvh_tables(scene))
     else:
-        outs = triangles.closest_triangle(*rays, tri, t_init=t_init, aux=aux)
+        outs = triangles.closest_triangle(*rays, tri, t_init=t_init, aux=aux,
+                                          tables=_tri_tables(scene))
     t, _, _, row, nx, ny, nz, prim, cls = outs
     return t, prim.long(), cls.long(), (nx, ny, nz), row
 
@@ -381,7 +392,8 @@ def _triangle_any(scene, ro: V3, rd: V3, settings, distance):
         t = bvh.bvh_closest_triangle(*rays, tri, dist=distance, any_hit=True,
                                      tables=_bvh_tables(scene))[0]
         return t < distance
-    return triangles.any_triangle(*rays, tri, distance) != 0
+    return triangles.any_triangle(*rays, tri, distance,
+                                  tables=_tri_tables(scene)) != 0
 
 
 def analytic_closest(scene, ro: V3, rd: V3):

@@ -151,6 +151,66 @@ def test_triangle_kernels_match_plain_versions(cuda, kind):
                         [same & ~both].all())
 
 
+@pytest.mark.parametrize("placement", ["staged", "L1"])
+@pytest.mark.parametrize("kind", ["closest", "any"])
+@pytest.mark.parametrize("T", [540, 1008, 2500])
+def test_triangle_kernels_with_tables(cuda, kind, placement, T,
+                                      monkeypatch):
+    """B2 and B3 with the scene's tables (chunk_tables, built once and
+    shared by the closest and any-hit calls) and without them (built per
+    call), on 540 and 1008 triangles (mesh9's and mesh9k's counts) and
+    on 2500, with the tables staged in shared memory by the persistent
+    grid, and read through L1 by the plain grid (STAGE_BYTES = 0)."""
+    if placement == "L1":
+        monkeypatch.setattr(triangles, "STAGE_BYTES", 0)
+    rays, cols, bound = _seeded(T, cuda, seed=T)
+    aux = (torch.arange(T, dtype=torch.float32, device=cuda),
+           torch.full((T,), 3.0, device=cuda))
+    tables = triangles.chunk_tables(cols, aux)
+    assert tables.block.device.type == "cuda"
+    if kind == "any":
+        plain = triangles.any_triangle_reference(*rays, cols[:9], bound)
+        before = triangles.any_launches
+        for tbl in (tables, None):
+            kern = triangles.any_triangle(*rays, cols[:9], bound, tables=tbl)
+            assert float((kern == plain).double().mean()) >= 0.999
+        assert triangles.any_launches == before + 2
+        assert 0.0 < float(plain.double().mean()) < 1.0
+        return
+    before = triangles.closest_launches
+    for seed in ({}, {"t_init": bound}):
+        plain = triangles.closest_triangle_reference(*rays, cols, aux=aux,
+                                                     **seed)
+        for tbl in (tables, None):
+            kern = triangles.closest_triangle(*rays, cols, aux=aux,
+                                              tables=tbl, **seed)
+            torch.cuda.synchronize()
+            same = kern[3] == plain[3]
+            assert float(same.double().mean()) >= 0.999
+            assert bool(torch.isfinite(kern[0]).any())
+            for a, b in zip(kern, plain):
+                both = torch.isinf(a) & torch.isinf(b)
+                assert bool(((a.float() - b.float()).abs() <= 1e-5)
+                            [same & ~both].all())
+    assert triangles.closest_launches == before + 4
+
+
+def test_area9_launches_both_triangle_kernels(cuda, tmp_path):
+    """area9: nine 60-triangle meshes under config 3's light (level 5)
+    leave the whitted kernel for the fast node, whose closest call and
+    five sample-row any-hit calls per level launch B2 and B3 with one set
+    of tables for the scene."""
+    path = ms.write_scene(str(tmp_path), "area9", lat_lon=(6, 6), grid=True,
+                          area_level=5)
+    counts = (triangles.closest_launches, triangles.any_launches,
+              triangles.table_builds)
+    image = api.render_scene_from_file(path, 64, 48, "", device="cuda")
+    assert np.isfinite(image).all()
+    assert triangles.closest_launches >= counts[0] + 1
+    assert triangles.any_launches >= counts[1] + 5
+    assert triangles.table_builds == counts[2] + 1
+
+
 @pytest.mark.parametrize("grid,lat_lon", [(True, (6, 6)), (False, (40, 40))])
 def test_fast_node_launches_triangle_kernels(cuda, grid, lat_lon, tmp_path):
     """Nine mesh groups (B2 + B3) and a 3120-triangle mesh (B4) leave the

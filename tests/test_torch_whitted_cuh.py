@@ -6,15 +6,15 @@ area sample, pattern program, CSG and mesh-fold functions, over the
 tables kernels/whitted.py kernel_tables packs) and the area-shadow
 kernel's per-origin body (area_count), mesh_device.cuh what one thread
 of the triangle and BVH kernels runs (Möller–Trumbore, the chunk folds,
-the heap walk, the output writer), jitter_device.cuh the area lights'
-jitter hash, quartic_device.cuh and noise_device.cuh stage e's torus
-quartic and Perlin noise. They need only two function-qualifier
-macros and the C math library, so they also compile as host C++. Built
-here with g++ and -ffp-contract=off (the host analogue of the kernels'
---fmad=false), they are held against the plain versions on camera rays
-and seeded rays. This checks the kernels' arithmetic and control flow
-wherever there is no card; the CUDA build itself is checked on the card
-by chip_smoke.py."""
+the warp-uniform group fold, the heap walk, the output writer),
+jitter_device.cuh the area lights' jitter hash, quartic_device.cuh and
+noise_device.cuh stage e's torus quartic and Perlin noise. They need
+only two function-qualifier macros and the C math library, so they also
+compile as host C++. Built here with g++ and -ffp-contract=off (the host
+analogue of the kernels' --fmad=false), they are held against the plain
+versions on camera rays and seeded rays. This checks the kernels'
+arithmetic and control flow wherever there is no card; the CUDA build
+itself is checked on the card by chip_smoke.py."""
 import ctypes
 import os
 import shutil
@@ -153,6 +153,22 @@ extern "C" void any_all(const float* const* rays, const float* dist,
     hit[i] = any_chunks(tris, ncols, T, boxes, n_chunks, chunk,
                         v3(rays[0][i], rays[1][i], rays[2][i]),
                         v3(rays[3][i], rays[4][i], rays[5][i]), dist[i]);
+}
+extern "C" void group_all(const float* const* rays, const float* bound,
+                          const float* block, int T, int group, int chunk,
+                          int any_hit, const float* tris, int ncols,
+                          int normals, int n_aux, float* fout, int* iout,
+                          int* hit, int R) {
+  for (int i = 0; i < R; ++i) {
+    TriHit h = group_fold(block, T, group, chunk,
+                          v3(rays[0][i], rays[1][i], rays[2][i]),
+                          v3(rays[3][i], rays[4][i], rays[5][i]),
+                          bound ? bound[i] : INFINITY, any_hit != 0, true);
+    if (any_hit)
+      hit[i] = h.t < INFINITY;
+    else
+      write_hit(h, tris, ncols, normals, n_aux, fout, iout, R, i);
+  }
 }
 extern "C" void bvh_all(const float* const* rays, const float* dist,
                         const float* block, int node_words, int T, int Lp,
@@ -366,6 +382,50 @@ def test_triangle_device_code_matches_plain_versions(host_lib, kind):
     same = (iout == plain[3].numpy()) & (
         (fout == want) | (np.isinf(fout) & np.isinf(want))).all(0)
     assert np.isfinite(fout[0]).any()
+    assert same.mean() >= 0.999, same.mean()
+
+
+@pytest.mark.parametrize("T,group", [(200, 4), (333, 4), (333, 16),
+                                     (333, 56)])
+@pytest.mark.parametrize("kind", ["closest", "closest_bounded", "any"])
+def test_group_fold_matches_plain_versions(host_lib, kind, T, group):
+    """mesh_device.cuh's group_fold, the B2/B3 kernels' warp-uniform
+    fold (one lane on the host), over chunk_tables' block, with the
+    kernels' output writer, against kernels/triangles.py's plain
+    versions. 333 triangles are a multiple of neither the group nor the
+    chunk (56 rows: groups of 4 and 56, or 64 rows: groups of 16); with
+    groups of 56 the chunk is one group."""
+    rays, cols, bound = _seeded_mesh(T, 2, normals=kind != "any")
+    R = rays[0].shape[0]
+    aux = () if kind == "any" else (torch.arange(T, dtype=torch.float32),)
+    bound = None if kind == "closest" else bound
+    tables = triangles.chunk_tables(cols, aux, group)
+    if T == 333:
+        assert T % group and T % tables.chunk
+    i = ctypes.c_int
+    n_float = 3 + (3 if len(cols) == 18 else 0) + len(aux)
+    fout = np.zeros((n_float, R), np.float32)
+    iout = np.zeros(R, np.int32)
+    hit = np.zeros(R, np.int32)
+    tbl = _np(tables.payload)
+    host_lib.group_all(_ptrs([_np(r) for r in rays]), _c(_np(bound)),
+                       _c(_np(tables.block)), i(T), i(group),
+                       i(tables.chunk), i(kind == "any"), _c(tbl),
+                       i(tbl.shape[1]), i(len(cols) == 18), i(len(aux)),
+                       _c(fout), _c(iout), _c(hit), i(R))
+    if kind == "any":
+        plain = triangles.any_triangle(rays[:3], rays[3:], cols, bound)
+        assert 0 < plain.numpy().mean() < 1
+        assert (hit == plain.numpy()).mean() >= 0.999
+        return
+    plain = triangles.closest_triangle(rays[:3], rays[3:], cols,
+                                       t_init=bound, aux=aux)
+    want = np.stack([p.numpy() for k, p in enumerate(plain) if k != 3])
+    # As the chunk folds above: the plain version's expressions in its
+    # order, equal bit for bit wherever the box culls keep the winner.
+    same = (iout == plain[3].numpy()) & (
+        (fout == want) | (np.isinf(fout) & np.isinf(want))).all(0)
+    assert np.isfinite(fout[0]).any() and np.isinf(fout[0]).any()
     assert same.mean() >= 0.999, same.mean()
 
 
