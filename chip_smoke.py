@@ -55,6 +55,25 @@ mesh benchmark cells; the area scenes swap the point light for config
             light
     tex5r   config 5, the CSG split into its    fast node (textured and
             operands, reflective floor          reflective), depth 5
+    glass4  mesh4's sphere as glass, lifted     sorted node: compact
+            0.01 off the floor                  wavefront at W = 4,
+                                                closest_triangle and
+                                                any_triangle, the chunked
+                                                n1/n2 mesh fold
+    glass4b mesh4b's sphere as glass            sorted node: BVH kernel
+                                                (closest and any-hit)
+    glass21 area21 with every other sphere      sorted node: area-shadow
+            glass                               kernel at every live level
+    csgglass config 5, the CSG's right operand  sorted node: the hybrid
+            at transparency 0.5 (1920x1080)     CSG path, n1/n2 from the
+                                                filtered operand slots
+    csgmesh config 5, a tetrahedron OBJ as the  sorted node: full sorted
+            CSG's right operand (1920x1080)     slots, no kernel (as in
+                                                rray_tpu: torch folds)
+
+The sorted node's scenes are held against the same render with the
+plain versions of the triangle, BVH and area-shadow kernels on the card
+(plain_kernels()), and their frames are timed on the main path.
 """
 from __future__ import annotations
 
@@ -75,8 +94,10 @@ EXAMPLES = (("glass", "examples/glass.yaml"),
             ("example1", "examples/example1.yaml"),
             ("area", "examples/area_light.yaml"),
             ("csg", "examples/csg_showcase.yaml"))
-# Config 5 renders at its BASELINE size, the other scenes at 800x600.
-SIZES = {"csg": (1920, 1080)}
+# Config 5 and its sorted-node variants render at its BASELINE size, the
+# other scenes at 800x600.
+SIZES = {"csg": (1920, 1080), "csgglass": (1920, 1080),
+         "csgmesh": (1920, 1080)}
 # The aa=5 raster of config 5 (51.84 M rays) is held against the plain
 # version on every CSG_STRIDE-th ray (1.08 M rays).
 CSG_STRIDE = 48
@@ -159,6 +180,10 @@ SCENES = {
     "area21": dict(lat_lon=None, spheres=20, reflective=0.3, area_level=5),
     "area4b": dict(lat_lon=(40, 40), area_level=5),
     "area9": dict(lat_lon=(6, 6), grid=True, area_level=5),
+    "glass4": dict(lat_lon=(11, 11), glass=True),
+    "glass4b": dict(lat_lon=(40, 40), glass=True),
+    "glass21": dict(lat_lon=None, spheres=20, reflective=0.3, area_level=5,
+                    glass=True),
 }
 # Scenes of the kernel phases only: mesh_scenes.write_scene arguments.
 PHASE_SCENES = {
@@ -170,7 +195,13 @@ PHASE_SCENES = {
 CONFIG5 = {
     "csg5r": dict(floor_reflective=0.3, area_level=5, perturbed_torus=True),
     "tex5r": dict(floor_reflective=0.3, split_csg=True),
+    "csgglass": dict(transparent_operand=0.5),
+    "csgmesh": dict(mesh_operand=True),
 }
+# The sorted node's scenes, in the order of their main-path runs, and
+# those whose plain-kernel comparison renders at half size.
+SORTED = ("glass4", "glass4b", "glass21", "csgglass", "csgmesh")
+HALF_SIZE_PLAIN = ("glass4b", "glass21")
 
 
 # ---------------------------------------------------------------------------
@@ -179,7 +210,7 @@ CONFIG5 = {
 
 def card_state():
     return subprocess.run(
-        ["nvidia-smi", "--query-gpu=clocks.sm,power.limit",
+        ["nvidia-smi", "--query-gpu=name,power.limit,clocks.sm",
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip()
 
@@ -1001,7 +1032,12 @@ RUNS = (("glass", 1, ("whitted_compact",)),
         ("area9", 1, ("closest_triangle", "any_triangle")),
         ("csg5r", 1, ("whitted_compact",)),
         ("tex5r", 1, ()),
-        ("csg", 5, ("whitted_compact",)))
+        ("csg", 5, ("whitted_compact",)),
+        ("glass4", 1, ("closest_triangle", "any_triangle")),
+        ("glass4b", 1, ("bvh_closest_triangle",)),
+        ("glass21", 1, ("area_shadow_fraction",)),
+        ("csgglass", 1, ()),
+        ("csgmesh", 1, ()))
 MIN_LAUNCHES = {("area9", "any_triangle"): 5}
 
 
@@ -1134,6 +1170,13 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
                                               (rd.x, rd.y, rd.z), **inputs,
                                               width=w * aa)
                 t0 = mark("whitted kernel call", t0)
+            elif node == "sorted":
+                out = integrator.sorted_frame(
+                    scene, ro, rd, w * aa, settings,
+                    jitter.seed_table(0, settings.depth, len(scene.lights)))
+                rgb = (out.x, out.y, out.z)
+                t0 = mark("sorted node (torch ops + triangle, BVH and area "
+                          "kernels)", t0)
             else:
                 out = integrator.color_at_fast(
                     scene, ro, rd, settings.depth, settings,
@@ -1162,9 +1205,12 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
                                        device=DEVICE)
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1e3
+    # Device-side events only: a torch op's row also carries the time of
+    # the kernels it launched, which would count them twice.
     device = [(getattr(e, "self_device_time_total",
                        getattr(e, "self_cuda_time_total", 0.0)) / 1e3, e.key)
-              for e in prof.key_averages()]
+              for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(ms for ms, _ in device)
     for key, vals in phases.items():
         print(f"where the time goes {name} {w}x{h} aa={aa}: {key} "
@@ -1172,8 +1218,9 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
     top = ", ".join(f"{key} {ms:.3f} ms" for ms, key in
                     sorted(device, reverse=True)[:5] if ms > 0)
     print(f"where the time goes {name} aa={aa}: device busy {busy:.3f} ms of a "
-          f"{wall:.1f} ms profiled frame ({100 * busy / wall:.1f}%); top "
-          f"device time: {top} [{card_state()}]")
+          f"{wall:.1f} ms profiled frame ({100 * busy / wall:.1f}%, "
+          f"{len(device)} kernel names); top device time: {top} "
+          f"[{card_state()}]")
 
 
 def whitted_blocks():
@@ -1256,6 +1303,11 @@ def main() -> int:
         if integrator.route(scene) != want or not whitted.needs_ext(scene):
             fail(f"{name} routes to {integrator.route(scene)}, not {want}, "
                  f"or needs no stage e")
+    for name in SORTED:
+        scene = camera_scene(scene_paths[name], torch, size=(8, 6))[0]
+        print(f"route {name}: {integrator.route(scene)}")
+        if integrator.route(scene) != "sorted":
+            fail(f"{name} routes to {integrator.route(scene)}, not sorted")
 
     results = {}
     for name, aa in (("glass", 1), ("example1", 1), ("mesh4", 1),
@@ -1295,16 +1347,29 @@ def main() -> int:
         torch, torch.from_numpy(images[("area", 1)]).to(DEVICE).unbind(-1),
         torch.from_numpy(plain).to(DEVICE).unbind(-1), "main path area aa=1")
     print(f"parity main path area aa=1: max |kernel - plain| {diff:.3e}")
-    for name in ("mesh9", "mesh4b", "area21", "area4b", "area9"):
+    for name in ("mesh9", "mesh4b", "area21", "area4b", "area9") + SORTED:
+        w, h = size_of(name)
+        image = images[(name, 1)]
+        if name in HALF_SIZE_PLAIN:
+            # The plain BVH and area-shadow versions take 12-25 s at the
+            # main path's size: compare a render with the kernels at half
+            # its width and height instead (not a main-path run).
+            w, h = w // 2, h // 2
+            image = api.render_scene_from_file(scene_paths[name], w, h, "",
+                                               device=DEVICE)
+        t0 = time.perf_counter()
         with plain_kernels():
-            plain = api.render_scene_from_file(scene_paths[name], WIDTH,
-                                               HEIGHT, "", device=DEVICE)
+            plain = api.render_scene_from_file(scene_paths[name], w, h, "",
+                                               device=DEVICE)
+        wall = time.perf_counter() - t0
         diff = compare_images(
-            torch, torch.from_numpy(images[(name, 1)]).to(DEVICE).unbind(-1),
+            torch, torch.from_numpy(image).to(DEVICE).unbind(-1),
             torch.from_numpy(plain).to(DEVICE).unbind(-1), f"main path {name}")
-        print(f"parity main path {name}: max |kernels - plain| {diff:.3e}")
+        print(f"parity main path {name} {w}x{h}: max |kernels - plain| "
+              f"{diff:.3e} (plain-kernel frame {wall * 1e3:.1f} ms wall)")
     for name, aa, reps in (("mesh4", 1, 5), ("mesh9", 1, 5), ("mesh4b", 1, 5),
-                           ("area", 3, 5), ("csg", 5, 3)):
+                           ("area", 3, 5), ("csg", 5, 3), ("glass4", 1, 3),
+                           ("csgglass", 1, 3)):
         frame_breakdown(torch, np, name, scene_paths[name], aa, reps)
     tmp.cleanup()
 

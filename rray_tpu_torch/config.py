@@ -3,8 +3,9 @@
 Mirrors the reference's single global constant EPSILON = 1e-5
 (reference src/main.rs:10). There is no kernel switch: the device of the
 tensors decides. CUDA tensors run the hand-written kernels, CPU tensors
-their plain PyTorch versions. The mesh settings are rray_tpu's
-(rray_tpu/config.py bvh_min_tris, bvh_leaf).
+their plain PyTorch versions. The mesh settings and the sorted node's
+(max_hits, containers_depth, tri_chunk, rows_per_tile, max_rc_elems,
+wavefront) are rray_tpu's, with its defaults (rray_tpu/config.py).
 """
 from __future__ import annotations
 
@@ -42,8 +43,21 @@ def hit_match_tol(dtype) -> float:
 class RenderSettings:
     """Settings for one render."""
 
+    # Max sorted hit slots kept per ray (the sorted node's mesh slots:
+    # the triangle crossings a CSG or n1/n2 walk can see).
+    max_hits: int = 16
+    # Containers stack depth for the n1/n2 walk (intersection.rs:61-92).
+    containers_depth: int = 8
     # Recursion depth for reflection/refraction (camera.rs:113 hardcodes 5).
     depth: int = 5
+    # Triangles per chunk of the sorted node's torch folds over a mesh
+    # (its ties break in chunk order, as rray_tpu's do).
+    tri_chunk: int = 512
+    # Pixel rows per batch of the sorted node (rray_tpu's tile rule).
+    rows_per_tile: int = 64
+    # Cap on rays-per-batch x tri_chunk (and x slot) elements, which
+    # bounds the sorted node's [R, C] and [K, R] intermediates.
+    max_rc_elems: int = 32 * 1024 * 1024
     # Meshes with at least this many triangles take the BVH kernel on the
     # fast node; smaller ones the linear chunk kernels.
     bvh_min_tris: int = 1024
@@ -56,3 +70,7 @@ class RenderSettings:
     # more nonzero-weight paths drops the lowest-weight ones. 2^depth
     # keeps every path.
     wavefront_capacity: int = 4
+    # The sorted node's wavefront when both reflection and refraction
+    # spawn: "compact" (per-pixel live-path compaction at
+    # wavefront_capacity) or "scan" (the exhaustive 2^depth width).
+    wavefront: str = "compact"

@@ -31,7 +31,7 @@ MESH = """  - type: obj_file
       pattern:
         type: solid
         color: [{r}, {g}, {b}]
-"""
+{glass}"""
 SPHERE = """  - type: sphere
     transforms:
       - type: scale
@@ -43,7 +43,7 @@ SPHERE = """  - type: sphere
         type: solid
         color: [{r}, {g}, {b}]
       specular: 0.3
-"""
+{glass}"""
 HEADER = """camera:
   fov: 60
   from: [0, 1.5, -4]
@@ -64,6 +64,15 @@ AREA_LIGHT = """  - type: area
     level: {level}
     color: [1, 1, 1]
 """
+# The glass of examples/glass.yaml's large sphere, more transparent.
+GLASS = """      reflective: 0.9
+      transparency: 0.9
+      refractive_index: 1.5
+"""
+# A tetrahedron, config 5's mesh operand (four faces, none coplanar
+# with the floor).
+TETRAHEDRON = ("v 0 1.6 -0.2\nv 0.9 0.3 -0.7\nv -0.9 0.3 -0.7\n"
+               "v 0 0.3 1.0\nf 1 2 3\nf 1 3 4\nf 1 4 2\nf 2 4 3\n")
 NINE_COLORS = [(0.9, 0.2, 0.2), (0.2, 0.9, 0.2), (0.2, 0.2, 0.9),
                (0.9, 0.9, 0.2), (0.9, 0.2, 0.9), (0.2, 0.9, 0.9),
                (0.6, 0.4, 0.2), (0.4, 0.2, 0.6), (0.8, 0.8, 0.8)]
@@ -102,7 +111,7 @@ def _transforms(*ts):
 
 
 def write_scene(tmp, name, lat_lon=(11, 11), reflective=0.0, grid=False,
-                spheres=0, smooth=True, area_level=0):
+                spheres=0, smooth=True, area_level=0, glass=False):
     """Write `name`.yaml (+ OBJ) under `tmp` and return its path.
 
     One mesh of uv_sphere_obj(*lat_lon) at (0, 1, 0), or none when
@@ -110,7 +119,10 @@ def write_scene(tmp, name, lat_lon=(11, 11), reflective=0.0, grid=False,
     3x3 grid at scale 0.3 instead; `spheres` adds that many analytic
     spheres of radius 0.25 on the floor, five to a row, 0.6 apart;
     smooth=False drops the vertex normals (flat triangles); area_level > 0
-    swaps the point light for config 3's area light at that level."""
+    swaps the point light for config 3's area light at that level;
+    glass=True makes the meshes and every other sphere (the even ones)
+    GLASS and lifts the single mesh 0.01 off the floor, so that none of
+    its faces touches it."""
     body = FLOOR.format(reflective=reflective)
     if lat_lon is not None:
         obj = os.path.join(tmp, f"{name}.obj")
@@ -122,21 +134,24 @@ def write_scene(tmp, name, lat_lon=(11, 11), reflective=0.0, grid=False,
                              if not line.startswith("vn"))
         with open(obj, "w") as f:
             f.write(text)
+        mat = GLASS if glass else ""
         if grid:
             for k, (r, g, b) in enumerate(NINE_COLORS):
                 x, z = (k % 3 - 1) * 0.9, (k // 3 - 1) * 0.9
-                body += MESH.format(obj=obj, r=r, g=g, b=b,
+                body += MESH.format(obj=obj, r=r, g=g, b=b, glass=mat,
                                     transforms=_transforms(
                                         ("scale", (0.3, 0.3, 0.3)),
                                         ("translate", (x, 0.5, z))))
         else:
-            body += MESH.format(obj=obj, r=0.7, g=0.5, b=0.2,
+            body += MESH.format(obj=obj, r=0.7, g=0.5, b=0.2, glass=mat,
                                 transforms=_transforms(
-                                    ("translate", (0, 1, 0))))
+                                    ("translate",
+                                     (0, 1.01 if glass else 1, 0))))
     for k in range(spheres):
         r, g, b = NINE_COLORS[k % len(NINE_COLORS)]
         body += SPHERE.format(x=(k % 5 - 2) * 0.6, z=(k // 5 - 1.5) * 0.6,
-                              r=r, g=g, b=b)
+                              r=r, g=g, b=b,
+                              glass=GLASS if glass and k % 2 == 0 else "")
     path = os.path.join(tmp, f"{name}.yaml")
     with open(path, "w") as f:
         light = (AREA_LIGHT.format(level=area_level) if area_level
@@ -159,14 +174,18 @@ PERTURBED_STRIPE = {
 
 
 def write_config5(tmp, name, floor_reflective=0.0, area_level=0,
-                  perturbed_torus=False, split_csg=False):
+                  perturbed_torus=False, split_csg=False,
+                  transparent_operand=0.0, mesh_operand=False):
     """Write a variant of config 5 (examples/csg_showcase.yaml) as
     `name`.yaml under `tmp` and return its path: the floor's
     `reflective`, config 3's area light at `area_level` in place of the
     point light, PERTURBED_STRIPE on the torus in place of its image,
-    and with `split_csg` the
-    CSG node replaced by its two operands as top-level objects (each
-    under the CSG's transforms). The image path is made absolute."""
+    with `split_csg` the CSG node replaced by its two operands as
+    top-level objects (each under the CSG's transforms), the CSG's right
+    operand (a sphere) at transparency `transparent_operand`, and with
+    `mesh_operand` a TETRAHEDRON OBJ as the CSG's right operand. The
+    last two make CSG scenes that the whitted kernel rejects. The image
+    path is made absolute."""
     with open(os.path.join(EXAMPLES, "csg_showcase.yaml")) as f:
         doc = yaml.safe_load(f)
     objs = doc["scene"]
@@ -181,6 +200,13 @@ def write_config5(tmp, name, floor_reflective=0.0, area_level=0,
         torus["material"]["pattern"] = PERTURBED_STRIPE
     elif pattern["type"] == "image":
         pattern["file"] = os.path.join(EXAMPLES, pattern["file"])
+    if transparent_operand:
+        csg["right"]["material"]["transparency"] = transparent_operand
+    if mesh_operand:
+        obj = os.path.join(tmp, f"{name}_tet.obj")
+        with open(obj, "w") as f:
+            f.write(TETRAHEDRON)
+        csg["right"] = {"type": "obj_file", "obj_file": obj}
     if split_csg:
         operands = [dict(o, transforms=o.get("transforms", [])
                          + csg.get("transforms", []))

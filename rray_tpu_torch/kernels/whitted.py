@@ -149,16 +149,15 @@ def needs_ext(scene) -> bool:
         or not all(tree_cheap(p) for p in scene.patterns)
 
 
-def unported(scene) -> str | None:
-    """Why neither the kernel nor the torch fast node renders this scene
-    yet, naming the ROADMAP item that will carry it — or None. The
-    kernel filters a CSG over analytic operands in an opaque scene; a
-    mesh inside a CSG, or a CSG with transparency, needs the sorted torch
-    node (rray_tpu whitted.py:110-115)."""
+def csg_unsupported(scene) -> str | None:
+    """Why the kernel cannot filter this scene's CSG — or None. It
+    filters a CSG over analytic operands in an opaque scene; a mesh
+    inside a CSG, or a CSG with transparency, takes the sorted torch node
+    (rray_tpu whitted.py:110-115)."""
     if scene.csg_ops and (not soa.csg_members_analytic(scene)
                           or scene.has_transparent):
-        return ("CSG with a mesh operand or with transparency: ROADMAP A6 "
-                "and A10 (the sorted torch node)")
+        return ("CSG with a mesh operand or with transparency (the sorted "
+                "torch node renders it)")
     return None
 
 
@@ -166,7 +165,7 @@ def unsupported(scene) -> str | None:
     """Why the kernel cannot run this scene — or None when it can. The
     gate is rray_tpu's applicable() (whitted.py:92-156) clause by clause,
     then the port's table bounds."""
-    reason = unported(scene)
+    reason = csg_unsupported(scene)
     if reason is not None:
         return reason
     kinds = scene.prim_kinds

@@ -1,8 +1,12 @@
 """SoA intersection on rays as V3 component tensors (rray_tpu ops/soa.py):
 the analytic hit slots and shadow predicates that the Whitted kernel's
-plain version and the torch fast node share, and the fast node's
-closest hit and shadow any-hit, whose triangle parts go through the
-triangle kernels (kernels/triangles.py, kernels/bvh.py).
+plain version and the torch nodes share, the closest hit and shadow
+any-hit, whose triangle parts go through the triangle kernels
+(kernels/triangles.py, kernels/bvh.py), and the sorted node's slot
+lists: sorted [K, R] slots with the CSG filter replayed over them, the
+hybrid CSG path that filters only the CSG operands' slots, and the
+n1/n2 containers walk, with its torch folds over a mesh in chunks of
+settings.tri_chunk triangles.
 
 Each function takes object-space rays as V3 component tensors and
 returns the prim's hit slots as a list of (t, valid) pairs. The formulas
@@ -25,10 +29,13 @@ from typing import Any
 
 import torch
 
-from ..config import EPSILON
+from ..config import EPSILON, hit_match_tol
 from ..scene import data as sd
 from . import quartic
 from .vec import V3, affine_point, affine_vector
+
+
+INF = float("inf")
 
 
 @dataclasses.dataclass
@@ -39,6 +46,8 @@ class Hit:
     cls: Any     # [R] long shade-class id
     tri_n: Any = None  # (nx, ny, nz) interpolated triangle normal, or None
     tri: Any = None    # [R] triangle-table row of a triangle winner
+    u: Any = None      # [R] barycentric u, v of a triangle winner: the
+    v: Any = None      # sorted slots carry these instead of tri_n
 
 
 def _sphere_slots(o: V3, d: V3):
@@ -271,6 +280,11 @@ def _leaf_occludes(scene, kind: int, row: int, ro: V3, rd: V3, dist):
     return hit
 
 
+def _is_member(scene, pid: int) -> bool:
+    ms = scene.csg_member_static
+    return bool(ms[pid]) if pid < len(ms) else False
+
+
 def member_pids(scene):
     """Prim ids that are operands of some CSG node (static)."""
     return tuple(p for p, m in enumerate(scene.csg_member_static) if m)
@@ -396,17 +410,17 @@ def _triangle_any(scene, ro: V3, rd: V3, settings, distance):
                                   tables=_tri_tables(scene)) != 0
 
 
-def analytic_closest(scene, ro: V3, rd: V3):
+def analytic_closest(scene, ro: V3, rd: V3, skip_members: bool = False):
     """Closest analytic hit -> (t, prim, cls) [R]: every slot merged by a
     running strict `<`, so the lowest prim wins ties; t = +inf on a
-    miss."""
-    inf = torch.full_like(ro.x, float("inf"))
+    miss. skip_members leaves out the CSG operands."""
+    inf = torch.full_like(ro.x, INF)
     best_t = inf
     best_prim = torch.zeros_like(ro.x, dtype=torch.long)
     best_cls = torch.zeros_like(ro.x, dtype=torch.long)
     for pid, (kind, row) in enumerate(zip(scene.prim_kinds,
                                           scene.prim_rows_static)):
-        if kind == sd.TRIANGLE:
+        if kind == sd.TRIANGLE or (skip_members and _is_member(scene, pid)):
             continue
         for t, valid in _leaf_slots(scene, kind, row, ro, rd):
             t = torch.where(valid & (t >= 0.0), t, inf)
@@ -418,11 +432,15 @@ def analytic_closest(scene, ro: V3, rd: V3):
     return best_t, best_prim, best_cls
 
 
-def closest_hit_soa(scene, ro: V3, rd: V3, settings) -> Hit:
+def closest_hit_soa(scene, ro: V3, rd: V3, settings,
+                    skip_members: bool = False) -> Hit:
     """First t >= 0 hit across all primitives: the analytic closest hit,
     then the triangle kernel seeded with its t, merged by `ct < best_t`
-    (analytic prims win ties against triangles)."""
-    best_t, best_prim, best_cls = analytic_closest(scene, ro, rd)
+    (analytic prims win ties against triangles). skip_members leaves
+    out the CSG operands (the hybrid CSG path merges their filtered hit
+    in separately)."""
+    best_t, best_prim, best_cls = analytic_closest(scene, ro, rd,
+                                                   skip_members)
     tri_n = tri = None
     if scene.counts[6]:
         ct, cp, ccls, cn, row = _triangle_best(scene, ro, rd, settings,
@@ -437,12 +455,450 @@ def closest_hit_soa(scene, ro: V3, rd: V3, settings) -> Hit:
                cls=best_cls, tri_n=tri_n, tri=tri)
 
 
-def any_hit_soa(scene, ro: V3, rd: V3, distance, settings):
-    """Shadow test: any hit with 0 <= t < distance (scene.rs:234-245)."""
+def any_hit_soa(scene, ro: V3, rd: V3, distance, settings,
+                skip_members: bool = False):
+    """Shadow test: any hit with 0 <= t < distance (scene.rs:234-245);
+    skip_members leaves out the CSG operands."""
     hit = torch.zeros_like(ro.x, dtype=torch.bool)
-    for kind, row in zip(scene.prim_kinds, scene.prim_rows_static):
-        if kind != sd.TRIANGLE:
-            hit = hit | _leaf_occludes(scene, kind, row, ro, rd, distance)
+    for pid, (kind, row) in enumerate(zip(scene.prim_kinds,
+                                          scene.prim_rows_static)):
+        if kind == sd.TRIANGLE or (skip_members and _is_member(scene, pid)):
+            continue
+        hit = hit | _leaf_occludes(scene, kind, row, ro, rd, distance)
     if scene.counts[6]:
         hit = hit | _triangle_any(scene, ro, rd, settings, distance)
     return hit
+
+
+# ---------------------------------------------------------------------------
+# The sorted node's slot lists (rray_tpu ops/soa.py:295, 715-1311).
+# ---------------------------------------------------------------------------
+
+def _tri_chunks(scene, chunk: int):
+    """The triangle table as [n_chunks, chunk] columns, zero-padded ->
+    (n_chunks, chunk, p1, e1, e2, prim ids, live mask), once per scene
+    and chunk size."""
+    def make():
+        T = scene.counts[6]
+        pad = (-T) % chunk
+        n_chunks = (T + pad) // chunk
+
+        def comp(col):
+            col = torch.cat([col, col.new_zeros(pad)])
+            return col.reshape(n_chunks, chunk)
+
+        p1, e1, e2 = (tuple(comp(tbl[:, j]) for j in range(3))
+                      for tbl in (scene.tri_p1, scene.tri_e1, scene.tri_e2))
+        pid = comp(scene.tri_prim.long())
+        live = (torch.arange(n_chunks * chunk, device=scene.device)
+                < T).reshape(n_chunks, chunk)
+        return n_chunks, chunk, p1, e1, e2, pid, live
+
+    return scene.cached(("tri_chunks", chunk), make)
+
+
+def _mesh_chunks(scene, settings):
+    T = scene.counts[6]
+    return _tri_chunks(scene, min(settings.tri_chunk, max(T, 1)))
+
+
+def _tri_chunk_eval(ro: V3, rd: V3, p1, e1, e2):
+    """Raw [R, C] Moller-Trumbore values (t, u, v, ok) of every ray
+    against one chunk's [C] triangle columns (triangle.rs:72-94)."""
+    dx, dy, dz = rd.x[:, None], rd.y[:, None], rd.z[:, None]
+    ox, oy, oz = ro.x[:, None], ro.y[:, None], ro.z[:, None]
+    e1x, e1y, e1z = e1[0][None, :], e1[1][None, :], e1[2][None, :]
+    e2x, e2y, e2z = e2[0][None, :], e2[1][None, :], e2[2][None, :]
+    p1x, p1y, p1z = p1[0][None, :], p1[1][None, :], p1[2][None, :]
+    cx = dy * e2z - dz * e2y
+    cy = dz * e2x - dx * e2z
+    cz = dx * e2y - dy * e2x
+    det = e1x * cx + e1y * cy + e1z * cz
+    ok = torch.abs(det) >= EPSILON
+    f = 1.0 / torch.where(ok, det, 1.0)
+    sx = ox - p1x
+    sy = oy - p1y
+    sz = oz - p1z
+    u = f * (sx * cx + sy * cy + sz * cz)
+    ok = ok & (u >= 0.0) & (u <= 1.0)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    ok = ok & (v >= 0.0) & (u + v <= 1.0)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    return t, u, v, ok
+
+
+def _sort_network(ts, prims):
+    """Odd-even transposition network over K slot lists, a strict `>`
+    per compare-swap, so ties keep insertion order (the reference's
+    stable Vec sort) -> [K, R] (t, prim, valid)."""
+    ts, prims = list(ts), list(prims)
+    K = len(ts)
+    for rnd in range(K):
+        for i in range(rnd % 2, K - 1, 2):
+            swap = ts[i] > ts[i + 1]
+            ts[i], ts[i + 1] = (torch.where(swap, ts[i + 1], ts[i]),
+                                torch.where(swap, ts[i], ts[i + 1]))
+            prims[i], prims[i + 1] = (torch.where(swap, prims[i + 1],
+                                                  prims[i]),
+                                      torch.where(swap, prims[i],
+                                                  prims[i + 1]))
+    t = torch.stack(ts)
+    return t, torch.stack(prims), torch.isfinite(t)
+
+
+def _leaf_slot_lists(scene, pids, ro: V3, rd: V3):
+    """Every slot of the analytic prims `pids`, invalid ones at +inf ->
+    (t list, prim list) in static (prim, slot) order."""
+    ts, prims = [], []
+    for pid in pids:
+        kind = scene.prim_kinds[pid]
+        if kind == sd.TRIANGLE:
+            raise ValueError(f"prim {pid} is a triangle: it has no "
+                             "closed-form slots")
+        for t, valid in _leaf_slots(scene, kind,
+                                    scene.prim_rows_static[pid], ro, rd):
+            ts.append(torch.where(valid, t, INF))
+            prims.append(torch.full_like(ro.x, pid, dtype=torch.long))
+    return ts, prims
+
+
+def sorted_slots_soa(scene, ro: V3, rd: V3):
+    """Every analytic hit slot sorted ascending by t -> [K, R] (t, prim,
+    valid) (scene.rs:97-106). Analytic scenes only."""
+    return _sort_network(*_leaf_slot_lists(
+        scene, range(len(scene.prim_kinds)), ro, rd))
+
+
+def sorted_member_slots(scene, ro: V3, rd: V3):
+    """Sorted [K, R] (t, prim, valid) over the CSG operands alone
+    (analytic): the only slots the CSG filter reads or drops."""
+    return _sort_network(*_leaf_slot_lists(scene, member_pids(scene), ro,
+                                           rd))
+
+
+def _member_slots_filtered_nosort(scene, ro: V3, rd: V3):
+    """The CSG operands' slots, UNSORTED, with the CSG filter
+    (csg.rs:177-195) applied by pairwise parities (`csg_keeps`) ->
+    (t list, static prim ids, keep list)."""
+    ts, pids, valids = [], [], []
+    for pid in member_pids(scene):
+        kind = scene.prim_kinds[pid]
+        if kind == sd.TRIANGLE:
+            raise ValueError("the hybrid CSG path takes analytic operands "
+                             "only")
+        for t, valid in _leaf_slots(scene, kind,
+                                    scene.prim_rows_static[pid], ro, rd):
+            ts.append(t)
+            pids.append(pid)
+            valids.append(valid)
+    ops_and_sides = tuple(
+        (op, tuple(scene.csg_side_static[ci][pid] for pid in pids))
+        for ci, op in enumerate(scene.csg_ops))
+    return ts, pids, csg_keeps(ts, valids, ops_and_sides)
+
+
+def csg_filtered_member_hit(scene, ro: V3, rd: V3):
+    """The first surviving operand slot with t >= 0 (a strict `<` keeps
+    the earlier slot on ties, as the stable sort does) -> (found, t,
+    prim, the filtered slots as [K, R] stacks (t, prim, keep))."""
+    ts, pids, keeps = _member_slots_filtered_nosort(scene, ro, rd)
+    found = torch.zeros_like(ro.x, dtype=torch.bool)
+    t_out = torch.full_like(ro.x, INF)
+    prim_out = torch.zeros_like(ro.x, dtype=torch.long)
+    for t, pid, keep in zip(ts, pids, keeps):
+        take = keep & (t >= 0.0) & (t < t_out)
+        t_out = torch.where(take, t, t_out)
+        prim_out = torch.where(take, pid, prim_out)
+        found = found | take
+    t_out = torch.where(found, t_out, 0.0)
+    mslots = (torch.stack(ts),
+              torch.stack([torch.full_like(prim_out, p) for p in pids]),
+              torch.stack(keeps))
+    return found, t_out, prim_out, mslots
+
+
+def _where_opt(mask, a, b):
+    return None if b is None else torch.where(mask, a, b)
+
+
+def closest_hit_hybrid(scene, ro: V3, rd: V3, settings):
+    """Closest hit of a CSG scene whose operands are all analytic: the
+    closest hit over everything else (meshes through the kernels),
+    merged with the CSG-filtered operand hit -> (Hit, filtered operand
+    slots)."""
+    hit = closest_hit_soa(scene, ro, rd, settings, skip_members=True)
+    mfound, mt, mprim, mslots = csg_filtered_member_hit(scene, ro, rd)
+    better = mfound & (mt < hit.t)
+    mcls = torch.zeros_like(hit.cls)
+    for pid in member_pids(scene):
+        mcls = torch.where(mprim == pid, scene.prim_class_static[pid], mcls)
+    # tri_n passes through: a ray where an (analytic) operand won never
+    # reads the triangle lanes.
+    merged = Hit(found=hit.found | mfound,
+                 t=torch.where(better, mt, hit.t),
+                 prim=torch.where(better, mprim, hit.prim),
+                 cls=torch.where(better, mcls, hit.cls),
+                 tri_n=hit.tri_n, tri=_where_opt(better, 0, hit.tri),
+                 u=_where_opt(better, 0.0, hit.u),
+                 v=_where_opt(better, 0.0, hit.v))
+    return merged, mslots
+
+
+def _sort_rows(keys, *ops):
+    """A stable sort of [K, R] `keys` along K, `ops` permuted alike."""
+    keys, order = torch.sort(keys, dim=0, stable=True)
+    return (keys,) + tuple(torch.gather(a, 0, order) for a in ops)
+
+
+def sorted_slots_full_soa(scene, ro: V3, rd: V3, settings):
+    """Sorted slots with triangle meshes -> [K, R] (t, prim, valid, u, v,
+    tri): the analytic slots, and per ray the K_tri = min(max_hits, T)
+    smallest-t triangle crossings, taken chunk by chunk (K_tri masked
+    argmin extractions per chunk, merged into the running prefix by a
+    stable sort)."""
+    pids = [p for p, k in enumerate(scene.prim_kinds) if k != sd.TRIANGLE]
+    ts, prims = _leaf_slot_lists(scene, pids, ro, rd)
+    R = ro.x.shape[0]
+    if ts:
+        t, prim = torch.stack(ts), torch.stack(prims)
+    else:
+        t = ro.x.new_zeros((0, R))
+        prim = torch.zeros((0, R), dtype=torch.long, device=ro.x.device)
+    u = v = torch.zeros_like(t)
+    tri = torch.zeros_like(prim)
+
+    T = scene.counts[6]
+    if T:
+        K_tri = min(settings.max_hits, T)
+        n_chunks, chunk, p1, e1, e2, pid_tbl, live = _mesh_chunks(scene,
+                                                                  settings)
+        cols = torch.arange(chunk, device=ro.x.device)[None, :]
+
+        def chunk_topk(ci):
+            tt, uu, vv, ok = _tri_chunk_eval(
+                ro, rd, tuple(c[ci] for c in p1), tuple(c[ci] for c in e1),
+                tuple(c[ci] for c in e2))
+            tt = torch.where(ok & live[ci][None, :], tt, INF)
+            outs = []
+            for _ in range(K_tri):
+                idx = torch.argmin(tt, dim=1)
+                take = lambda a: torch.gather(a, 1, idx[:, None])[:, 0]
+                outs.append((take(tt), take(uu), take(vv), pid_tbl[ci][idx],
+                             ci * chunk + idx))
+                tt = torch.where(cols == idx[:, None], INF, tt)
+            return tuple(torch.stack([o[i] for o in outs]) for i in range(5))
+
+        if n_chunks == 1:
+            best = chunk_topk(0)
+        else:
+            # The running prefix starts empty (+inf), as rray_tpu's scan
+            # carry does: its rows sort first among the +inf ties.
+            zf = ro.x.new_zeros((K_tri, R))
+            zi = torch.zeros_like(zf, dtype=torch.long)
+            best = (zf + INF, zf, zf, zi, zi)
+        for ci in range(1 if n_chunks == 1 else 0, n_chunks):
+            merged = [torch.cat([a, b]) for a, b in zip(best,
+                                                        chunk_topk(ci))]
+            bt, bu, bv, bp, bi = _sort_rows(*merged)
+            best = (bt[:K_tri], bu[:K_tri], bv[:K_tri], bp[:K_tri],
+                    bi[:K_tri])
+        t = torch.cat([t, best[0]])
+        u = torch.cat([u, best[1]])
+        v = torch.cat([v, best[2]])
+        prim = torch.cat([prim, best[3]])
+        tri = torch.cat([tri, best[4]])
+
+    t, prim, u, v, tri = _sort_rows(t, prim, u, v, tri)
+    return t, prim, torch.isfinite(t), u, v, tri
+
+
+def apply_csg_soa(scene, slots):
+    """Replay filter_intersections (csg.rs:177-195) per CSG node over the
+    sorted [K, R] slots, innermost first, carrying the in-left/in-right
+    parities along K. Dropped slots keep their t but lose validity."""
+    t, prim, valid = slots[:3]
+    for ci, op in enumerate(scene.csg_ops):
+        side_table = scene.csg_side[ci].long()
+        inl = inr = torch.zeros_like(valid[0])
+        keeps = []
+        for k in range(t.shape[0]):
+            s = torch.where(valid[k], side_table[prim[k]], 0)
+            lhit = s == 1
+            if op == sd.CSG_UNION:
+                allowed = (lhit & ~inr) | (~lhit & ~inl)
+            elif op == sd.CSG_INTERSECTION:
+                allowed = (lhit & inr) | (~lhit & inl)
+            else:  # difference
+                allowed = (lhit & ~inr) | (~lhit & inl)
+            keeps.append(valid[k] & ((s == 0) | allowed))
+            inl, inr = inl ^ lhit, inr ^ (s == 2)
+        valid = torch.stack(keeps)
+    return (t, prim, valid) + tuple(slots[3:])
+
+
+def select_hit_slots(slots):
+    """First valid slot with t >= 0 (scene.rs:128-136) -> (found, t,
+    prim, slot index) [R], plus (u, v, tri) when the slots carry them."""
+    t, prim, valid = slots[:3]
+    found = torch.zeros_like(valid[0])
+    t_out = torch.zeros_like(t[0])
+    prim_out = torch.zeros_like(prim[0])
+    idx_out = torch.zeros_like(prim[0])
+    extras = [torch.zeros_like(a[0]) for a in slots[3:6]]
+    for k in range(t.shape[0]):
+        take = ~found & valid[k] & (t[k] >= 0.0)
+        t_out = torch.where(take, t[k], t_out)
+        prim_out = torch.where(take, prim[k], prim_out)
+        idx_out = torch.where(take, k, idx_out)
+        extras = [torch.where(take, a[k], e)
+                  for a, e in zip(slots[3:6], extras)]
+        found = found | take
+    return (found, t_out, prim_out, idx_out) + tuple(extras)
+
+
+def refractive_indices_soa(scene, slots, hit_idx, depth=8):
+    """n1/n2 by the containers walk over sorted slots
+    (intersection.rs:61-92): a [D, R] stack of prims, with append on
+    enter, remove-by-value on exit, and the top read just before and
+    just after the hit's own slot. D is floored at the prim count (the
+    list holds each prim at most once, so it cannot overflow) and capped
+    at 64."""
+    t, prim, valid = slots[:3]
+    D = max(int(depth) if depth else 8, 1)
+    D = min(max(D, int(scene.counts[7])), 64)
+    zero = torch.zeros_like(prim[0])
+
+    def top_ior(stack, size):
+        top = zero
+        for d in range(D):
+            top = torch.where(size == d + 1, stack[d], top)
+        return torch.where(size > 0, scene.mat_ior[top], 1.0)
+
+    stack, size = [zero] * D, zero
+    n1 = n2 = torch.ones_like(t[0])
+    for k in range(t.shape[0]):
+        prim_k, valid_k, hit_k = prim[k], valid[k], hit_idx == k
+        n1 = torch.where(hit_k, top_ior(stack, size), n1)
+        match = [(stack[d] == prim_k) & (size > d) for d in range(D)]
+        found = torch.zeros_like(valid_k)
+        for m in match:
+            found = found | m
+        shift = torch.zeros_like(valid_k)
+        new_rows = []
+        for d in range(D):
+            shift = shift | match[d]
+            above = stack[d + 1] if d + 1 < D else zero
+            removed = torch.where(shift, above, stack[d])
+            pushed = torch.where(size == d, prim_k, stack[d])
+            new_rows.append(torch.where(
+                valid_k, torch.where(found, removed, pushed), stack[d]))
+        stack = new_rows
+        size = torch.where(valid_k, torch.where(
+            found, size - 1, torch.clamp_max(size + 1, D)), size)
+        n2 = torch.where(hit_k, top_ior(stack, size), n2)
+    return n1, n2
+
+
+def refractive_indices_direct(scene, ro: V3, rd: V3, t_hit, hit_prim,
+                              settings, member_slots=None):
+    """n1/n2 without a sorted slot list: a prim contains the hit iff it
+    has an odd number of crossings before t_hit, and the innermost
+    container is the one whose latest crossing is largest in t. n1
+    counts the crossings strictly before the hit, n2 the hit's own
+    crossing too, matched by prim and hit_match_tol (the crossing is
+    re-derived, so its t need not equal the closest hit's bit for bit).
+    With `member_slots` (the hybrid CSG path) the CSG operands count
+    only their surviving slots. A mesh folds chunk by chunk."""
+    neg = -INF
+    tol = hit_match_tol(ro.x.dtype) * torch.clamp_min(torch.abs(t_hit), 1.0)
+    zero_i = torch.zeros_like(hit_prim)
+
+    def fold(best_t, best_prim, cand_t, cand_ok, pid):
+        better = cand_ok & (cand_t > best_t)
+        return (torch.where(better, cand_t, best_t),
+                torch.where(better, pid, best_prim))
+
+    best = [torch.full_like(ro.x, neg), zero_i,
+            torch.full_like(ro.x, neg), zero_i]
+
+    def accumulate(pid, slot_list):
+        cnt_s = cnt_l = zero_i
+        last_s = last_l = torch.full_like(ro.x, neg)
+        for t, valid in slot_list:
+            is_hit = (hit_prim == pid) & (torch.abs(t - t_hit) <= tol)
+            before = valid & (t < t_hit)
+            in_s = before & ~is_hit
+            in_l = before | (valid & is_hit)
+            cnt_s = cnt_s + in_s.long()
+            last_s = torch.maximum(last_s, torch.where(in_s, t, neg))
+            cnt_l = cnt_l + in_l.long()
+            last_l = torch.maximum(last_l, torch.where(in_l, t, neg))
+        best[0], best[1] = fold(best[0], best[1], last_s, cnt_s % 2 == 1,
+                                pid)
+        best[2], best[3] = fold(best[2], best[3], last_l, cnt_l % 2 == 1,
+                                pid)
+
+    for pid, (kind, row) in enumerate(zip(scene.prim_kinds,
+                                          scene.prim_rows_static)):
+        if kind == sd.TRIANGLE:
+            continue
+        if member_slots is not None and _is_member(scene, pid):
+            continue  # counted below from the CSG-filtered slots
+        accumulate(pid, _leaf_slots(scene, kind, row, ro, rd))
+
+    if member_slots is not None:
+        # The operands toggle containers only through the slots that
+        # survive the CSG filter (the reference's xs holds its output).
+        mt, mprim, mvalid = member_slots[:3]
+        for pid in member_pids(scene):
+            accumulate(pid, [(mt[k], mvalid[k] & (mprim[k] == pid))
+                             for k in range(mt.shape[0])])
+
+    if scene.counts[6]:
+        n_chunks, chunk, p1, e1, e2, pid_tbl, live = _mesh_chunks(scene,
+                                                                  settings)
+        for ci in range(n_chunks):
+            tt, _, _, ok = _tri_chunk_eval(
+                ro, rd, tuple(c[ci] for c in p1), tuple(c[ci] for c in e1),
+                tuple(c[ci] for c in e2))
+            cpid = torch.where(live[ci], pid_tbl[ci], -1)
+            is_hit = ((cpid[None, :] == hit_prim[:, None])
+                      & (torch.abs(tt - t_hit[:, None]) <= tol[:, None]))
+            before = ok & (tt < t_hit[:, None])
+            for j, okp in ((0, before & ~is_hit), (2, before | (ok & is_hit))):
+                ttm = torch.where(okp, tt, neg)
+                idx = torch.argmax(ttm, dim=1)  # the first max, as jnp's
+                ct = torch.gather(ttm, 1, idx[:, None])[:, 0]
+                best[j], best[j + 1] = fold(best[j], best[j + 1], ct,
+                                            torch.isfinite(ct), cpid[idx])
+
+    def to_ior(best_t, best_prim):
+        ior = scene.mat_ior[torch.clamp_min(best_prim, 0)]
+        return torch.where(torch.isfinite(best_t), ior, 1.0)
+
+    return to_ior(best[0], best[1]), to_ior(best[2], best[3])
+
+
+def any_hit_hybrid(scene, ro: V3, rd: V3, distance, settings):
+    """Shadow test of a CSG scene whose operands are all analytic: the
+    any-hit over everything else, or any surviving operand slot in
+    [0, distance) (the scene's list holds the CSG's filtered output)."""
+    hit = any_hit_soa(scene, ro, rd, distance, settings, skip_members=True)
+    ts, _, keeps = _member_slots_filtered_nosort(scene, ro, rd)
+    for t, keep in zip(ts, keeps):
+        hit = hit | (keep & (t >= 0.0) & (t < distance))
+    return hit
+
+
+def any_hit_sorted_soa(scene, ro: V3, rd: V3, distance, settings):
+    """Shadow test over the CSG-filtered sorted slots (scene.rs:234-245),
+    meshes included."""
+    if scene.counts[6]:
+        slots = sorted_slots_full_soa(scene, ro, rd, settings)
+    else:
+        slots = sorted_slots_soa(scene, ro, rd)
+    t, _, valid = apply_csg_soa(scene, slots)[:3]
+    return (valid & (t >= 0.0) & (t < distance[None, :])).any(dim=0)

@@ -1,5 +1,5 @@
-"""The Whitted integrator: camera rays through the whole-tree kernel or
-the torch fast node.
+"""The Whitted integrator: camera rays through the whole-tree kernel,
+the torch fast node or the sorted torch node.
 
 rray_tpu's render() picks a node per scene: XLA for point-light scenes
 with only analytic prims and cheap patterns, and for reflective mesh
@@ -7,13 +7,17 @@ scenes (TPU speed choices), the fused Pallas kernel for the rest that
 kernels/whitted.py::applicable accepts, XLA scans otherwise. The port
 runs every scene that the whitted kernel accepts through the kernel;
 both of rray_tpu's routes compute the same image. Scenes the kernel
-rejects go to the torch fast node, rray_tpu's `_color_at_soa_xla`
-(no CSG, no transparency; tori, Perlin noise and textures included),
-whose triangle tests run in the triangle and BVH kernels and whose
-area-light shadows run in the area-shadow kernel (kernels/analytic.py)
-when the scene has no mesh and no torus. Scenes neither takes (a CSG or
-transparency the kernel rejects) raise NotImplementedError naming the
-ROADMAP item that will carry them.
+rejects go to one of two torch nodes. Opaque scenes without CSG take
+the fast node, rray_tpu's `_color_at_soa_xla` (tori, Perlin noise and
+textures included). Scenes with CSG or transparency take the sorted
+node, rray_tpu's `_color_at_sorted_soa`: the CSG filter over sorted (or,
+for analytic operands, pairwise-ordered) slots, the n1/n2 containers
+walk, and a wavefront of reflection and refraction rays, compacted per
+pixel to wavefront_capacity paths. On both nodes the triangle tests
+run in the triangle and BVH kernels (a mesh inside a CSG takes its
+slots from torch folds instead, as in rray_tpu) and the area-light
+shadows of scenes without a mesh, a torus or a CSG in the area-shadow
+kernel (kernels/analytic.py).
 
 Area lights draw their jitter from rray_tpu's key chain: level l of the
 Whitted chain and light li use seed_table(seed)[l, li] (ops/jitter.py),
@@ -34,32 +38,30 @@ from . import shade_soa
 from .camera import CameraData, all_rays_soa
 
 
-def fast_unsupported(scene) -> str | None:
-    """Why the torch fast node cannot render this scene, naming the
-    ROADMAP item that will carry it — or None when it can."""
-    if scene.csg_ops:
-        return ("CSG scenes the whitted kernel rejects: ROADMAP A10 (the "
-                "sorted torch node)")
-    if scene.has_transparent:
-        return ("transparency outside the whitted kernel: ROADMAP A6 and "
-                "A10 (the sorted torch node)")
-    return None
-
-
 def route(scene) -> str:
-    """"kernel" (the whitted kernel) or "fast" (the torch fast node);
-    raises NotImplementedError for scenes neither renders yet."""
+    """"kernel" (the whitted kernel), "sorted" (the sorted torch node:
+    CSG or transparency the kernel rejects) or "fast" (the torch fast
+    node: the other scenes the kernel rejects)."""
     if whitted.applicable(scene):
         return "kernel"
-    reason = fast_unsupported(scene)
-    if reason is not None:
-        raise NotImplementedError(f"not ported yet: {reason}")
+    if scene.csg_ops or scene.has_transparent:
+        return "sorted"
     return "fast"
 
 
 # ---------------------------------------------------------------------------
-# The torch fast node (rray_tpu integrator.py:49-295).
+# Shading shared by the torch nodes (rray_tpu integrator.py:49-295).
 # ---------------------------------------------------------------------------
+
+def _shadow_test_soa(scene, over: V3, direction: V3, dist, settings):
+    """Any hit in [0, dist), with the CSG filter applied (rray_tpu
+    integrator.py:49-54)."""
+    if scene.csg_ops:
+        if soa.csg_members_analytic(scene):
+            return soa.any_hit_hybrid(scene, over, direction, dist, settings)
+        return soa.any_hit_sorted_soa(scene, over, direction, dist, settings)
+    return soa.any_hit_soa(scene, over, direction, dist, settings)
+
 
 def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
     """Point: binary shadow (scene.rs:234-245) as 0/1. Area: the share of
@@ -72,16 +74,16 @@ def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
                       light.position[2] - over.z)
         dist = to_light.norm()
         direction = to_light * (1.0 / torch.clamp_min(dist, 1e-30))
-        shadowed = soa.any_hit_soa(scene, over, direction, dist, settings)
+        shadowed = _shadow_test_soa(scene, over, direction, dist, settings)
         return shadowed.to(dtype)
 
     level = light.level
     n = level * level
     kinds = scene.prim_kinds
-    if (not scene.counts[6] and kinds
+    if (not scene.counts[6] and not scene.csg_ops and kinds
             and all(k in analytic.OCCLUSION_KINDS for k in kinds)):
         # The whole sample loop in one kernel (B5), which takes no tori
-        # (nor does rray_tpu's); a torus scene takes the loop below.
+        # and no CSG (nor does rray_tpu's); those take the loop below.
         params, kinds, bounds = analytic.scene_occluders(scene)
         return analytic.area_shadow_fraction(
             (over.x, over.y, over.z), seed,
@@ -101,7 +103,7 @@ def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
         s = torch.arange(row * level, (row + 1) * level,
                          device=hb.device).repeat_interleave(R)
         direction, dist = analytic.area_sample(cuv, hb, s, level, over_g)
-        shadowed = soa.any_hit_soa(scene, over_g, direction, dist, settings)
+        shadowed = _shadow_test_soa(scene, over_g, direction, dist, settings)
         acc = acc + shadowed.to(dtype).reshape(level, R).sum(0)
     return div(acc, n)
 
@@ -129,13 +131,11 @@ def _lighting_soa(reader, base: V3, light, point: V3, eyev: V3,
         ambient.z + (effective.z * dscale + li[2] * sscale) * unshadow)
 
 
-def _fast_node_eval(scene: SceneData, ro: V3, rd: V3,
-                    settings: RenderSettings, seeds):
-    """One fast-path node: closest hit and full surface shade ->
-    (surface masked by found, over point, reflect direction, reflect
-    weight masked by found). `seeds` holds this level's jitter seed per
-    light."""
-    hit = soa.closest_hit_soa(scene, ro, rd, settings)
+def _shade(scene: SceneData, hit: soa.Hit, ro: V3, rd: V3,
+           settings: RenderSettings, seeds):
+    """The surface at a hit -> (point, eye vector, eye-facing normal,
+    over point, class reader, every light's Phong sum masked by found).
+    `seeds` holds this level's jitter seed per light."""
     found = hit.found
     point = ro + rd * torch.where(found, hit.t, 0.0)
     eyev = -rd
@@ -158,7 +158,23 @@ def _fast_node_eval(scene: SceneData, ro: V3, rd: V3,
     surface = V3(torch.where(found, surface.x, 0.0),
                  torch.where(found, surface.y, 0.0),
                  torch.where(found, surface.z, 0.0))
-    refl = torch.where(found, reader.col(sd.CLS_REFLECTIVE), 0.0)
+    return point, eyev, normalv, over, reader, surface
+
+
+# ---------------------------------------------------------------------------
+# The torch fast node (rray_tpu _color_at_soa_xla).
+# ---------------------------------------------------------------------------
+
+def _fast_node_eval(scene: SceneData, ro: V3, rd: V3,
+                    settings: RenderSettings, seeds):
+    """One fast-path node: closest hit and full surface shade ->
+    (surface masked by found, over point, reflect direction, reflect
+    weight masked by found). `seeds` holds this level's jitter seed per
+    light."""
+    hit = soa.closest_hit_soa(scene, ro, rd, settings)
+    _, _, normalv, over, reader, surface = _shade(scene, hit, ro, rd,
+                                                  settings, seeds)
+    refl = torch.where(hit.found, reader.col(sd.CLS_REFLECTIVE), 0.0)
     return surface, over, rd.reflect(normalv), refl
 
 
@@ -185,6 +201,277 @@ def color_at_fast(scene: SceneData, ro: V3, rd: V3, remaining: int,
     return acc
 
 
+# ---------------------------------------------------------------------------
+# The sorted torch node (rray_tpu integrator.py:298-690, 1070-1160).
+# ---------------------------------------------------------------------------
+
+def _schlick_soa(eyev: V3, normalv: V3, n1, n2):
+    """Fresnel reflectance, Schlick's approximation (computations.rs:
+    39-54); 1 under total internal reflection."""
+    cos = eyev.dot(normalv)
+    n = n1 / n2
+    sin2_t = n * n * (1.0 - cos * cos)
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 1e-30))
+    cos_eff = torch.where(n1 > n2, cos_t, cos)
+    r0 = ((n1 - n2) / (n1 + n2)) ** 2
+    reflectance = r0 + (1.0 - r0) * (1.0 - cos_eff) ** 5
+    tir = (n1 > n2) & (sin2_t > 1.0)
+    return torch.where(tir, 1.0, reflectance)
+
+
+def _sorted_hit(scene: SceneData, ro: V3, rd: V3, settings):
+    """The node's hit -> (Hit, sorted slots or None, the hit's slot
+    index or None, filtered operand slots or None). A CSG over analytic
+    operands sorts nothing: the operands' slots are filtered pairwise
+    and merged with the closest hit over the rest (meshes through the
+    kernels). A mesh inside a CSG takes the full sorted slot list.
+    Transparency without CSG takes the closest hit alone."""
+    if scene.csg_ops and soa.csg_members_analytic(scene):
+        hit, member_slots = soa.closest_hit_hybrid(scene, ro, rd, settings)
+        return hit, None, None, member_slots
+    if scene.csg_ops:
+        if scene.counts[6]:
+            slots = soa.sorted_slots_full_soa(scene, ro, rd, settings)
+        else:
+            slots = soa.sorted_slots_soa(scene, ro, rd)
+        slots = soa.apply_csg_soa(scene, slots)
+        found, t, prim, hit_idx, *uvt = soa.select_hit_slots(slots)
+        hit = soa.Hit(found=found, t=t, prim=prim, cls=None)
+        if uvt:
+            hit.u, hit.v, hit.tri = uvt
+        return hit, slots, hit_idx, None
+    return soa.closest_hit_soa(scene, ro, rd, settings), None, None, None
+
+
+def _sorted_node_eval(scene: SceneData, ro: V3, rd: V3,
+                      settings: RenderSettings, seeds):
+    """One sorted-path Whitted node -> (surface, over, under, reflect
+    direction, refract direction, reflect weight, refract weight). The
+    weights carry reflective and transparency with the Schlick blend
+    applied where both are nonzero (scene.rs:159-178), so the ray tree
+    is a weighted sum over its paths. `seeds` holds this level's jitter
+    seed per light."""
+    hit, slots, hit_idx, member_slots = _sorted_hit(scene, ro, rd, settings)
+    found = hit.found
+    point, eyev, normalv, over, reader, surface = _shade(
+        scene, hit, ro, rd, settings, seeds)
+    under = point - normalv * offset_eps(ro.x.dtype)
+
+    if scene.has_transparent and slots is not None:
+        n1, n2 = soa.refractive_indices_soa(scene, slots, hit_idx,
+                                            settings.containers_depth)
+    elif scene.has_transparent:
+        n1, n2 = soa.refractive_indices_direct(
+            scene, ro, rd, torch.where(found, hit.t, -1.0), hit.prim,
+            settings, member_slots=member_slots)
+    else:
+        n1 = n2 = torch.ones_like(hit.t)
+
+    reflective = torch.where(found, reader.col(sd.CLS_REFLECTIVE), 0.0)
+    transparency = torch.where(found, reader.col(sd.CLS_TRANSPARENCY), 0.0)
+    reflectv = rd.reflect(normalv)
+    # Refraction direction and total internal reflection
+    # (scene.rs:310-336).
+    n_ratio = n1 / n2
+    cos_i = eyev.dot(normalv)
+    sin2_t = n_ratio * n_ratio * (1.0 - cos_i * cos_i)
+    tir = sin2_t > 1.0
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 1e-30))
+    direction = normalv * (n_ratio * cos_i - cos_t) - eyev * n_ratio
+    live = found & ~tir & (transparency > 0.0)
+    refr_dir = V3(torch.where(live, direction.x, 0.0),
+                  torch.where(live, direction.y, 0.0),
+                  torch.where(live, direction.z, 1.0))
+    refl_w = reflective
+    refr_w = torch.where(live, transparency, 0.0)
+    if scene.has_reflective and scene.has_transparent:
+        both = (reflective > 0.0) & (transparency > 0.0)
+        reflectance = _schlick_soa(eyev, normalv, n1, n2)
+        refl_w = torch.where(both, reflective * reflectance, refl_w)
+        refr_w = torch.where(both, refr_w * (1.0 - reflectance), refr_w)
+    return surface, over, under, reflectv, refr_dir, refl_w, refr_w
+
+
+def _color_at_sorted_scan(scene: SceneData, ro: V3, rd: V3, remaining: int,
+                          settings: RenderSettings, seeds) -> V3:
+    """The exhaustive level-synchronous wavefront: W = 2^remaining rows
+    per pixel when both reflection and refraction spawn (else 1), heap
+    order (parent row i -> rows 2i, 2i + 1), zero weights on dead rows.
+    Level l draws its jitter with seeds[l]. At depth 0 only level 0 runs
+    (rray_tpu's scan fails there when both spawn: W // 2 = 0)."""
+    seeds = seeds.tolist()
+    spawn_refl, spawn_refr = scene.has_reflective, scene.has_transparent
+    if remaining == 0 or not (spawn_refl or spawn_refr):
+        return _sorted_node_eval(scene, ro, rd, settings, seeds[0])[0]
+    both = spawn_refl and spawn_refr
+    W = 2 ** remaining if both else 1
+    R = ro.x.shape[0]
+
+    def expand(c, fill):
+        return torch.cat([c, c.new_full(((W - 1) * R,), fill)])
+
+    ro = V3(expand(ro.x, 0.0), expand(ro.y, 0.0), expand(ro.z, 0.0))
+    rd = V3(expand(rd.x, 0.0), expand(rd.y, 0.0), expand(rd.z, 1.0))
+    weights = expand(torch.ones_like(ro.x[:R]), 0.0)
+    zero = torch.zeros_like(ro.x[:R])
+    acc = V3(zero, zero, zero)
+
+    def interleave(a, b):
+        # The children of the first W // 2 parent rows, in heap order.
+        return torch.stack([a.reshape(W, R)[:W // 2],
+                            b.reshape(W, R)[:W // 2]], dim=1).reshape(W * R)
+
+    for level in range(remaining + 1):
+        if not bool((weights != 0.0).any()):
+            break  # every path is dead: the remaining levels add zeros
+        surface, over, under, reflectv, refr_dir, refl_w, refr_w = \
+            _sorted_node_eval(scene, ro, rd, settings, seeds[level])
+        contrib = surface * weights
+        acc = acc + V3(contrib.x.reshape(W, R).sum(0),
+                       contrib.y.reshape(W, R).sum(0),
+                       contrib.z.reshape(W, R).sum(0))
+        if both:
+            ro = V3(*(interleave(a, b) for a, b in zip(
+                (over.x, over.y, over.z), (under.x, under.y, under.z))))
+            rd = V3(*(interleave(a, b) for a, b in zip(
+                (reflectv.x, reflectv.y, reflectv.z),
+                (refr_dir.x, refr_dir.y, refr_dir.z))))
+            weights = interleave(weights * refl_w, weights * refr_w)
+        elif spawn_refl:
+            ro, rd, weights = over, reflectv, weights * refl_w
+        else:
+            ro, rd, weights = under, refr_dir, weights * refr_w
+    return acc
+
+
+def _compact_topw(W: int, cw, ops):
+    """The W rows of largest weight per pixel: a stable sort of -cw
+    along the path axis ([2W, R]; ties keep row order, and -0.0 ranks
+    with +0.0, as lax.sort has them), then each operand gathered."""
+    keys = torch.where(cw == 0.0, 0.0, -cw)
+    order = torch.sort(keys, dim=0, stable=True).indices[:W]
+    return tuple(torch.gather(a, 0, order) for a in ops)
+
+
+def _color_at_compact_scan(scene: SceneData, ro: V3, rd: V3, remaining: int,
+                           settings: RenderSettings, seeds) -> V3:
+    """The wavefront with per-pixel live-path compaction, for scenes
+    where both reflection and refraction spawn: [W, R] paths with W =
+    min(max(wavefront_capacity, 2), 2^remaining); after each level the
+    2W children (reflect rows, then refract rows) keep the W of largest
+    weight. Zero weights sort last, so a pixel loses a live path only
+    when it holds more than W of them. Levels 0 and 1 (while their 2^l
+    paths fit) run at their own width with the children placed in heap
+    order, without a sort. A level whose weights are all zero ends the
+    walk. Level l draws its jitter with seeds[l]."""
+    seeds = seeds.tolist()
+    R = ro.x.shape[0]
+    W = min(max(int(settings.wavefront_capacity), 2), 2 ** remaining)
+    zero = torch.zeros_like(ro.x)
+    acc = (zero, zero, zero)
+    state = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, torch.ones_like(ro.x))
+
+    def level_eval(state, width, level):
+        """One level over [width, R] paths -> (acc, the children as
+        (reflect, refract) pairs of ox oy oz dx dy dz weight)."""
+        wf = state[6]
+        surface, over, under, reflectv, refr_dir, refl_w, refr_w = \
+            _sorted_node_eval(scene, V3(*state[:3]), V3(*state[3:6]),
+                              settings, seeds[level])
+        new_acc = tuple(a + (c * wf).reshape(width, R).sum(0) for a, c in
+                        zip(acc, (surface.x, surface.y, surface.z)))
+        return new_acc, ((over.x, under.x), (over.y, under.y),
+                         (over.z, under.z), (reflectv.x, refr_dir.x),
+                         (reflectv.y, refr_dir.y), (reflectv.z, refr_dir.z),
+                         (wf * refl_w, wf * refr_w))
+
+    width, level = 1, 0
+    while level <= remaining and 2 * width <= W and level < 2:
+        if level > 0 and not bool((state[6] != 0.0).any()):
+            return V3(*acc)
+        acc, children = level_eval(state, width, level)
+        state = tuple(torch.cat(pair) for pair in children)
+        width, level = 2 * width, level + 1
+    # Lift to W rows: zero-weight rows, direction +z, below.
+    state = tuple(torch.cat([a, a.new_full(((W - width) * R,),
+                                           1.0 if i == 5 else 0.0)])
+                  for i, a in enumerate(state))
+    for level in range(level, remaining + 1):
+        if not bool((state[6] != 0.0).any()):
+            break
+        acc, children = level_eval(state, W, level)
+        two = [torch.cat([a.reshape(W, R), b.reshape(W, R)])
+               for a, b in children]
+        state = tuple(a.reshape(W * R)
+                      for a in _compact_topw(W, two[6], two))
+    return V3(*acc)
+
+
+def color_at_sorted(scene: SceneData, ro: V3, rd: V3, remaining: int,
+                    settings: RenderSettings, seeds) -> V3:
+    """The sorted node's wavefront (rray_tpu _color_at_sorted_soa
+    without its kernel branch, which route() takes first): "compact"
+    where both reflection and refraction spawn below depth 0, else the
+    exhaustive scan, whose width there is 1. seeds: the [remaining + 1,
+    L] table of ops/jitter.py seed_table."""
+    if settings.wavefront not in ("compact", "scan"):
+        raise ValueError(f"wavefront {settings.wavefront!r}: 'compact' or "
+                         "'scan'")
+    if (settings.wavefront == "compact" and remaining > 0
+            and scene.has_reflective and scene.has_transparent):
+        return _color_at_compact_scan(scene, ro, rd, remaining, settings,
+                                      seeds)
+    return _color_at_sorted_scan(scene, ro, rd, remaining, settings, seeds)
+
+
+def _tile_rays(scene: SceneData, hsize: int, settings: RenderSettings) -> int:
+    """Rays per batch of the sorted node (rray_tpu integrator.py:
+    1110-1157): settings.rows_per_tile raster rows, fewer where the
+    wavefront's [K, W * R] slot buffers, a mesh's [R, tri_chunk] torch
+    folds (times the area samples per step) or a texture's [R, 128]
+    fetch would pass settings.max_rc_elems elements. rray_tpu bounds the
+    mesh folds where they are XLA code: with a mesh inside a CSG, or
+    without its kernels; in the port they are torch code wherever they
+    run, in a mesh inside a CSG and in a transparent mesh's n1/n2 fold."""
+    rows = settings.rows_per_tile
+
+    def cap(per_ray):
+        max_rays = max(settings.max_rc_elems // per_ray, 1)
+        return min(rows, max(max_rays // hsize, 1))
+
+    if scene.has_transparent and scene.has_reflective:
+        if settings.wavefront == "compact":
+            W = min(max(int(settings.wavefront_capacity), 2),
+                    2 ** settings.depth)
+            rows = cap(W * (settings.max_hits if scene.csg_ops else 8))
+        else:
+            rows = cap(8 * 2 ** settings.depth)
+    T = scene.counts[6]
+    mesh_in_csg = bool(scene.csg_ops) and not soa.csg_members_analytic(scene)
+    if T and (mesh_in_csg or scene.has_transparent):
+        g = max([light.level for light in scene.lights
+                 if light.kind == "area"] or [1])
+        rows = cap(min(settings.tri_chunk, T) * g)
+    if any(shade_soa._has_image(p) for p in scene.patterns):
+        rows = cap(128)
+    return max(rows * hsize, 1)
+
+
+def sorted_frame(scene: SceneData, ro: V3, rd: V3, hsize: int,
+                 settings: RenderSettings, seeds) -> V3:
+    """The sorted node over a raster's rays (raster order, `hsize` per
+    row) in batches of _tile_rays rays. A pixel's value does not depend
+    on its batch: the compaction is per pixel, the jitter point-keyed."""
+    tile = _tile_rays(scene, hsize, settings)
+    parts = []
+    for i in range(0, ro.x.shape[0], tile):
+        part = lambda v: V3(v.x[i:i + tile], v.y[i:i + tile], v.z[i:i + tile])
+        out = color_at_sorted(scene, part(ro), part(rd), settings.depth,
+                              settings, seeds)
+        parts.append((out.x, out.y, out.z))
+    return V3(*(torch.cat(c) for c in zip(*parts)))
+
+
 def render(scene: SceneData, cam: CameraData,
            settings: RenderSettings = RenderSettings(), seed: int = 0):
     """Full-frame render -> image [vsize, hsize, 3] (linear, unclamped),
@@ -198,8 +485,11 @@ def render(scene: SceneData, cam: CameraData,
             (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z),
             **whitted.kernel_inputs(scene, settings, seed), width=cam.hsize)
     else:
-        out = color_at_fast(scene, ro, rd, settings.depth, settings,
-                            jitter.seed_table(seed, settings.depth,
-                                              len(scene.lights)))
+        seeds = jitter.seed_table(seed, settings.depth, len(scene.lights))
+        if node == "fast":
+            out = color_at_fast(scene, ro, rd, settings.depth, settings,
+                                seeds)
+        else:
+            out = sorted_frame(scene, ro, rd, cam.hsize, settings, seeds)
         rgb = (out.x, out.y, out.z)
     return torch.stack(rgb, dim=-1).reshape(cam.vsize, cam.hsize, 3)

@@ -79,7 +79,8 @@ def apply_gathered_linear(m, v: V3) -> V3:
 def normal_at(scene: sd.SceneData, hit: Hit, world_pt: V3, lp: V3 = None,
               reader: ClassReader = None) -> V3:
     """World-space unit normal (before the eye-facing flip). Triangle
-    winners take the kernel-interpolated vertex normal `hit.tri_n`."""
+    winners take the kernel-interpolated vertex normal `hit.tri_n`, or
+    without it the vertex normals interpolated at the hit's (u, v)."""
     present = _present_types(scene)
     if reader is None:
         reader = ClassReader(scene, hit.prim, cls=hit.cls)
@@ -132,7 +133,19 @@ def normal_at(scene: sd.SceneData, hit: Hit, world_pt: V3, lp: V3 = None,
 
     world_n = apply_gathered_linear(reader.nmat(), n).normalize()
     if sd.TRIANGLE in present:
-        tri_n = V3(*hit.tri_n).normalize()
+        if hit.tri_n is not None:
+            tri_n = V3(*hit.tri_n).normalize()
+        else:
+            # Sorted slots carry (u, v, tri), not the kernels' normal:
+            # interpolate the vertex normals (flat triangles store
+            # n1 = n2 = n3), rray_tpu shade_soa.py:178-190.
+            tri = hit.tri.long()
+
+            def tv3(table):
+                return V3(table[tri, 0], table[tri, 1], table[tri, 2])
+
+            tri_n = (tv3(scene.tri_n2) * hit.u + tv3(scene.tri_n3) * hit.v
+                     + tv3(scene.tri_n1) * (1.0 - hit.u - hit.v)).normalize()
         m = ptype == sd.TRIANGLE
         world_n = V3(torch.where(m, tri_n.x, world_n.x),
                      torch.where(m, tri_n.y, world_n.y),

@@ -84,8 +84,9 @@ def test_config5_routes(tmp_path):
     """Config 5 and its variants pick the node rray_tpu's gate picks:
     the kernel for config 5 (depth 0, one image per tree) and for a
     reflective variant without the image; the fast node for a textured
-    reflective scene without CSG; NotImplementedError naming A10 for a
-    CSG that the kernel rejects."""
+    reflective scene without CSG; the sorted torch node for a CSG that
+    the kernel rejects (textured and reflective), which renders it as
+    rray_tpu does (float64, atol 1e-9)."""
     tmp = str(tmp_path)
     cases = {CSG: "kernel",
              ms.write_config5(tmp, "csg5r", floor_reflective=0.3,
@@ -95,8 +96,15 @@ def test_config5_routes(tmp_path):
     for path, want in cases.items():
         _, lights, shapes = load_scene_file(path)
         assert integrator.route(port_compile(shapes, lights)) == want
-    # A textured reflective scene WITH a CSG: neither node takes it.
-    _, lights, shapes = load_scene_file(ms.write_config5(
-        tmp, "csg_tex_refl", floor_reflective=0.3))
-    with pytest.raises(NotImplementedError, match="A10"):
-        integrator.route(port_compile(shapes, lights))
+    # A textured reflective scene WITH a CSG: the sorted node.
+    path = ms.write_config5(tmp, "csg_tex_refl", floor_reflective=0.3)
+    _, lights, shapes = load_scene_file(path)
+    assert integrator.route(port_compile(shapes, lights)) == "sorted"
+    # 10x8: at 8x6 and at odd heights a config 5 pixel lands on a
+    # checker edge of the floor, where rounding picks the square (and
+    # rray_tpu's compiled frame differs from its own scan).
+    want = np.asarray(jax_api.render_scene_from_file(path, 10, 8, "",
+                                                     dtype=jnp.float64))
+    got = api.render_scene_from_file(path, 10, 8, "", dtype=torch.float64,
+                                     device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)

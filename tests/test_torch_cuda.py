@@ -368,6 +368,34 @@ def test_fast_node_renders_textured_reflective_config5(cuda, tmp_path):
     assert np.isfinite(image).all() and image.max() > 0.1
 
 
+@pytest.mark.parametrize("name", ["glass4", "csgglass"])
+def test_sorted_node_kernels_match_plain_versions(cuda, name, tmp_path):
+    """The sorted torch node on the card: glass4 (a transparent 220-
+    triangle mesh: the triangle kernels on the compact wavefront) and
+    csgglass (config 5 with a transparent CSG operand: the hybrid CSG
+    path) at 64x48 equal the same renders with the plain kernel versions
+    (chip_smoke.py's plain_kernels and thresholds)."""
+    import chip_smoke as cs
+    from rray_tpu_torch.render import integrator
+    if name in cs.SCENES:
+        path = ms.write_scene(str(tmp_path), name, **cs.SCENES[name])
+    else:
+        path = ms.write_config5(str(tmp_path), name, **cs.CONFIG5[name])
+    _, lights, shapes = load_scene_file(path)
+    assert integrator.route(compile_scene(shapes, lights)) == "sorted"
+    before = cs.launch_counts()
+    image = api.render_scene_from_file(path, 64, 48, "", device="cuda")
+    launched = {k: n - before[k] for k, n in cs.launch_counts().items()}
+    if name == "glass4":
+        assert launched["closest_triangle"] and launched["any_triangle"]
+    with cs.plain_kernels():
+        plain = api.render_scene_from_file(path, 64, 48, "", device="cuda")
+    diff = np.abs(image - plain).max(-1)
+    assert np.isfinite(image).all() and image.max() > 0.1
+    assert diff.max() <= cs.MAX_TOL
+    assert float((diff > cs.PIX_TOL).mean()) <= cs.FRAC_TOL
+
+
 def _ragged_case(stage, tmp_path, device):
     """(camera spec, scene) of one stage of the whitted kernel: a (core:
     example1), c (area lights: config 3), d (the in-kernel mesh) and e

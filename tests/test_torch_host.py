@@ -156,7 +156,9 @@ def test_port_imports_no_jax():
             "rray_tpu_torch.render.shade_soa, rray_tpu_torch.io.native, "
             "rray_tpu_torch.kernels.analytic, rray_tpu_torch.ops.prng, "
             "rray_tpu_torch.ops.jitter, rray_tpu_torch.ops.noise, "
-            "rray_tpu_torch.ops.quartic, rray_tpu_torch.io.mesh_scenes; "
+            "rray_tpu_torch.ops.quartic, rray_tpu_torch.io.mesh_scenes, "
+            "rray_tpu_torch.config, rray_tpu_torch.scene.convert, "
+            "rray_tpu_torch.render.camera; "
             "from rray_tpu_torch.render import integrator; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'rray_tpu.')) or m == 'rray_tpu'); "

@@ -20,6 +20,7 @@ import torch
 from PIL import Image
 
 import rray_tpu.api as jax_api
+import rray_tpu.io.yaml_loader as jax_yaml
 import torch_mesh_parity as mp
 from rray_tpu import RenderSettings as JaxSettings
 from rray_tpu.ops.vec import V3 as JV3
@@ -115,11 +116,19 @@ def test_routing(tmp_path):
     nine = scene("nine", lat_lon=(3, 4), grid=True)
     assert "8 material groups" in whitted.unsupported(nine)
     assert integrator.route(nine) == "fast"
-    _, lights, shapes = load_scene_file(
-        ms.write_scene(str(tmp_path), "glassy", lat_lon=(3, 4)))
+    # A transparent mesh: the sorted node, which renders it as rray_tpu
+    # does (float64, atol 1e-9).
+    path = ms.write_scene(str(tmp_path), "glassy", lat_lon=(3, 4))
+    _, lights, shapes = load_scene_file(path)
     shapes[1].children[0].material.transparency = 0.5
-    with pytest.raises(NotImplementedError, match="A6"):
-        integrator.route(compile_scene(shapes, lights))
+    assert integrator.route(compile_scene(shapes, lights)) == "sorted"
+    cam_spec, jlights, jshapes = jax_yaml.load_scene_file(path)
+    jshapes[1].children[0].material.transparency = 0.5
+    want = np.asarray(jax_api.render_scene(cam_spec, jlights, jshapes, 8, 6,
+                                           dtype=jnp.float64))
+    got = api.render_scene(cam_spec, lights, shapes, 8, 6,
+                           dtype=torch.float64, device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
 
 def test_cli_renders_a_mesh_and_leaves_native_unchanged(tmp_path):

@@ -5,9 +5,12 @@ CUDA kernel itself runs only on the card (chip_smoke.py holds it
 against this plain version there); the compact W=4 glass case is in
 test_torch_whitted_glass.py and the float64 checks against rray_tpu's
 XLA path in test_torch_whitted_xla.py."""
+import jax.numpy as jnp
+import numpy as np
 import pytest
 import torch
 
+import rray_tpu.api as jax_api
 import torch_parity as tp
 from rray_tpu_torch import api
 from rray_tpu_torch.config import RenderSettings
@@ -43,34 +46,31 @@ def test_cpu_tensors_never_launch_the_kernel():
     assert whitted.launches == before
 
 
-def _csg_variant(name, tmp_path):
-    """config 5 with a transparent CSG operand, or with a mesh (a
-    tetrahedron OBJ) as the CSG's right operand: CSG scenes the whitted
-    kernel rejects (rray_tpu whitted.py:110-115)."""
-    import yaml
-
+@pytest.mark.parametrize("name", ["transparent_operand", "mesh_operand"],
+                         ids=["transparent_operand-A10", "mesh_operand-A10"])
+def test_unported_scenes_raise(name, tmp_path):
+    """CSG scenes the whitted kernel rejects (rray_tpu whitted.py:110-115):
+    config 5 with a transparent operand, or with a tetrahedron OBJ as
+    its operand. They once raised; the sorted torch node renders them
+    now, as rray_tpu does (float64, atol 1e-9)."""
     from rray_tpu_torch.io import mesh_scenes
-    path = mesh_scenes.write_config5(str(tmp_path), name)
-    doc = yaml.safe_load(open(path))
-    csg = next(o for o in doc["scene"] if o["type"] == "csg")
-    if name == "transparent_operand":
-        csg["right"]["material"]["transparency"] = 0.5
-    else:
-        obj = tmp_path / "tet.obj"
-        obj.write_text("v 0 1.6 -0.2\nv 0.9 0.3 -0.7\nv -0.9 0.3 -0.7\n"
-                       "v 0 0.3 1.0\nf 1 2 3\nf 1 3 4\nf 1 4 2\nf 2 4 3\n")
-        csg["right"] = {"type": "obj_file", "obj_file": str(obj)}
-    with open(path, "w") as f:
-        yaml.safe_dump(doc, f)
-    return path
-
-
-@pytest.mark.parametrize("name,item", [("transparent_operand", "A10"),
-                                       ("mesh_operand", "A10")])
-def test_unported_scenes_raise(name, item, tmp_path):
-    with pytest.raises(NotImplementedError, match=item):
-        api.render_scene_from_file(_csg_variant(name, tmp_path), 8, 6, "",
-                                   device="cpu")
+    from rray_tpu_torch.io.yaml_loader import load_scene_file
+    from rray_tpu_torch.scene.data import compile_scene
+    path = mesh_scenes.write_config5(
+        str(tmp_path), name, **{name: 0.5 if name == "transparent_operand"
+                                else True})
+    _, lights, shapes = load_scene_file(path)
+    scene = compile_scene(shapes, lights)
+    assert "sorted torch node" in whitted.unsupported(scene)
+    assert integrator.route(scene) == "sorted"
+    # 10x8: at 8x6 and at odd heights a config 5 pixel lands on a
+    # checker edge of the floor, where rounding picks the square (and
+    # rray_tpu's compiled frame differs from its own scan).
+    want = np.asarray(jax_api.render_scene_from_file(path, 10, 8, "",
+                                                     dtype=jnp.float64))
+    got = api.render_scene_from_file(path, 10, 8, "", dtype=torch.float64,
+                                     device="cpu")
+    np.testing.assert_allclose(got, want, rtol=0, atol=1e-9)
 
 
 def test_applicable_gating():
