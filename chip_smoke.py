@@ -21,9 +21,16 @@ raster included, the BVH kernel's on area4b's 2.4 M-ray shadow call and
 on a 49,612-triangle mesh, and the triangle kernels' on area9's 2.4
 M-ray shadow call and on a 1008-triangle mesh, with the BVH kernel on
 mesh9's rays beside them as a yardstick. Bounds count the least work of
-every level's live path rows. It prints the card, one line per phase, a
-JSON line describing the kernels, and last a JSON line naming the
-device. Any failure exits non-zero before the last line; without CUDA it
+every level's live path rows. Then the gradient path: at 160x120 the
+kernel route's gradients (integrator.WhittedKernel) against the torch
+route's and the closest-triangle Function fed by the kernels against it
+fed by their plain versions, and the train phase, parallel.train's
+make_train_step with torch.optim.Adam for four steps at 800x600 on
+example1, glass, mesh4, mesh4b, config 3 and glass4 (one scene per
+route: kernel, fast, sorted), from a corrupted pattern colour and light
+intensity, with forward and backward ms and peak memory per step and
+its own launch counts. It prints the card, one line per phase, a JSON
+line describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before the last line; without CUDA it
 exits 1 at once.
 
 The generated scenes are written as YAML + OBJ into a temporary
@@ -78,6 +85,7 @@ plain versions of the triangle, BVH and area-shadow kernels on the card
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -202,6 +210,27 @@ CONFIG5 = {
 # those whose plain-kernel comparison renders at half size.
 SORTED = ("glass4", "glass4b", "glass21", "csgglass", "csgmesh")
 HALF_SIZE_PLAIN = ("glass4b", "glass21")
+# The train phase: make_train_step with torch.optim.Adam on these scenes
+# at 800x600, aa=1 (routes kernel x4, fast, sorted), TRAIN_STEPS steps
+# each from a corrupted pattern colour and light intensity; the kernels
+# its forward passes and its backward recomputes must launch.
+TRAIN_SCENES = ("example1", "glass", "mesh4", "mesh4b", "area", "glass4")
+TRAIN_STEPS = 4
+TRAIN_KERNELS = ("whitted_compact", "closest_triangle", "any_triangle",
+                 "bvh_closest_triangle", "area_shadow_fraction")
+# Gradient parity at GRAD_SIZE on the card, float32. The kernel route
+# (WhittedKernel: the whitted kernel forward, reference_node recomputed
+# backward) against reference_node under autograd: rray_tpu's bound for
+# its kernel against its XLA gradients in f32 (tests/test_wavefront.py
+# test_gradients_match_xla_path: rtol 0.05, atol 1e-4), since the loss
+# weights each pixel by the forward's own value and an area sample
+# keyed on an over point one ulp away draws other jitter. The
+# closest-triangle Function fed by the kernels against it fed by their
+# plain versions: the same winners (IDX_SHARE) and index_add_ in another
+# order, CLOSEST_TOL of each table's largest gradient.
+GRAD_SIZE = (160, 120)
+GRAD_RTOL, GRAD_ATOL = 0.05, 1e-4
+CLOSEST_TOL = 1e-3
 
 
 # ---------------------------------------------------------------------------
@@ -232,6 +261,19 @@ def camera_scene(path, torch, aa=1, size=(WIDTH, HEIGHT)):
     cam = Camera(size[0] * aa, size[1] * aa, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
     return scene, all_rays_soa(compile_camera(cam, torch.float32, DEVICE))
+
+
+def camera_data(path, torch, size=(WIDTH, HEIGHT)):
+    """(compiled scene, CameraData) at `size` on the card."""
+    from rray_tpu_torch.io.yaml_loader import load_scene_file
+    from rray_tpu_torch.render.camera import Camera, compile_camera
+    from rray_tpu_torch.scene.data import compile_scene
+
+    cam_spec, lights, shapes = load_scene_file(path)
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device=DEVICE)
+    cam = Camera(size[0], size[1], cam_spec["fov"])
+    cam.transform = cam_spec["transform"]
+    return scene, compile_camera(cam, torch.float32, DEVICE)
 
 
 def window_ms(torch, fn):
@@ -1223,6 +1265,192 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
           f"[{card_state()}]")
 
 
+def corrupted(torch, scene):
+    """The scene with its last solid pattern's colour set to (0.2, 0.7,
+    0.7) and its first light at half intensity (rray_tpu's
+    test_training_reduces_loss corruption)."""
+    from rray_tpu_torch.scene import data as sd
+
+    last = max(i for i, p in enumerate(scene.patterns) if p.ptype == "solid")
+    leaves = dict(sd.float_leaves(scene))
+    return sd.replace_leaves(scene, {
+        f".patterns[{last}].color": torch.tensor(
+            [0.2, 0.7, 0.7], dtype=torch.float32, device=DEVICE),
+        ".lights[0].intensity": leaves[".lights[0].intensity"] * 0.5})
+
+
+def trainable(key):
+    return ".color" in key or ".intensity" in key
+
+
+def train_phase(torch, scene_paths):
+    """Inverse rendering on the card through the port's entry point,
+    parallel.train.make_train_step with torch.optim.Adam: TRAIN_STEPS
+    steps on each TRAIN_SCENES scene at 800x600 against the true scene's
+    render, every gradient finite, the last loss below the first. Per
+    step: the forward (render_loss) and backward (loss.backward and the
+    optimizer step) ms on the host clock around synchronizes, their
+    ratio, and torch.cuda.max_memory_allocated over the step beside what
+    was allocated when it began. The launch counts are set to 0 before
+    the phase and read after it."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.parallel import train
+    from rray_tpu_torch.render import integrator
+
+    render_loss = train.render_loss
+    fwd = []
+
+    def timed_loss(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = render_loss(*args, **kwargs)
+        torch.cuda.synchronize()
+        fwd.append((time.perf_counter() - t0) * 1e3)
+        return loss
+
+    settings = RenderSettings()
+    adam = lambda params: torch.optim.Adam(params, lr=5e-2)
+    launch_counts(reset=True)
+    train.render_loss = timed_loss
+    try:
+        for name in TRAIN_SCENES:
+            scene, cam = camera_data(scene_paths[name], torch)
+            with torch.no_grad():
+                target = integrator.render(scene, cam, settings)
+            state, rest = train.init_train_state(corrupted(torch, scene),
+                                                 adam, trainable)
+            step = train.make_train_step(rest, cam, settings, adam)
+            losses = []
+            for i in range(TRAIN_STEPS):
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated() / 2 ** 20
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, loss = step(state, target)
+                torch.cuda.synchronize()
+                total = (time.perf_counter() - t0) * 1e3
+                peak = torch.cuda.max_memory_allocated() / 2 ** 20
+                losses.append(float(loss))
+                grads = [p.grad for p in state.params.values()
+                         if p.grad is not None]  # None: a leaf unused
+                if not all(bool(torch.isfinite(g).all()) for g in grads):
+                    fail(f"train {name} step {i}: a gradient is not finite")
+                if not any(bool((g != 0).any()) for g in grads):
+                    fail(f"train {name} step {i}: every gradient is zero")
+                f, b = fwd[-1], total - fwd[-1]
+                print(f"train {name} {WIDTH}x{HEIGHT} step {i} "
+                      f"(route {integrator.route(scene)}): loss "
+                      f"{losses[-1]:.6e}, forward {f:.1f} ms, backward "
+                      f"{b:.1f} ms, bwd/fwd {b / f:.2f}, peak memory "
+                      f"{peak:.1f} MiB ({base:.1f} MiB allocated before "
+                      f"the step) [{card_state()}]")
+            if not losses[-1] < losses[0]:
+                fail(f"train {name}: loss {losses} did not fall")
+    finally:
+        train.render_loss = render_loss
+    counts = launch_counts()
+    print(f"train phase kernel launches: {json.dumps(counts)}")
+    for kname in TRAIN_KERNELS:
+        if counts[kname] < 1:
+            fail(f"the train phase launched {kname} {counts[kname]} times")
+
+
+def leaf_grads(torch, loss, params):
+    got = torch.autograd.grad(loss, list(params.values()), allow_unused=True)
+    return {k: torch.zeros_like(v) if g is None else g
+            for (k, v), g in zip(params.items(), got)}
+
+
+def grad_parity_phase(torch, scene_paths):
+    """Gradient parity on the card at GRAD_SIZE, float32: render()'s
+    kernel route against reference_node over every ray (both with the
+    same leaves requiring grad, loss mean(image^2)), and the closest
+    triangle Function fed by the triangle and BVH kernels against it fed
+    by their plain versions (plain_kernels), each max relative
+    difference printed and held to its bound."""
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.ops import jitter, soa
+    from rray_tpu_torch.ops.vec import V3
+    from rray_tpu_torch.parallel import train
+    from rray_tpu_torch.render import integrator
+    from rray_tpu_torch.render.camera import all_rays_soa
+    from rray_tpu_torch.scene import data as sd
+
+    settings = RenderSettings()
+    for name in ("example1", "glass", "mesh4", "area"):
+        scene, cam = camera_data(scene_paths[name], torch, GRAD_SIZE)
+        if integrator.route(scene) != "kernel":
+            fail(f"grad parity {name}: route {integrator.route(scene)}")
+        params, rest = train.partition_scene(scene)
+        params = {k: v.detach().clone().requires_grad_()
+                  for k, v in params.items()}
+        image = integrator.render(train.merge_scene(params, rest), cam,
+                                  settings)
+        kern = leaf_grads(torch, torch.mean(image ** 2), params)
+        ro, rd = all_rays_soa(cam)
+        out = integrator.reference_node(
+            sd.canonicalize(train.merge_scene(params, rest)), ro, rd,
+            settings.depth, settings,
+            jitter.seed_table(0, settings.depth, len(scene.lights)))
+        ref = torch.stack((out.x, out.y, out.z), -1)
+        torch_route = leaf_grads(torch, torch.mean(ref ** 2), params)
+        worst, bad = 0.0, []
+        for key, g in torch_route.items():
+            if not g.numel():
+                continue
+            scale = float(g.abs().max())
+            diff = float((kern[key] - g).abs().max())
+            if scale > 0:
+                worst = max(worst, diff / scale)
+            if not (bool(torch.isfinite(kern[key]).all()) and bool(
+                    ((kern[key] - g).abs()
+                     <= GRAD_RTOL * g.abs() + GRAD_ATOL).all())):
+                bad.append(key)
+        print(f"grad parity {name} {GRAD_SIZE[0]}x{GRAD_SIZE[1]}: kernel "
+              f"route vs torch route, max |diff| / max |g| over leaves "
+              f"{worst:.3e} (bound: rtol {GRAD_RTOL}, atol {GRAD_ATOL})")
+        if bad:
+            fail(f"grad parity {name}: leaves {bad} outside rtol "
+                 f"{GRAD_RTOL}, atol {GRAD_ATOL}")
+
+    names = ("tri_p1", "tri_e1", "tri_e2", "tri_n1", "tri_n2", "tri_n3")
+    for name in ("mesh4", "mesh4b"):
+        scene, cam = camera_data(scene_paths[name], torch, GRAD_SIZE)
+        T = scene.counts[6]
+        ro, rd = all_rays_soa(cam)
+        w = torch.rand((4, ro.x.shape[0]), device=DEVICE,
+                       generator=torch.Generator(DEVICE).manual_seed(0))
+
+        def run():
+            tabs = {n: getattr(scene, n).clone().requires_grad_()
+                    for n in names}
+            rays = [c.clone().requires_grad_()
+                    for c in (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)]
+            s = dataclasses.replace(scene, **tabs)
+            t, _, _, n, _ = soa._triangle_best(
+                s, V3(*rays[:3]), V3(*rays[3:]), settings,
+                torch.full_like(rays[0], 1e30))
+            found = torch.isfinite(t)
+            loss = sum((torch.where(found, c, 0.0) * wk).sum()
+                       for c, wk in zip((t, *n), w))
+            return torch.autograd.grad(loss, list(tabs.values()) + rays)
+
+        kern = run()
+        with plain_kernels():
+            plain = run()
+        worst = max(float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                     1e-30)
+                    for a, b in zip(kern, plain))
+        kname = ("bvh_closest_triangle" if T >= settings.bvh_min_tris
+                 else "closest_triangle")
+        print(f"grad parity closest Function {name} ({T} triangles, "
+              f"{kname}) {GRAD_SIZE[0]}x{GRAD_SIZE[1]}: kernels vs plain "
+              f"versions, max |diff| / max |g| over tables and rays "
+              f"{worst:.3e} (bound {CLOSEST_TOL})")
+        if not worst <= CLOSEST_TOL:
+            fail(f"grad parity closest Function {name}: {worst:.3e}")
+
+
 def whitted_blocks():
     """Resident blocks per SM of every whitted instantiation with no
     dynamic shared memory (the occupancy calculator, so by registers),
@@ -1371,6 +1599,8 @@ def main() -> int:
                            ("area", 3, 5), ("csg", 5, 3), ("glass4", 1, 3),
                            ("csgglass", 1, 3)):
         frame_breakdown(torch, np, name, scene_paths[name], aa, reps)
+    grad_parity_phase(torch, scene_paths)
+    train_phase(torch, scene_paths)
     tmp.cleanup()
 
     # Times on the card, in turns.

@@ -3,8 +3,11 @@
 The port of rray_tpu (JAX on a TPU) to PyTorch on an NVIDIA H100. Plain
 tensor code is PyTorch; each Pallas TPU kernel on the ported path is a
 CUDA kernel written by hand for Hopper, with a plain PyTorch version
-beside it that CPU tensors run. rray_tpu stays the reference the port
-is tested against; this package never imports JAX.
+beside it that CPU tensors run. Renders are differentiable: autograd
+reaches every float leaf of a scene through `render`, and
+`rray_tpu_torch.parallel.train` trains scene parameters against a target
+image with torch.optim. rray_tpu stays the reference the port is tested
+against; this package never imports JAX.
 """
 from .config import EPSILON, RenderSettings
 from .scene.data import (AreaLight, Material, Pattern, PointLight, Shape,

@@ -5,7 +5,7 @@ Mirrors the reference's single global constant EPSILON = 1e-5
 tensors decides. CUDA tensors run the hand-written kernels, CPU tensors
 their plain PyTorch versions. The mesh settings and the sorted node's
 (max_hits, containers_depth, tri_chunk, rows_per_tile, max_rc_elems,
-wavefront) are rray_tpu's, with its defaults (rray_tpu/config.py).
+wavefront) and remat are rray_tpu's, with its defaults (rray_tpu/config.py).
 """
 from __future__ import annotations
 
@@ -74,3 +74,8 @@ class RenderSettings:
     # spawn: "compact" (per-pixel live-path compaction at
     # wavefront_capacity) or "scan" (the exhaustive 2^depth width).
     wavefront: str = "compact"
+    # Recompute each level of the torch nodes' Whitted chain in the
+    # backward pass (torch.utils.checkpoint around the level body)
+    # instead of keeping its intermediates; an identity outside autograd,
+    # and the gradients are the same either way (rray_tpu's remat).
+    remat: bool = True

@@ -135,9 +135,11 @@ def occluder_bounds(params, kinds):
 def scene_occluders(scene):
     """The scene's prims as the area-shadow kernel takes them: ([P, 16]
     rows of `occlusion_params`, the P kinds, [P, 8] `occluder_bounds`),
-    built once per scene."""
+    built once per scene from its detached tensors (occlusion is a 0/1
+    outcome: no gradient goes through it)."""
     def make():
-        params = occlusion_params(scene, range(len(scene.prim_kinds)))
+        with torch.no_grad():
+            params = occlusion_params(scene, range(len(scene.prim_kinds)))
         kinds = tuple(scene.prim_kinds)
         return params, kinds, occluder_bounds(params, kinds)
 

@@ -122,6 +122,6 @@ def octave_perlin(x, y, z, octaves: int, persistence):
         max_value = max_value + amplitude
         amplitude = amplitude * persistence
         frequency *= 2.0
-    if float(max_value) == 0.0:
+    if float(max_value.detach()) == 0.0:
         return total
     return total / max_value.to(x.device)

@@ -337,13 +337,13 @@ def csg_keeps(ts, valids, ops_and_sides):
 
 
 def _tri_comps(scene, normals: bool):
-    """The triangle table's [T] columns p1 e1 e2 (and n1 n2 n3), once per
-    scene."""
+    """The triangle table's [T] columns p1 e1 e2 (and n1 n2 n3), detached,
+    once per scene: what the kernels read."""
     tabs = (scene.tri_p1, scene.tri_e1, scene.tri_e2)
     if normals:
         tabs += (scene.tri_n1, scene.tri_n2, scene.tri_n3)
     return scene.cached(("tri_comps", normals), lambda: tuple(
-        tbl[:, j].contiguous() for tbl in tabs for j in range(3)))
+        tbl.detach()[:, j].contiguous() for tbl in tabs for j in range(3)))
 
 
 def _tri_aux(scene):
@@ -373,34 +373,107 @@ def _tri_tables(scene):
         _tri_comps(scene, normals=True), _tri_aux(scene)))
 
 
+def _mt_winner(live, ro_comps, rd_comps, rows):
+    """The winning triangle's Moller-Trumbore t, u, v and interpolated
+    normal (triangle.rs:72-94, smooth_triangle.rs:99-101) recomputed from
+    its gathered [R, 18] table row (rray_tpu soa.py _mt_winner_xla), as
+    a plain chain that autograd differentiates. `live` masks the
+    division where nothing was hit (those rays gather row 0)."""
+    g = rows.unbind(1)
+    ox, oy, oz = ro_comps
+    dx, dy, dz = rd_comps
+    p1x, p1y, p1z, e1x, e1y, e1z, e2x, e2y, e2z = g[:9]
+    cx = dy * e2z - dz * e2y
+    cy = dz * e2x - dx * e2z
+    cz = dx * e2y - dy * e2x
+    det = e1x * cx + e1y * cy + e1z * cz
+    f = 1.0 / torch.where(live & (torch.abs(det) >= EPSILON), det, 1.0)
+    sx, sy, sz = ox - p1x, oy - p1y, oz - p1z
+    u = f * (sx * cx + sy * cy + sz * cz)
+    qx = sy * e1z - sz * e1y
+    qy = sz * e1x - sx * e1z
+    qz = sx * e1y - sy * e1x
+    v = f * (dx * qx + dy * qy + dz * qz)
+    t = f * (e2x * qx + e2y * qy + e2z * qz)
+    w1 = 1.0 - u - v
+    return (t, u, v) + tuple(w1 * g[9 + k] + u * g[12 + k] + v * g[15 + k]
+                             for k in range(3))
+
+
+class ClosestTriangle(torch.autograd.Function):
+    """The closest-triangle kernels under autograd (rray_tpu soa.py
+    _kernel_closest). Forward: `launch(ro_comps, rd_comps, t_init)`, the
+    BVH or chunk kernel on CUDA tensors and its plain version on CPU
+    tensors, -> (t, u, v, nx, ny, nz, idx, prim, cls). Backward: the
+    winner held fixed (exact almost everywhere, as an argmin), its t, u,
+    v and normal recomputed by `_mt_winner` from one row gather of the
+    stacked [T, 18] table, and the rows' cotangents summed into the six
+    [T, 3] tables with index_add_ (rray_tpu's _winner_segment_sum).
+    t_init, which only bounds the search, and the payloads get no
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, launch, ox, oy, oz, dx, dy, dz, t_init, *tables):
+        t, u, v, idx, nx, ny, nz, prim, cls = launch(
+            (ox, oy, oz), (dx, dy, dz), t_init)
+        ctx.save_for_backward(ox, oy, oz, dx, dy, dz, t, idx, *tables)
+        ctx.mark_non_differentiable(idx, prim, cls)
+        return t, u, v, nx, ny, nz, idx, prim, cls
+
+    @staticmethod
+    def backward(ctx, *cts):
+        ox, oy, oz, dx, dy, dz, t, idx, *tables = ctx.saved_tensors
+        live = torch.isfinite(t)
+        cts = [torch.where(live, c, 0.0) if c is not None
+               else torch.zeros_like(t) for c in cts[:6]]
+        stacked = torch.cat(tables, dim=1)
+        T = stacked.shape[0]
+        idxc = idx.long().clamp(0, T - 1)
+        with torch.enable_grad():
+            rays = [c.detach().requires_grad_() for c in
+                    (ox, oy, oz, dx, dy, dz)]
+            rows = stacked.detach()[idxc].requires_grad_()
+            outs = _mt_winner(live, rays[:3], rays[3:], rows)
+            grads = torch.autograd.grad(outs, rays + [rows], cts)
+        d_tbl = torch.zeros_like(stacked).index_add_(0, idxc, grads[6])
+        return (None, *grads[:6], None) + tuple(d_tbl.split(3, dim=1))
+
+
 def _triangle_best(scene, ro: V3, rd: V3, settings, t_init):
     """Closest triangle hit with t < t_init (rray_tpu soa.py
     _pallas_triangle_best): the BVH kernel for meshes of at least
-    settings.bvh_min_tris triangles, the linear chunk kernel below that.
-    Returns (t, prim, cls, (nx, ny, nz), row); the kernels select the
-    winner's prim id and shade class as float payload columns; row is
-    its triangle-table row."""
+    settings.bvh_min_tris triangles, the linear chunk kernel below that,
+    through ClosestTriangle. Returns (t, prim,
+    cls, (nx, ny, nz), row); the kernels select the winner's prim id and
+    shade class as float payload columns; row is its triangle-table
+    row."""
     from ..kernels import bvh, triangles
 
-    rays = (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z)
     aux = _tri_aux(scene)
     tri = _tri_comps(scene, normals=True)
     if scene.counts[6] >= settings.bvh_min_tris:
-        outs = bvh.bvh_closest_triangle(*rays, tri, dist=t_init, aux=aux,
-                                        tables=_bvh_tables(scene))
+        tables = _bvh_tables(scene)
+        launch = lambda o, d, t0: bvh.bvh_closest_triangle(
+            o, d, tri, dist=t0, aux=aux, tables=tables)
     else:
-        outs = triangles.closest_triangle(*rays, tri, t_init=t_init, aux=aux,
-                                          tables=_tri_tables(scene))
-    t, _, _, row, nx, ny, nz, prim, cls = outs
+        tables = _tri_tables(scene)
+        launch = lambda o, d, t0: triangles.closest_triangle(
+            o, d, tri, t_init=t0, aux=aux, tables=tables)
+    t, _, _, nx, ny, nz, row, prim, cls = ClosestTriangle.apply(
+        launch, ro.x, ro.y, ro.z, rd.x, rd.y, rd.z, t_init, scene.tri_p1,
+        scene.tri_e1, scene.tri_e2, scene.tri_n1, scene.tri_n2, scene.tri_n3)
     return t, prim.long(), cls.long(), (nx, ny, nz), row
 
 
 def _triangle_any(scene, ro: V3, rd: V3, settings, distance):
     """Bounded triangle any-hit (rray_tpu soa.py _pallas_triangle_any)
-    -> bool [R]."""
+    -> bool [R]. A 0/1 outcome: its inputs are taken detached, as
+    rray_tpu stops their gradient."""
     from ..kernels import bvh, triangles
 
-    rays = (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z)
+    rays = ((ro.x.detach(), ro.y.detach(), ro.z.detach()),
+            (rd.x.detach(), rd.y.detach(), rd.z.detach()))
+    distance = distance.detach()
     tri = _tri_comps(scene, normals=False)
     if scene.counts[6] >= settings.bvh_min_tris:
         t = bvh.bvh_closest_triangle(*rays, tri, dist=distance, any_hit=True,
@@ -477,7 +550,7 @@ def any_hit_soa(scene, ro: V3, rd: V3, distance, settings,
 def _tri_chunks(scene, chunk: int):
     """The triangle table as [n_chunks, chunk] columns, zero-padded ->
     (n_chunks, chunk, p1, e1, e2, prim ids, live mask), once per scene
-    and chunk size."""
+    and chunk size (the torch folds differentiate through them)."""
     def make():
         T = scene.counts[6]
         pad = (-T) % chunk
@@ -494,7 +567,7 @@ def _tri_chunks(scene, chunk: int):
                 < T).reshape(n_chunks, chunk)
         return n_chunks, chunk, p1, e1, e2, pid, live
 
-    return scene.cached(("tri_chunks", chunk), make)
+    return scene.cached(("tri_chunks", chunk), make, grad=True)
 
 
 def _mesh_chunks(scene, settings):

@@ -23,10 +23,17 @@ Area lights draw their jitter from rray_tpu's key chain: level l of the
 Whitted chain and light li use seed_table(seed)[l, li] (ops/jitter.py),
 the seed that rray_tpu derives from fold_in(fold_in(PRNGKey(seed), l),
 1000 + li) on both of its routes.
+
+Gradients: the torch nodes are differentiable torch ops (each level
+checkpointed under settings.remat); the closest-triangle kernels sit
+under ops/soa.py ClosestTriangle, and the shadow tests take detached
+inputs. On the kernel route WhittedKernel recomputes the torch node in
+its backward pass, as rray_tpu's custom VJP recomputes its XLA node.
 """
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderSettings, offset_eps
 from ..kernels import analytic, whitted
@@ -69,9 +76,14 @@ def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
     that are blocked, count / n, drawn from the point-keyed hash with
     `seed` (rray_tpu integrator.py:57-148)."""
     dtype = over.x.dtype
+    # A 0/1 outcome (or a count of them): zero gradient almost
+    # everywhere, so it takes its inputs detached (rray_tpu stops the
+    # gradient of the area lights' inputs).
+    over = V3(over.x.detach(), over.y.detach(), over.z.detach())
     if light.kind == "point":
-        to_light = V3(light.position[0] - over.x, light.position[1] - over.y,
-                      light.position[2] - over.z)
+        position = light.position.detach()
+        to_light = V3(position[0] - over.x, position[1] - over.y,
+                      position[2] - over.z)
         dist = to_light.norm()
         direction = to_light * (1.0 / torch.clamp_min(dist, 1e-30))
         shadowed = _shadow_test_soa(scene, over, direction, dist, settings)
@@ -87,8 +99,8 @@ def _shadow_fraction_soa(scene, light, over: V3, settings, seed: int):
         params, kinds, bounds = analytic.scene_occluders(scene)
         return analytic.area_shadow_fraction(
             (over.x, over.y, over.z), seed,
-            torch.cat([light.corner, light.uvec, light.vvec]), params, kinds,
-            level, bounds=bounds)
+            torch.cat([light.corner, light.uvec, light.vvec]).detach(),
+            params, kinds, level, bounds=bounds)
     # `level` samples per step at [level * R] width, as rray_tpu groups
     # them: each step's any-hit is one triangle or BVH kernel call (one
     # sample per step made area4b's frame twice as long, host-side). The
@@ -161,6 +173,20 @@ def _shade(scene: SceneData, hit: soa.Hit, ro: V3, rd: V3,
     return point, eyev, normalv, over, reader, surface
 
 
+def _level(scene, settings, body, *args):
+    """body(*args), one level of a Whitted chain: under autograd with
+    settings.remat, through torch.utils.checkpoint, which keeps the
+    level's inputs and recomputes the rest in the backward pass
+    (rray_tpu's jax.checkpoint on its level bodies); the values are the
+    same either way."""
+    if (settings.remat and torch.is_grad_enabled()
+            and (scene.requires_grad() or any(
+                a.requires_grad for a in args if torch.is_tensor(a)))):
+        return checkpoint(body, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+    return body(*args)
+
+
 # ---------------------------------------------------------------------------
 # The torch fast node (rray_tpu _color_at_soa_xla).
 # ---------------------------------------------------------------------------
@@ -194,8 +220,9 @@ def color_at_fast(scene: SceneData, ro: V3, rd: V3, remaining: int,
     for level in range(remaining + 1):
         if not bool((weights != 0.0).any()):
             break
-        surface, over, reflectv, refl = _fast_node_eval(
-            scene, ro, rd, settings, seeds[level])
+        surface, over, reflectv, refl = _level(
+            scene, settings, lambda ro, rd, s=seeds[level]: _fast_node_eval(
+                scene, ro, rd, settings, s), ro, rd)
         acc = acc + surface * weights
         ro, rd, weights = over, reflectv, weights * refl
     return acc
@@ -324,8 +351,9 @@ def _color_at_sorted_scan(scene: SceneData, ro: V3, rd: V3, remaining: int,
     for level in range(remaining + 1):
         if not bool((weights != 0.0).any()):
             break  # every path is dead: the remaining levels add zeros
-        surface, over, under, reflectv, refr_dir, refl_w, refr_w = \
-            _sorted_node_eval(scene, ro, rd, settings, seeds[level])
+        surface, over, under, reflectv, refr_dir, refl_w, refr_w = _level(
+            scene, settings, lambda ro, rd, s=seeds[level]: _sorted_node_eval(
+                scene, ro, rd, settings, s), ro, rd)
         contrib = surface * weights
         acc = acc + V3(contrib.x.reshape(W, R).sum(0),
                        contrib.y.reshape(W, R).sum(0),
@@ -374,16 +402,19 @@ def _color_at_compact_scan(scene: SceneData, ro: V3, rd: V3, remaining: int,
     def level_eval(state, width, level):
         """One level over [width, R] paths -> (acc, the children as
         (reflect, refract) pairs of ox oy oz dx dy dz weight)."""
-        wf = state[6]
-        surface, over, under, reflectv, refr_dir, refl_w, refr_w = \
-            _sorted_node_eval(scene, V3(*state[:3]), V3(*state[3:6]),
-                              settings, seeds[level])
-        new_acc = tuple(a + (c * wf).reshape(width, R).sum(0) for a, c in
-                        zip(acc, (surface.x, surface.y, surface.z)))
-        return new_acc, ((over.x, under.x), (over.y, under.y),
-                         (over.z, under.z), (reflectv.x, refr_dir.x),
-                         (reflectv.y, refr_dir.y), (reflectv.z, refr_dir.z),
-                         (wf * refl_w, wf * refr_w))
+        def body(*state):
+            wf = state[6]
+            surface, over, under, reflectv, refr_dir, refl_w, refr_w = \
+                _sorted_node_eval(scene, V3(*state[:3]), V3(*state[3:6]),
+                                  settings, seeds[level])
+            return tuple((c * wf).reshape(width, R).sum(0)
+                         for c in (surface.x, surface.y, surface.z)), (
+                (over.x, under.x), (over.y, under.y), (over.z, under.z),
+                (reflectv.x, refr_dir.x), (reflectv.y, refr_dir.y),
+                (reflectv.z, refr_dir.z), (wf * refl_w, wf * refr_w))
+
+        contrib, children = _level(scene, settings, body, *state)
+        return tuple(a + c for a, c in zip(acc, contrib)), children
 
     width, level = 1, 0
     while level <= remaining and 2 * width <= W and level < 2:
@@ -472,18 +503,102 @@ def sorted_frame(scene: SceneData, ro: V3, rd: V3, hsize: int,
     return V3(*(torch.cat(c) for c in zip(*parts)))
 
 
+def reference_node(scene: SceneData, ro: V3, rd: V3, remaining: int,
+                   settings: RenderSettings, seeds) -> V3:
+    """The kernel-free torch Whitted evaluation of a scene (rray_tpu
+    _xla_reference_node): the sorted node for CSG or transparency, else
+    the fast node. The whitted kernel's backward recomputes through it,
+    so the kernel route's gradients are the torch route's."""
+    if scene.csg_ops or scene.has_transparent:
+        return color_at_sorted(scene, ro, rd, remaining, settings, seeds)
+    return color_at_fast(scene, ro, rd, remaining, settings, seeds)
+
+
+def _kernel_frame(scene, settings, seed: int, width: int, rays):
+    """whitted_compact over the six ray components; the raster width
+    lets the kernel shade the rays in pixel tiles."""
+    return whitted.whitted_compact(
+        rays[:3], rays[3:], **whitted.kernel_inputs(scene, settings, seed),
+        width=width)
+
+
+class WhittedKernel(torch.autograd.Function):
+    """The whitted kernel under autograd (rray_tpu _whitted_kernel_call
+    and its custom VJP). Inputs: the six ray components, then the
+    scene's float leaves in `scene.data.float_leaves` order; `frame`
+    (the scene whose leaves these are, the settings, the seed and the
+    raster width) travels beside them. Forward: whitted_compact as
+    render() calls it, the CUDA kernel on the card and its plain version
+    on the CPU. Backward: the scene rebuilt from detached leaves,
+    reference_node recomputed with the same seed table, and
+    torch.autograd.grad into the leaves and rays, in batches of
+    `_tile_rays` rays, so that memory stays bounded on a large frame."""
+
+    @staticmethod
+    def forward(ctx, frame, *tensors):
+        ctx.frame = frame
+        ctx.save_for_backward(*tensors)
+        return _kernel_frame(*frame, tensors[:6])
+
+    @staticmethod
+    def backward(ctx, *cts):
+        scene, settings, seed, width = ctx.frame
+        tensors = ctx.saved_tensors
+        needs = ctx.needs_input_grad[1:]
+        keys = [k for k, _ in sd.float_leaves(scene)]
+        leaves = [t.detach().requires_grad_(n)
+                  for t, n in zip(tensors[6:], needs[6:])]
+        scene = sd.replace_leaves(scene, dict(zip(keys, leaves)))
+        seeds = jitter.seed_table(seed, settings.depth, len(scene.lights))
+        grads = [None if not n else torch.zeros_like(t)
+                 for t, n in zip(tensors, needs)]
+        R = tensors[0].shape[0]
+        tile = _tile_rays(scene, width, settings)
+        for i in range(0, R, tile):
+            rays = [t[i:i + tile].detach().requires_grad_(n)
+                    for t, n in zip(tensors[:6], needs[:6])]
+            wanted = [(j, t) for j, t in enumerate(rays + leaves)
+                      if t.requires_grad]
+            with torch.enable_grad():
+                out = reference_node(scene, V3(*rays[:3]), V3(*rays[3:]),
+                                     settings.depth, settings, seeds)
+                pairs = [(o, c[i:i + tile]) for o, c in zip(
+                    (out.x, out.y, out.z), cts) if o.requires_grad]
+                if not pairs or not wanted:
+                    continue
+                got = torch.autograd.grad(
+                    [o for o, _ in pairs], [t for _, t in wanted],
+                    [c for _, c in pairs], allow_unused=True)
+            for (j, _), g in zip(wanted, got):
+                if g is None:
+                    continue
+                if j < 6:
+                    grads[j][i:i + tile] = g
+                else:
+                    grads[j] += g
+        return (None, *grads)
+
+
 def render(scene: SceneData, cam: CameraData,
            settings: RenderSettings = RenderSettings(), seed: int = 0):
     """Full-frame render -> image [vsize, hsize, 3] (linear, unclamped),
     on the scene's device. `seed` keys the area lights' jitter, as
-    rray_tpu's render(seed=...) does."""
+    rray_tpu's render(seed=...) does. The scene is canonicalized first
+    (scene.data.canonicalize). Autograd reaches the scene's float leaves
+    on every route: through the torch nodes, and through WhittedKernel on
+    the kernel route when some leaf or ray requires grad."""
+    scene = sd.canonicalize(scene)
     node = route(scene)
     ro, rd = all_rays_soa(cam)
     if node == "kernel":
-        # The raster width lets the kernel shade the rays in pixel tiles.
-        rgb = whitted.whitted_compact(
-            (ro.x, ro.y, ro.z), (rd.x, rd.y, rd.z),
-            **whitted.kernel_inputs(scene, settings, seed), width=cam.hsize)
+        rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
+        frame = (scene, settings, seed, cam.hsize)
+        if torch.is_grad_enabled() and (
+                scene.requires_grad() or any(c.requires_grad for c in rays)):
+            rgb = WhittedKernel.apply(frame, *rays, *(
+                t for _, t in sd.float_leaves(scene)))
+        else:
+            rgb = _kernel_frame(*frame, rays)
     else:
         seeds = jitter.seed_table(seed, settings.depth, len(scene.lights))
         if node == "fast":

@@ -8,7 +8,10 @@ the port's SceneData from that pair, so the two packages can compute on
 the very same tables.
 
 `scene_to_numpy` produces the pair from either package's SceneData: it
-reads attributes and calls `np.asarray`, so it needs no JAX import.
+reads attributes and copies each leaf to a host numpy array (a torch
+tensor detached first, so a scene trained in the port, on the card or
+with leaves that require grad, carries back to rray_tpu); it needs no
+JAX import.
 """
 from __future__ import annotations
 
@@ -18,29 +21,34 @@ import torch
 from . import data as sd
 
 
+def _np(v):
+    """A leaf of either package as a host numpy array."""
+    if isinstance(v, torch.Tensor):
+        return v.detach().cpu().numpy()
+    return np.asarray(v)
+
+
 def _pattern_to_numpy(p):
     if p is None:
         return None, None
     a_f, a_m = _pattern_to_numpy(p.a)
     b_f, b_m = _pattern_to_numpy(p.b)
-    tex = None if p.texture is None else np.asarray(p.texture)
-    fields = dict(inv=np.asarray(p.inv), color=np.asarray(p.color),
-                  scale=np.asarray(p.scale),
-                  persistence=np.asarray(p.persistence), texture=tex,
+    tex = None if p.texture is None else _np(p.texture)
+    fields = dict(inv=_np(p.inv), color=_np(p.color), scale=_np(p.scale),
+                  persistence=_np(p.persistence), texture=tex,
                   a=a_f, b=b_f)
     return fields, dict(ptype=p.ptype, octaves=int(p.octaves), a=a_m, b=b_m)
 
 
 def scene_to_numpy(scene):
     """(fields, meta) of a SceneData from either package."""
-    fields = {name: np.asarray(getattr(scene, name))
-              for name in sd.TENSOR_FIELDS}
+    fields = {name: _np(getattr(scene, name)) for name in sd.TENSOR_FIELDS}
     meta = {name: getattr(scene, name) for name in sd.STATIC_FIELDS}
     light_f, light_m = [], []
     for light in scene.lights:
-        opt = lambda v: None if v is None else np.asarray(v)
-        light_f.append(dict(position=np.asarray(light.position),
-                            intensity=np.asarray(light.intensity),
+        opt = lambda v: None if v is None else _np(v)
+        light_f.append(dict(position=_np(light.position),
+                            intensity=_np(light.intensity),
                             corner=opt(light.corner), uvec=opt(light.uvec),
                             vvec=opt(light.vvec)))
         light_m.append(dict(kind=light.kind, level=int(light.level)))

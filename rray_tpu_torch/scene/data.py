@@ -259,17 +259,30 @@ class SceneData:
     n_classes: int = 0
     prim_class_static: Tuple[int, ...] = ()
     prim_pattern_static: Tuple[int, ...] = ()
-    # The kernels' tables derived from this scene's tensors, built at
-    # first use and kept for the scene's life (`cached`): the tensors are
-    # not changed after compile_scene.
-    kernel_cache: dict = dataclasses.field(default_factory=dict, repr=False,
-                                           compare=False)
+    # Tables derived from this scene's tensors (the kernels' tables, the
+    # canonical scene), built at first use and kept for this object's
+    # life (`cached`). Each SceneData starts with an empty cache:
+    # `dataclasses.replace` and `merge_scene` hand the new scene none of
+    # the old one's tables. The kernels' tables are built from detached
+    # tensors; a value autograd must reach through is not kept while
+    # some leaf requires grad. Change a scene's tensors through a new
+    # SceneData, not in place: the cache does not see in-place writes.
+    kernel_cache: dict = dataclasses.field(default_factory=dict, init=False,
+                                           repr=False, compare=False)
 
-    def cached(self, key, make):
-        """make(), once per scene under `key`."""
+    def cached(self, key, make, grad: bool = False):
+        """make(), once per scene under `key`. grad=True marks a value
+        built from the live tensors, which autograd reaches through: it
+        is made anew at every call while some leaf requires grad."""
+        if grad and self.requires_grad():
+            return make()
         if key not in self.kernel_cache:
             self.kernel_cache[key] = make()
         return self.kernel_cache[key]
+
+    def requires_grad(self) -> bool:
+        """Does some float leaf of the scene require grad?"""
+        return any(t.requires_grad for _, t in float_leaves(self))
 
     @property
     def dtype(self):
@@ -581,3 +594,129 @@ def compile_scene(objects, lights, dtype=torch.float32,
         prim_class_static=tuple(int(c) for c in prim_class),
         prim_pattern_static=tuple(int(i) for i in pat_ids),
     )
+
+
+# --------------------------------------------------------------------------
+# Leaves by key path, and the canonical scene.
+# --------------------------------------------------------------------------
+
+_PATTERN_TENSORS = ("inv", "color", "scale", "persistence", "texture")
+_LIGHT_TENSORS = ("position", "intensity", "corner", "uvec", "vvec")
+
+
+def _pattern_leaves(p: PatternData, prefix: str):
+    for name in _PATTERN_TENSORS:
+        if getattr(p, name) is not None:
+            yield f"{prefix}.{name}", getattr(p, name)
+    for name in ("a", "b"):
+        if getattr(p, name) is not None:
+            yield from _pattern_leaves(getattr(p, name), f"{prefix}.{name}")
+
+
+def tensor_leaves(scene: SceneData):
+    """(key path, tensor) of every tensor of the scene in rray_tpu's
+    pytree order, keyed as `jax.tree_util.keystr` keys rray_tpu's
+    SceneData (".prim_inv", ".lights[0].intensity",
+    ".patterns[0].a.color"); absent (None) leaves are left out, as
+    rray_tpu's flatten leaves them out."""
+    for name in TENSOR_FIELDS:
+        yield f".{name}", getattr(scene, name)
+    for i, light in enumerate(scene.lights):
+        for name in _LIGHT_TENSORS:
+            if getattr(light, name) is not None:
+                yield f".lights[{i}].{name}", getattr(light, name)
+    for i, p in enumerate(scene.patterns):
+        yield from _pattern_leaves(p, f".patterns[{i}]")
+
+
+def float_leaves(scene: SceneData):
+    """The floating-point entries of `tensor_leaves`: the leaves that
+    rray_tpu's partition_scene makes parameters."""
+    return [(k, t) for k, t in tensor_leaves(scene)
+            if torch.is_floating_point(t)]
+
+
+def replace_leaves(scene: SceneData, new: dict) -> SceneData:
+    """The scene with the tensors of `new` (key path -> tensor, keyed as
+    `tensor_leaves` keys them) in place of its own."""
+    def pick(prefix, names):
+        return {n: new[f"{prefix}.{n}"] for n in names
+                if f"{prefix}.{n}" in new}
+
+    def pattern(p, prefix):
+        if p is None:
+            return None
+        return dataclasses.replace(
+            p, **pick(prefix, _PATTERN_TENSORS),
+            a=pattern(p.a, f"{prefix}.a"), b=pattern(p.b, f"{prefix}.b"))
+
+    return dataclasses.replace(
+        scene, **pick("", TENSOR_FIELDS),
+        lights=tuple(dataclasses.replace(l, **pick(f".lights[{i}]",
+                                                   _LIGHT_TENSORS))
+                     for i, l in enumerate(scene.lights)),
+        patterns=tuple(pattern(p, f".patterns[{i}]")
+                       for i, p in enumerate(scene.patterns)))
+
+
+def canonicalize(scene: SceneData) -> SceneData:
+    """The scene with every duplicated tensor re-derived from its
+    canonical source (rray_tpu scene/data.py canonicalize).
+
+    The per-type affines (`sph_inv`..`tor_inv`) copy rows of `prim_inv`,
+    and the class table (`cls_table`) copies `prim_inv`, `prim_nmat`, the
+    `mat_*` scalars and the cylinder/cone/torus extras. Gathers, reshapes
+    and casts rebuild them, with no arithmetic, so the values are bit
+    for bit those of compile_scene, and gradient mass lands only on the
+    canonical leaves (`prim_inv`, `prim_nmat`, `mat_*`, `cyl_*`/`con_*`/
+    `tor_r`, `tri_*`, lights, patterns) on every route. render() calls
+    it first. While no tensor requires grad it is made once per scene
+    (`SceneData.cached`)."""
+    return scene.cached("canonical", lambda: _canonicalize(scene), grad=True)
+
+
+def _canonicalize(scene: SceneData) -> SceneData:
+    if not scene.prim_kinds:
+        return scene
+    dtype, device = scene.prim_inv.dtype, scene.prim_inv.device
+    kinds = scene.prim_kinds
+    upd: dict = {}
+    for name, t in (("sph_inv", SPHERE), ("pla_inv", PLANE),
+                    ("cub_inv", CUBE), ("cyl_inv", CYLINDER),
+                    ("con_inv", CONE), ("tor_inv", TORUS)):
+        ids = [i for i, k in enumerate(kinds) if k == t]
+        if ids:
+            upd[name] = scene.prim_inv[torch.tensor(ids, device=device)]
+
+    M = scene.n_classes
+    if M:
+        reps: list = [None] * M
+        for pid, ci in enumerate(scene.prim_class_static):
+            if reps[ci] is None:
+                reps[ci] = pid
+        z = torch.zeros(1, dtype=dtype, device=device)
+        const = lambda v: torch.full((1,), float(v), dtype=dtype,
+                                     device=device)
+        rows = []
+        for pid in reps:
+            t = kinds[pid]
+            row = scene.prim_rows_static[pid]
+            pmin = pmax = closed = torr = z
+            if t in (CYLINDER, CONE):
+                lo, hi, cl = ((scene.cyl_min, scene.cyl_max, scene.cyl_closed)
+                              if t == CYLINDER else
+                              (scene.con_min, scene.con_max, scene.con_closed))
+                pmin, pmax = lo[row:row + 1], hi[row:row + 1]
+                closed = cl[row:row + 1].to(dtype)
+            elif t == TORUS:
+                torr = scene.tor_r[row:row + 1]
+            rows.append(torch.cat([
+                scene.prim_inv[pid].reshape(-1),
+                scene.prim_nmat[pid].reshape(-1),
+                const(t), const(scene.prim_pattern_static[pid]),
+                *(getattr(scene, f"mat_{m}")[pid:pid + 1] for m in (
+                    "ambient", "diffuse", "specular", "shininess",
+                    "reflective", "transparency", "ior")),
+                pmin, pmax, closed, torr]))
+        upd["cls_table"] = torch.stack(rows)
+    return dataclasses.replace(scene, **upd)

@@ -277,8 +277,21 @@ def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
     rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
     args = whitted.kernel_inputs(scene, RenderSettings(wavefront_capacity=cap),
                                  seed=11)
-    plain = np.stack([c.numpy() for c in whitted.whitted_compact_reference(
-        rays[:3], rays[3:], **args)])
+    # One intra-op thread for the plain version. ATen's float sqrt runs
+    # MKL's vector sqrt (not correctly rounded) on chunks of 2048
+    # elements spread over the threads, and a chunk computed on another
+    # thread came out different in a few processes of many (example1:
+    # rays 3456-5183, the sphere's rows, up to 1.4e-4 after the
+    # shininess exponent; an op-by-op trace put the first difference at
+    # aten.sqrt on identical input). On one thread every run agreed.
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        plain = np.stack([c.numpy() for c in
+                          whitted.whitted_compact_reference(
+                              rays[:3], rays[3:], **args)])
+    finally:
+        torch.set_num_threads(threads)
     # A CSG scene runs in both slot buckets (registers and the general
     # form); both must give the same image.
     buckets = whitted.SLOT_BUCKETS if args.get("csg", ((), ()))[1] else (None,)
