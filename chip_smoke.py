@@ -29,7 +29,20 @@ make_train_step with torch.optim.Adam for four steps at 800x600 on
 example1, glass, mesh4, mesh4b, config 3 and glass4 (one scene per
 route: kernel, fast, sorted), from a corrupted pattern colour and light
 intensity, with forward and backward ms and peak memory per step and
-its own launch counts. It prints the card, one line per phase, a JSON
+its own launch counts. Then the paths of progressive, resilient and
+sharded rendering: api.render_scene_progressive on config 3 at aa=3 in
+29 bands of 64 rows (29 whitted launches, the tables packed once, held
+against the same bands through the kernel's plain version), glass in
+bands against its one-shot frame, a frame cut by RRAY_FAIL_AFTER_BANDS
+and resumed against the uninterrupted one; api.render_resilient on
+example1 with every child CLI killed after two bands; two ranks on the
+card over gloo (started with spawn) rendering glass, config 3, mesh4b
+and glass4 with parallel.mesh.render_sharded against the single-process
+frames, and one sharded Adam step of parallel.train.make_train_step on
+example1 against the single-process step; and utils.profiling.trace
+around a glass render, whose Chrome trace must name the whitted kernel.
+The JSON line's launches count the main path's runs, the progressive
+frames and both ranks' sharded frames, each from 0. It prints the card, one line per phase, a JSON
 line describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before the last line; without CUDA it
 exits 1 at once.
 
@@ -1450,6 +1463,427 @@ def grad_parity_phase(torch, scene_paths):
         if not worst <= CLOSEST_TOL:
             fail(f"grad parity closest Function {name}: {worst:.3e}")
 
+# ---------------------------------------------------------------------------
+# Progressive, resilient and sharded rendering, profiling.
+# ---------------------------------------------------------------------------
+
+# Progressive frames: config 3 at aa=3 in bands of PROG_BAND_ROWS raster
+# rows (1800 rows: 29 bands, 29 whitted launches), glass at aa=1 (a
+# point light: equal to the one-shot frame bit for bit), and config 3 at
+# aa=1 cut after PROG_CUT_BANDS bands and resumed from its checkpoint.
+PROG_BAND_ROWS = 64
+PROG_CUT_BANDS = 3
+# render_resilient: example1 in bands of RESILIENT_BAND_ROWS rows (5
+# bands), every child killed after two bands: three children.
+RESILIENT_BAND_ROWS = 128
+RESILIENT_FAIL_AFTER = 2
+# render_sharded over two ranks on the one card (gloo: NCCL refuses two
+# ranks on one GPU): the kernel route (glass, config 3), the fast node
+# with the BVH kernel (mesh4b) and the sorted node (glass4); the kernels
+# each rank must launch.
+SHARDED_WORLD = 2
+SHARDED_TIMEOUT_S = 300
+SHARDED_RUNS = (("glass", ("whitted_compact",)),
+                ("area", ("whitted_compact",)),
+                ("mesh4b", ("bvh_closest_triangle",)),
+                ("glass4", ("closest_triangle", "any_triangle")))
+# The sharded train step (SHARD_TRAIN_STEPS Adam steps on example1)
+# against the single-process step: float32 sums in another order, so
+# the loss within SHARD_RTOL relative and each leaf's gradient within
+# SHARD_RTOL of that leaf's largest gradient.
+SHARD_RTOL = 1e-5
+SHARD_TRAIN_STEPS = 2
+
+
+@contextlib.contextmanager
+def plain_whitted():
+    """Route the whitted kernel's calls to its plain version on the card
+    (which does not count as a launch)."""
+    from rray_tpu_torch.kernels import whitted
+
+    saved = whitted.whitted_compact
+
+    def plain(*args, width=None, **kwargs):
+        return whitted.whitted_compact_reference(*args, **kwargs)
+
+    whitted.whitted_compact = plain
+    try:
+        yield
+    finally:
+        whitted.whitted_compact = saved
+
+
+def timed(torch, fn, *args, **kwargs):
+    """(fn(...), ms on the host clock between synchronizes)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn(*args, **kwargs)
+    torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def progressive_phase(torch, np, scene_paths, images):
+    """api.render_scene_progressive on the card: config 3 at aa=3 in 29
+    bands (launches and table builds counted from 0 around it; held
+    against the same bands through the whitted kernel's plain version
+    at the main path's image thresholds; its frame time beside the
+    one-shot frame's), glass against its main-path frame bit for bit,
+    and a frame cut by RRAY_FAIL_AFTER_BANDS and resumed against the
+    uninterrupted frame bit for bit -> the launch counts."""
+    from rray_tpu_torch import api
+    from rray_tpu_torch.kernels import whitted
+
+    w, h, aa = WIDTH, HEIGHT, 3
+    bands = -(-h * aa // PROG_BAND_ROWS)
+    area = scene_paths["area"]
+    _, one_ms = timed(torch, api.render_scene_from_file, area, w, h, "",
+                      aa=aa, device=DEVICE)
+    counts = launch_counts(reset=True)
+    builds = whitted.table_builds
+    image, ms = timed(torch, api.render_scene_progressive, area, w, h, "",
+                      aa=aa, band_rows=PROG_BAND_ROWS, device=DEVICE)
+    counts = launch_counts()
+    builds = whitted.table_builds - builds
+    print(f"progressive area {w}x{h} aa={aa}, {bands} bands of "
+          f"{PROG_BAND_ROWS} rows: {ms:.1f} ms wall (one-shot "
+          f"render_scene_from_file {one_ms:.1f} ms), launches "
+          f"{json.dumps({k: n for k, n in counts.items() if n})}, whitted "
+          f"tables built {builds} [{card_state()}]")
+    if counts["whitted_compact"] != bands or builds != 1:
+        fail(f"progressive area: {counts['whitted_compact']} whitted "
+             f"launches for {bands} bands, {builds} table builds (one)")
+    with plain_whitted():
+        plain, plain_ms = timed(torch, api.render_scene_progressive, area,
+                                w, h, "", aa=aa, band_rows=PROG_BAND_ROWS,
+                                device=DEVICE)
+    diff = compare_images(torch, torch.from_numpy(image).unbind(-1),
+                          torch.from_numpy(plain).unbind(-1),
+                          "progressive area aa=3")
+    print(f"parity progressive area aa={aa}: max |kernel - plain| "
+          f"{diff:.3e} over the same {bands} band keys (plain frame "
+          f"{plain_ms:.1f} ms wall)")
+
+    launch_counts(reset=True)
+    glass = api.render_scene_progressive(scene_paths["glass"], w, h, "",
+                                         band_rows=PROG_BAND_ROWS,
+                                         device=DEVICE)
+    if not np.array_equal(glass, images[("glass", 1)]):
+        fail("progressive glass differs from the one-shot frame")
+    print(f"progressive glass {w}x{h}: equal to the one-shot frame bit for "
+          f"bit")
+    total = launch_counts()
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "frame.npz")
+        os.environ["RRAY_FAIL_AFTER_BANDS"] = str(PROG_CUT_BANDS)
+        try:
+            api.render_scene_progressive(area, w, h, "",
+                                         band_rows=PROG_BAND_ROWS,
+                                         checkpoint_path=ckpt, device=DEVICE)
+            fail("RRAY_FAIL_AFTER_BANDS did not cut the frame")
+        except RuntimeError as e:
+            print(f"progressive area {w}x{h} cut: {e}")
+        finally:
+            del os.environ["RRAY_FAIL_AFTER_BANDS"]
+        with np.load(ckpt) as state:
+            done = int(state["done"].sum())
+        resumed = api.render_scene_progressive(area, w, h, "",
+                                               band_rows=PROG_BAND_ROWS,
+                                               checkpoint_path=ckpt,
+                                               device=DEVICE)
+    whole = api.render_scene_progressive(area, w, h, "",
+                                         band_rows=PROG_BAND_ROWS,
+                                         device=DEVICE)
+    if done != PROG_CUT_BANDS or not np.array_equal(resumed, whole):
+        fail(f"progressive area resumed after {done} bands differs from "
+             f"the uninterrupted frame")
+    print(f"progressive area {w}x{h}: resumed after {done} bands, equal to "
+          f"the uninterrupted frame bit for bit")
+    return {k: counts[k] + total[k] for k in counts}
+
+
+def resilient_phase(np, scene_paths):
+    """api.render_resilient on example1 at 800x600 with every child CLI
+    (--device cuda) killed after RESILIENT_FAIL_AFTER bands: rc 0, at
+    least three children, and its PNG's bytes equal to the in-process
+    progressive render's; the wall ms of every child."""
+    from rray_tpu_torch import api
+
+    path = scene_paths["example1"]
+    bands = -(-HEIGHT // RESILIENT_BAND_ROWS)
+    children = []
+    call = subprocess.call
+
+    def timed_call(*args, **kwargs):
+        t0 = time.perf_counter()
+        rc = call(*args, **kwargs)
+        children.append(((time.perf_counter() - t0) * 1e3, rc))
+        return rc
+
+    with tempfile.TemporaryDirectory() as tmp:
+        want_png = os.path.join(tmp, "progressive.png")
+        png = os.path.join(tmp, "resilient.png")
+        api.render_scene_progressive(path, WIDTH, HEIGHT, want_png,
+                                     band_rows=RESILIENT_BAND_ROWS,
+                                     device=DEVICE)
+        os.environ["RRAY_FAIL_AFTER_BANDS"] = str(RESILIENT_FAIL_AFTER)
+        subprocess.call = timed_call
+        try:
+            t0 = time.perf_counter()
+            rc = api.render_resilient(
+                path, WIDTH, HEIGHT, png, band_rows=RESILIENT_BAND_ROWS,
+                checkpoint_path=os.path.join(tmp, "frame.npz"), attempts=4,
+                device=DEVICE)
+            wall = (time.perf_counter() - t0) * 1e3
+        finally:
+            subprocess.call = call
+            del os.environ["RRAY_FAIL_AFTER_BANDS"]
+        with open(png, "rb") as f, open(want_png, "rb") as g:
+            same = rc == 0 and f.read() == g.read()
+    per_child = ", ".join(f"{ms:.1f} ms (rc {c})" for ms, c in children)
+    print(f"resilient example1 {WIDTH}x{HEIGHT}, {bands} bands, children "
+          f"killed after {RESILIENT_FAIL_AFTER}: rc {rc}, {len(children)} "
+          f"children: {per_child}; {wall:.1f} ms wall [{card_state()}]")
+    if not same or len(children) < -(-bands // RESILIENT_FAIL_AFTER):
+        fail(f"render_resilient: rc {rc}, {len(children)} children, PNG "
+             f"equal to the progressive PNG: {same}")
+    print("resilient example1: PNG bytes equal to the in-process "
+          "progressive PNG")
+
+
+def sharded_worker(rank, world, port, scene_paths, out):
+    """One rank of the sharded phase (started with spawn): gloo over
+    localhost, every rank on cuda:0. Renders each SHARDED_RUNS scene with
+    render_sharded twice, the second time timed with the launch counts
+    set to 0 just before it; takes SHARD_TRAIN_STEPS sharded Adam steps
+    on example1 (forward, backward and all-reduce ms per step); checks
+    the values of gloo's collectives on CUDA tensors; saves it all to
+    `out`."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.parallel import distributed, mesh as pmesh, train
+    from rray_tpu_torch.render import integrator
+
+    distributed.init_distributed(f"localhost:{port}", world, rank,
+                                 backend="gloo")
+    mesh = pmesh.make_mesh(f"{DEVICE}:0")
+    settings = RenderSettings()
+    res = {}
+    for name, _ in SHARDED_RUNS:
+        scene, cam = camera_data(scene_paths[name], torch)
+        pmesh.render_sharded(scene, cam, mesh, settings)
+        dist.barrier()
+        launch_counts(reset=True)
+        image, ms = timed(torch, pmesh.render_sharded, scene, cam, mesh,
+                          settings)
+        res[f"counts_{name}"] = json.dumps(launch_counts())
+        res[f"ms_{name}"] = ms
+        res[f"frame_{name}"] = image.cpu().numpy()
+
+    scene, cam = camera_data(scene_paths["example1"], torch)
+    with torch.no_grad():
+        target = integrator.render(scene, cam, settings)
+    adam = lambda params: torch.optim.Adam(params, lr=5e-2)
+    state, rest = train.init_train_state(corrupted(torch, scene), adam,
+                                         trainable)
+    step = train.make_train_step(rest, cam, settings, adam, mesh=mesh)
+    ms = {"forward": [], "all-reduce": []}
+    render_loss, all_reduce = train.render_loss, train.all_reduce_grads
+
+    def timed_as(key, fn):
+        def run(*args, **kwargs):
+            out, t = timed(torch, fn, *args, **kwargs)
+            ms[key].append(t)
+            return out
+        return run
+
+    train.render_loss = timed_as("forward", render_loss)
+    train.all_reduce_grads = timed_as("all-reduce", all_reduce)
+    launch_counts(reset=True)
+    steps = []
+    try:
+        for i in range(SHARD_TRAIN_STEPS):
+            dist.barrier()
+            (state, loss), total = timed(torch, step, state, target)
+            steps.append({"forward": ms["forward"][i],
+                          "backward": total - ms["forward"][i]
+                          - ms["all-reduce"][i],
+                          "all-reduce": ms["all-reduce"][i]})
+            res[f"loss_{i}"] = float(loss)
+            for k, t in state.params.items():
+                res[f"grad_{i}_{k}"] = t.grad.cpu().numpy()
+    finally:
+        train.render_loss, train.all_reduce_grads = render_loss, all_reduce
+    res["counts_train"] = json.dumps(launch_counts())
+    res["train_ms"] = json.dumps(steps)
+    for k, t in state.params.items():
+        res[f"param_{k}"] = t.detach().cpu().numpy()
+
+    # Which collectives gloo takes on CUDA tensors, and their values.
+    x = torch.full((4,), float(rank + 1), device=mesh.device)
+    parts = [torch.empty_like(x) for _ in range(world)]
+    dist.all_gather(parts, x)
+    summed = x.clone()
+    dist.all_reduce(summed)
+    root = x.clone()
+    dist.broadcast(root, 0)
+    want = torch.arange(1, world + 1, dtype=x.dtype, device=x.device)
+    res["gloo_cuda"] = json.dumps({
+        "all_gather": bool((torch.stack(parts)[:, 0] == want).all()),
+        "all_reduce": bool((summed == want.sum()).all()),
+        "broadcast": bool((root == 1).all())})
+    np.savez(out, **res)
+    dist.destroy_process_group()
+
+
+def sharded_phase(torch, np, scene_paths, images):
+    """Two ranks on the card (torch.multiprocessing, spawn; gloo): each
+    SHARDED_RUNS frame equal on both ranks bit for bit, equal to the
+    single-process main-path frame bit for bit on the kernel route and
+    at the main path's image thresholds on the torch nodes, with the
+    ranks' launch counts; each sharded train step's loss and gradients
+    against the single-process step's (SHARD_RTOL), the parameters
+    equal on both ranks -> the launch counts of both ranks' timed
+    renders."""
+    import socket
+
+    import torch.multiprocessing as mp
+
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.parallel import train
+    from rray_tpu_torch.render import integrator
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    with tempfile.TemporaryDirectory() as tmp:
+        outs = [os.path.join(tmp, f"rank{r}.npz")
+                for r in range(SHARDED_WORLD)]
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_sharded_entry, args=(
+            SHARDED_WORLD, port, scene_paths, outs), nprocs=SHARDED_WORLD,
+            join=False, start_method="spawn")
+        deadline = time.perf_counter() + SHARDED_TIMEOUT_S
+        while not ctx.join(timeout=5):
+            if time.perf_counter() > deadline:
+                for p in ctx.processes:
+                    p.kill()
+                fail(f"sharded: the ranks ran past {SHARDED_TIMEOUT_S} s")
+        wall = (time.perf_counter() - t0) * 1e3
+        ranks = [dict(np.load(o)) for o in outs]
+    gloo = json.loads(str(ranks[0]["gloo_cuda"]))
+    print(f"sharded: {SHARDED_WORLD} ranks on cuda:0 over gloo, spawned, "
+          f"{wall:.1f} ms wall for the phase's processes; gloo on CUDA "
+          f"tensors, values right: {json.dumps(gloo)}")
+    if not all(gloo.values()):
+        fail(f"gloo's collectives on CUDA tensors: {gloo}")
+    total = launch_counts(reset=True)
+    for name, expect in SHARDED_RUNS:
+        frames = [r[f"frame_{name}"] for r in ranks]
+        if not all(np.array_equal(frames[0], f) for f in frames[1:]):
+            fail(f"sharded {name}: the ranks' frames differ")
+        single = images[(name, 1)]
+        scene, _ = camera_data(scene_paths[name], torch, (8, 6))
+        node = integrator.route(scene)
+        exact = np.array_equal(frames[0], single)
+        if node == "kernel" and not exact:
+            fail(f"sharded {name}: the frame is not the single-process "
+                 f"frame bit for bit")
+        diff = compare_images(torch, torch.from_numpy(frames[0]).unbind(-1),
+                              torch.from_numpy(single).unbind(-1),
+                              f"sharded {name}")
+        counts = [json.loads(str(r[f"counts_{name}"])) for r in ranks]
+        for rank, c in enumerate(counts):
+            for kname in expect:
+                if c[kname] < 1:
+                    fail(f"sharded {name}: rank {rank} launched {kname} "
+                         f"{c[kname]} times")
+            total = {k: total[k] + c[k] for k in total}
+        print(f"sharded {name} {WIDTH}x{HEIGHT} (route {node}): ranks equal "
+              f"bit for bit; vs the single-process frame: "
+              f"{'bit for bit' if exact else f'max |diff| {diff:.3e}'}; "
+              f"render_sharded ms per rank (second call) "
+              f"{[round(float(r[f'ms_{name}']), 3) for r in ranks]}; "
+              f"launches per rank "
+              f"{[{k: n for k, n in c.items() if n} for c in counts]} "
+              f"[{card_state()}]")
+
+    scene, cam = camera_data(scene_paths["example1"], torch)
+    settings = RenderSettings()
+    with torch.no_grad():
+        target = integrator.render(scene, cam, settings)
+    adam = lambda params: torch.optim.Adam(params, lr=5e-2)
+    state, rest = train.init_train_state(corrupted(torch, scene), adam,
+                                         trainable)
+    step = train.make_train_step(rest, cam, settings, adam)
+    times = [json.loads(str(r["train_ms"])) for r in ranks]
+    for i in range(SHARD_TRAIN_STEPS):
+        (state, loss), single_ms = timed(torch, step, state, target)
+        sharded_loss = float(ranks[0][f"loss_{i}"])
+        worst = abs(sharded_loss - float(loss)) / abs(float(loss))
+        for k, t in state.params.items():
+            g = t.grad.cpu().numpy()
+            diff = float(np.abs(ranks[0][f"grad_{i}_{k}"] - g).max())
+            scale = float(np.abs(g).max())
+            if diff > SHARD_RTOL * scale:
+                fail(f"sharded train step {i}: {k} gradient max |diff| "
+                     f"{diff:.3e}, largest gradient {scale:.3e}")
+            worst = max(worst, diff / scale if scale else 0.0)
+        if worst > SHARD_RTOL:
+            fail(f"sharded train step {i}: loss {sharded_loss} vs "
+                 f"{float(loss)}")
+        print(f"sharded train example1 {WIDTH}x{HEIGHT} step {i}, Adam over "
+              f"{SHARDED_WORLD} ranks on one card: loss {sharded_loss:.6e} "
+              f"(single process {float(loss):.6e}), max relative difference "
+              f"of the loss and the gradients {worst:.3e} (bound "
+              f"{SHARD_RTOL}); ms per rank "
+              f"{[{k: round(v, 3) for k, v in t[i].items()} for t in times]} "
+              f"(single-process step {single_ms:.3f} ms) [{card_state()}]")
+    for k in state.params:
+        if not all(np.array_equal(r[f"param_{k}"], ranks[0][f"param_{k}"])
+                   for r in ranks[1:]):
+            fail(f"sharded train: the ranks' {k} differ after the steps")
+    counts = [json.loads(str(r["counts_train"])) for r in ranks]
+    print(f"sharded train: parameters equal on the ranks; launches per rank "
+          f"{[{k: n for k, n in c.items() if n} for c in counts]}")
+    if not all(c["whitted_compact"] >= SHARD_TRAIN_STEPS for c in counts):
+        fail(f"sharded train: whitted launches per rank {counts}")
+    return total
+
+
+def _sharded_entry(rank, world, port, scene_paths, outs):
+    sharded_worker(rank, world, port, scene_paths, outs[rank])
+
+
+def profile_phase(torch, scene_paths):
+    """utils.profiling.trace around one main-path glass render: the
+    Chrome trace exists and names the whitted kernel; prints
+    live_arrays_bytes()."""
+    import glob
+
+    from rray_tpu_torch import api
+    from rray_tpu_torch.utils import profiling
+
+    with tempfile.TemporaryDirectory() as tmp:
+        with profiling.trace(tmp):
+            api.render_scene_from_file(scene_paths["glass"], WIDTH, HEIGHT,
+                                       os.path.join(tmp, "glass.png"),
+                                       device=DEVICE)
+        files = glob.glob(os.path.join(tmp, "*.pt.trace.json"))
+        if len(files) != 1:
+            fail(f"profiling.trace wrote {files}")
+        with open(files[0]) as f:
+            text = f.read()
+    if "whitted_kernel" not in text:
+        fail("the profile's trace does not name the whitted kernel")
+    print(f"profile glass {WIDTH}x{HEIGHT}: Chrome trace of {len(text)} "
+          f"bytes names whitted_kernel; live_arrays_bytes() "
+          f"{profiling.live_arrays_bytes()}")
+
+
 
 def whitted_blocks():
     """Resident blocks per SM of every whitted instantiation with no
@@ -1601,7 +2035,14 @@ def main() -> int:
         frame_breakdown(torch, np, name, scene_paths[name], aa, reps)
     grad_parity_phase(torch, scene_paths)
     train_phase(torch, scene_paths)
+    prog = progressive_phase(torch, np, scene_paths, images)
+    resilient_phase(np, scene_paths)
+    sharded = sharded_phase(torch, np, scene_paths, images)
+    profile_phase(torch, scene_paths)
     tmp.cleanup()
+    # The JSON line's launches: the main path's runs, the progressive
+    # frames' and both ranks' sharded frames', each counted from 0.
+    counts = {k: counts[k] + prog[k] + sharded[k] for k in counts}
 
     # Times on the card, in turns.
     kernels = []

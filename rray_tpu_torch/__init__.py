@@ -9,15 +9,26 @@ reaches every float leaf of a scene through `render`, and
 image with torch.optim. rray_tpu stays the reference the port is tested
 against; this package never imports JAX.
 """
-from .config import EPSILON, RenderSettings
+from .config import EPSILON, RenderSettings, default_dtype
 from .scene.data import (AreaLight, Material, Pattern, PointLight, Shape,
-                         compile_scene)
+                         compile_scene, glass_material)
 from .render.camera import Camera, compile_camera
-from .render.integrator import render
+from .render.integrator import color_at, render
 
 __all__ = [
-    "EPSILON", "RenderSettings",
+    "EPSILON", "RenderSettings", "default_dtype",
     "AreaLight", "Material", "Pattern", "PointLight", "Shape",
-    "compile_scene",
-    "Camera", "compile_camera", "render",
+    "compile_scene", "glass_material",
+    "Camera", "compile_camera", "color_at", "render",
+    "render_scene_from_file", "render_scene_from_str",
 ]
+
+
+def __getattr__(name):
+    # Lazy: the api module pulls in IO dependencies (PIL, yaml) that
+    # compute-only use does not need.
+    if name in ("render_scene_from_file", "render_scene_from_str"):
+        from . import api
+
+        return getattr(api, name)
+    raise AttributeError(name)

@@ -5,17 +5,20 @@ the reference pipeline: build the scene from YAML, size the camera at
 width*aa x height*aa (scene_builder_yaml.rs:392), render, box-downsample
 by aa, and write the PNG. The device is explicit: "cuda" runs the CUDA
 kernels and is an error where CUDA is missing; "cpu" runs their plain
-PyTorch versions.
+PyTorch versions. `render_scene_progressive` renders band by band with
+a checkpoint (the CLI's --checkpoint), and `render_resilient` restarts
+that CLI in child processes until the frame is done.
 """
 from __future__ import annotations
 
 import logging
+import os
 import time
 
 import numpy as np
 import torch
 
-from .config import RenderSettings
+from .config import RenderSettings, default_dtype
 from .io.yaml_loader import load_scene_file, load_scene_str
 from .render import canvas
 from .render.camera import Camera, compile_camera
@@ -33,20 +36,26 @@ def _device(device) -> torch.device:
     return dev
 
 
-def render_scene(camera_spec, lights, shapes, width: int, height: int,
-                 aa: int = 1, settings: RenderSettings = None, seed: int = 0,
-                 dtype=torch.float32, device="cuda") -> np.ndarray:
-    """Render a loaded scene -> linear float image [height, width, 3]
-    (already AA-downsampled). `seed` keys the area lights' jitter draws,
-    as rray_tpu's `seed` does (the same seed gives the same image);
-    point lights draw no random numbers."""
-    dev = _device(device)
-    settings = settings or RenderSettings()
+def _build(camera_spec, lights, shapes, width, height, aa, dtype, dev):
     scene = compile_scene(shapes, lights, dtype=dtype, device=dev)
     cam = Camera(width * aa, height * aa, camera_spec["fov"])
     cam.transform = camera_spec["transform"]
+    return scene, compile_camera(cam, dtype, dev)
+
+
+def render_scene(camera_spec, lights, shapes, width: int, height: int,
+                 aa: int = 1, settings: RenderSettings = None, seed: int = 0,
+                 dtype=None, device="cuda") -> np.ndarray:
+    """Render a loaded scene -> linear float image [height, width, 3]
+    (already AA-downsampled). `seed` keys the area lights' jitter draws,
+    as rray_tpu's `seed` does (the same seed gives the same image);
+    point lights draw no random numbers. dtype None: default_dtype()."""
+    dev = _device(device)
+    settings = settings or RenderSettings()
+    scene, cam = _build(camera_spec, lights, shapes, width, height, aa,
+                        dtype or default_dtype(), dev)
     t0 = time.perf_counter()
-    image = render(scene, compile_camera(cam, dtype, dev), settings, seed)
+    image = render(scene, cam, settings, seed)
     image = image.cpu().numpy()
     dt = time.perf_counter() - t0
     log.info("rendered %dx%d (aa=%d) on %s: %.3fs, %.3g primary rays/s",
@@ -57,7 +66,7 @@ def render_scene(camera_spec, lights, shapes, width: int, height: int,
 def render_scene_from_str(contents: str, width: int, height: int,
                           png_file: str, aa: int = 1, base_dir: str = ".",
                           settings: RenderSettings = None, seed: int = 0,
-                          dtype=torch.float32, device="cuda") -> np.ndarray:
+                          dtype=None, device="cuda") -> np.ndarray:
     camera_spec, lights, shapes = load_scene_str(contents, base_dir)
     image = render_scene(camera_spec, lights, shapes, width, height, aa,
                          settings, seed, dtype, device)
@@ -69,10 +78,97 @@ def render_scene_from_str(contents: str, width: int, height: int,
 def render_scene_from_file(path: str, width: int, height: int,
                            png_file: str, aa: int = 1,
                            settings: RenderSettings = None, seed: int = 0,
-                           dtype=torch.float32, device="cuda") -> np.ndarray:
+                           dtype=None, device="cuda") -> np.ndarray:
     camera_spec, lights, shapes = load_scene_file(path)
     image = render_scene(camera_spec, lights, shapes, width, height, aa,
                          settings, seed, dtype, device)
     if png_file:
         canvas.write_png(png_file, image)
     return image
+
+
+def render_scene_progressive(path: str, width: int, height: int,
+                             png_file: str, aa: int = 1, seed: int = 0,
+                             band_rows: int = 64,
+                             checkpoint_path: str = None,
+                             settings: RenderSettings = None, dtype=None,
+                             device="cuda") -> np.ndarray:
+    """Band-by-band render with checkpoint/resume (CLI --checkpoint).
+
+    A checkpoint that exists (same scene and camera) is resumed: only
+    unfinished bands render. One that cannot be read is logged and the
+    frame starts fresh, as in rray_tpu. The PNG is written once the
+    frame completes."""
+    from .render.progressive import ProgressiveRender
+
+    dev = _device(device)
+    settings = settings or RenderSettings()
+    camera_spec, lights, shapes = load_scene_file(path)
+    scene, cam = _build(camera_spec, lights, shapes, width, height, aa,
+                        dtype or default_dtype(), dev)
+    prog = None
+    if checkpoint_path and os.path.exists(checkpoint_path):
+        try:
+            prog = ProgressiveRender.resume(checkpoint_path, scene, cam,
+                                            settings, seed, band_rows)
+        except Exception as e:  # truncated/corrupt checkpoint: start over
+            log.warning("checkpoint %s unreadable (%s); starting fresh",
+                        checkpoint_path, e)
+    if prog is None:
+        prog = ProgressiveRender(scene, cam, settings, seed, band_rows,
+                                 checkpoint_path)
+    image = canvas.downsample(prog.run(), aa)
+    if png_file:
+        canvas.write_png(png_file, image)
+    return image
+
+
+def render_resilient(path: str, width: int, height: int, png_file: str,
+                     aa: int = 1, seed: int = 0, band_rows: int = 64,
+                     checkpoint_path: str = None, attempts: int = 4,
+                     wait_s: float = 0.0, device: str = "cuda") -> int:
+    """Full-frame render that survives crashed workers: the
+    checkpointing CLI (python -m rray_tpu_torch.cli --checkpoint) runs
+    in a child process on `device`, and a child that fails is restarted;
+    each restart resumes from the band checkpoint, so finished bands are
+    never rendered again. A failed CUDA context cannot be recovered in
+    its process, so the unit of restart is a process. Gives up after
+    two attempts in a row without progress, as rray_tpu does. Returns
+    the last child's return code (0: frame complete, PNG written)."""
+    import subprocess
+    import sys
+    import tempfile
+
+    if checkpoint_path is None:
+        checkpoint_path = os.path.join(
+            tempfile.mkdtemp(prefix="rray_ckpt_"), "frame.npz")
+    cmd = [sys.executable, "-m", "rray_tpu_torch.cli", "-s", path,
+           "-W", str(width), "-H", str(height), "-o", png_file,
+           "-a", str(aa), "--seed", str(seed), "--device", str(device),
+           "--checkpoint", checkpoint_path, "--band-rows", str(band_rows)]
+    # The children import this checkout's package, wherever they start.
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        p for p in (root, os.environ.get("PYTHONPATH")) if p))
+    last_done = -1
+    rc = 1
+    for attempt in range(attempts):
+        rc = subprocess.call(cmd, env=env)
+        if rc == 0:
+            return 0
+        done = -1
+        if os.path.exists(checkpoint_path):
+            try:
+                with np.load(checkpoint_path) as state:
+                    done = int(state["done"].sum())
+            except Exception:  # corrupt checkpoint: the child restarts
+                done = -1
+        log.warning("render attempt %d failed (rc=%d, %d bands done)",
+                    attempt + 1, rc, max(done, 0))
+        if done <= last_done and attempt:
+            # No forward progress two attempts running: give up.
+            return rc
+        last_done = done
+        if wait_s:
+            time.sleep(wait_s)
+    return rc

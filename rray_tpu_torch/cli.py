@@ -3,7 +3,8 @@
     rray-tpu-torch -W <width> -H <height> -s <scene.yaml> -o <out.png> -a <aa>
 
 Defaults 800x600, output.png, aa=1, device cuda; aa validated in 1..=5
-(src/main.rs:23-44).
+(src/main.rs:23-44). With --checkpoint the frame renders in bands of
+--band-rows rows and resumes from the checkpoint if it exists.
 """
 from __future__ import annotations
 
@@ -46,6 +47,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "versions). Default cuda")
     p.add_argument("-v", "--verbose", action="store_true",
                    help="Log render time and throughput")
+    p.add_argument("--checkpoint", default=None,
+                   help="Band-checkpoint file: render progressively and "
+                        "resume from it if it exists (crash recovery)")
+    p.add_argument("--band-rows", type=int, default=64,
+                   help="Rows per checkpointed band (default 64)")
     return p
 
 
@@ -54,6 +60,15 @@ def main(argv=None) -> int:
     logging.basicConfig(
         level=logging.INFO if args.verbose else logging.WARNING,
         format="%(message)s")
+    if args.checkpoint:
+        from .api import render_scene_progressive
+
+        render_scene_progressive(args.scene, args.width, args.height,
+                                 args.output, aa=args.aa, seed=args.seed,
+                                 band_rows=args.band_rows,
+                                 checkpoint_path=args.checkpoint,
+                                 device=args.device)
+        return 0
     from .api import render_scene_from_file
 
     render_scene_from_file(args.scene, args.width, args.height, args.output,

@@ -17,6 +17,13 @@ import torch
 EPSILON = 1e-5
 
 
+def default_dtype():
+    """Compute dtype of the render path (rray_tpu config.default_dtype):
+    float32, the CUDA kernels' type. float64 runs only the plain
+    versions on the CPU; callers pass it explicitly (parity tests)."""
+    return torch.float32
+
+
 def offset_eps(dtype) -> float:
     """Surface offset used for over_point/under_point.
 

@@ -101,6 +101,8 @@ MAX_TEXELS = 1 << 24
 # which run the plain version, do not count), and the last launch's
 # shape: {"W", "ext", "KB", "smem", "blocks_per_sm"}.
 launches = 0
+# Scene tables packed by kernel_inputs (once per scene, depth and W).
+table_builds = 0
 last_launch: dict = {}
 
 
@@ -399,11 +401,25 @@ def light_levels(scene):
                  for light in scene.lights)
 
 
-def kernel_inputs(scene, settings, seed: int = 0):
+def kernel_inputs(scene, settings, seed=0):
     """Keyword arguments of `whitted_compact` (all but the rays) for a
-    scene the kernel takes; `seed` keys the area lights' jitter."""
-    pat_tbl, descrs = pack_patterns(scene)
+    scene the kernel takes; `seed`, an int or a root key (ops/jitter.py
+    seed_table), keys the area lights' jitter. The scene's tables are
+    packed once per scene and (depth, W) (`SceneData.cached`; counter
+    `table_builds`), so the bands of a progressive frame share them; the
+    seed table is made per call."""
     depth, W = wavefront_shape(scene, settings)
+    inputs = dict(scene.cached(("whitted", depth, W),
+                               lambda: _scene_inputs(scene, depth, W),
+                               grad=True))
+    inputs["seeds"] = jitter.seed_table(seed, depth, len(scene.lights)).to(
+        scene.device)
+    return inputs
+
+
+def _scene_inputs(scene, depth: int, W: int) -> dict:
+    global table_builds
+    pat_tbl, descrs = pack_patterns(scene)
     inputs = dict(
         prim_tbl=pack_prims(scene), pat_tbl=pat_tbl,
         light_tbl=pack_lights(scene),
@@ -412,9 +428,7 @@ def kernel_inputs(scene, settings, seed: int = 0):
         prim_pat=tuple(scene.prim_pattern_static[i]
                        for i in prim_rows(scene)),
         depth=depth, W=W, has_refl=scene.has_reflective,
-        has_refr=scene.has_transparent, light_levels=light_levels(scene),
-        seeds=jitter.seed_table(seed, depth, len(scene.lights)).to(
-            scene.device))
+        has_refr=scene.has_transparent, light_levels=light_levels(scene))
     if scene.counts[6]:
         inputs["tri_tbl"], inputs["tri_boxes"] = pack_tris(scene)
     if scene.csg_ops:
@@ -422,6 +436,7 @@ def kernel_inputs(scene, settings, seed: int = 0):
     tex_tbl, tex_meta = pack_texels(scene)
     if tex_tbl is not None:
         inputs["tex_tbl"], inputs["tex_meta"] = tex_tbl, tex_meta
+    table_builds += 1
     return inputs
 
 

@@ -20,8 +20,11 @@ on the CPU, so the hash runs on int64 tensors holding values in
 is formed from 16-bit halves so that it never leaves int64.
 
 The seeds come from rray_tpu's key chain: `seed_table(seed, depth, L)`
-holds seed_from_key(fold_in(fold_in(PRNGKey(seed), level), 1000 + li))
-for every level of the Whitted chain and every light.
+holds seed_from_key(fold_in(fold_in(root, level), 1000 + li)) for every
+level of the Whitted chain and every light, where the root is
+PRNGKey(seed) for an int seed, or a key itself (a band of a progressive
+frame renders under fold_in(PRNGKey(seed), row_start), as rray_tpu's
+render_rows does).
 """
 from __future__ import annotations
 
@@ -85,11 +88,12 @@ def point_jitter(seed: int, x, y, z, n: int, dtype=torch.float32):
         for j in range(2)])
 
 
-def seed_table(seed: int, depth: int, n_lights: int):
+def seed_table(seed, depth: int, n_lights: int):
     """[depth + 1, n_lights] int32 seeds of rray_tpu's key chain: level
-    l, light li draws from seed_from_key(fold_in(fold_in(PRNGKey(seed),
-    l), 1000 + li))."""
-    root = prng.prng_key(seed)
+    l, light li draws from seed_from_key(fold_in(fold_in(root, l), 1000 +
+    li)). `seed` is an int (root PRNGKey(seed)) or a root key, a uint32
+    pair (ops/prng.py)."""
+    root = prng.root_key(seed)
     table = [[seed_from_key(prng.fold_in(prng.fold_in(root, lvl), 1000 + li))
               for li in range(n_lights)] for lvl in range(depth + 1)]
     return torch.tensor(table, dtype=torch.int32).reshape(depth + 1,

@@ -57,3 +57,15 @@ def fold_in(key, data: int) -> np.ndarray:
     with np.errstate(over="ignore"):
         return np.array(threefry2x32(key, 0, int(data) & 0xFFFFFFFF),
                         np.uint32)
+
+
+def root_key(seed) -> np.ndarray:
+    """The key that an int seed or a key stands for -> uint32 [2]: an int
+    is `prng_key(seed)`, a uint32 pair is the key itself."""
+    if isinstance(seed, (int, np.integer)):
+        return prng_key(seed)
+    key = np.asarray(seed)
+    if key.shape != (2,) or key.dtype != np.uint32:
+        raise ValueError(f"a root key is a uint32 pair, not {key.dtype} "
+                         f"{key.shape}")
+    return key

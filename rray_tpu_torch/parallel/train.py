@@ -9,8 +9,15 @@ rray_tpu's `jax.tree_util.keystr` (".prim_inv", ".lights[0].intensity",
 ".patterns[0].a.color"), so one `trainable` predicate selects the same
 leaves in both packages. `torch.optim` takes the place of optax; the
 optimizer's state travels in TrainState as its state_dict, as optax's
-does. The step runs on the scene's device. rray_tpu's sharded step
-(`mesh=`, `axis=`) is not ported here.
+does. The step runs on the scene's device.
+
+The sharded step (`mesh=`, parallel/mesh.py): each rank renders its
+block of raster rows and takes its share of the whole frame's mean, the
+sum of its squared errors over vsize * hsize * 3; the gradients (and
+the loss) are summed over the ranks in one all-reduce, so every rank
+steps the same parameters with the single-process gradients. (A mean
+per rank, averaged over the ranks, would weigh the pixels of a short
+block more.)
 """
 from __future__ import annotations
 
@@ -18,10 +25,14 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
+import torch.distributed as dist
+
 from ..config import RenderSettings
+from ..ops.vec import div
 from ..render.camera import CameraData
-from ..render.integrator import render
+from ..render.integrator import render, render_block
 from ..scene import data as sd
+from .mesh import Mesh, row_block
 
 
 def partition_scene(scene: sd.SceneData, trainable=None):
@@ -42,10 +53,40 @@ def merge_scene(params: dict, rest: sd.SceneData) -> sd.SceneData:
 
 
 def render_loss(params: dict, rest, cam: CameraData, target, settings,
-                seed: int = 0):
-    """Mean-squared pixel loss of a full render against `target`."""
-    image = render(merge_scene(params, rest), cam, settings, seed)
-    return torch.mean((image - target) ** 2)
+                seed: int = 0, mesh: Mesh = None):
+    """Mean-squared pixel loss of a full render against `target`. With a
+    mesh, this rank's share of it: the squared errors of its block of
+    rows (mesh.row_block) summed and divided by the whole frame's
+    vsize * hsize * 3, which the ranks' shares sum to."""
+    scene = merge_scene(params, rest)
+    if mesh is None:
+        image = render(scene, cam, settings, seed)
+        return torch.mean((image - target) ** 2)
+    r0, r1, _ = row_block(cam.vsize, mesh)
+    block = render_block(scene, cam, r0, r1, settings, seed)
+    return div(((block - target[r0:r1]) ** 2).sum(),
+               cam.vsize * cam.hsize * 3)
+
+
+def all_reduce_grads(params: dict, loss, mesh: Mesh):
+    """Sum every parameter's gradient and the loss over the mesh's ranks
+    in one all-reduce of one flat buffer -> the summed loss; the
+    gradients are replaced in place. A parameter that no rank's graph
+    reached keeps grad None, as in a single-process step."""
+    tensors = list(params.values())
+    ref = tensors[0]
+    flat = torch.cat(
+        [(t.grad if t.grad is not None else torch.zeros_like(t)).reshape(-1)
+         for t in tensors]
+        + [loss.detach().reshape(1).to(ref.dtype),
+           torch.tensor([float(t.grad is not None) for t in tensors],
+                        dtype=ref.dtype, device=ref.device)])
+    dist.all_reduce(flat, op=dist.ReduceOp.SUM)
+    *grads, total, present = flat.split(
+        [t.numel() for t in tensors] + [1, len(tensors)])
+    for t, g, reached in zip(tensors, grads, present.tolist()):
+        t.grad = g.reshape(t.shape).clone() if reached else None
+    return total.reshape(())
 
 
 class TrainState(NamedTuple):
@@ -68,19 +109,30 @@ def init_train_state(scene: sd.SceneData, optimizer: Callable,
 
 
 def make_train_step(rest, cam: CameraData, settings: RenderSettings,
-                    optimizer: Callable):
+                    optimizer: Callable, mesh: Mesh = None,
+                    axis: str = "rays"):
     """A train step closed over the scene's structure: step(state,
     target, seed=0) -> (new state, the loss before the update). The
     optimizer `optimizer` makes (the factory given to init_train_state)
     takes the state's opt_state, one gradient of render_loss, and steps
-    the parameters in place."""
+    the parameters in place. With a mesh (parallel/mesh.py, its axis
+    named `axis`), every rank calls the step with the whole target: it
+    renders its rows, all_reduce_grads sums the gradients and the loss
+    over the ranks, and each rank steps its own copy of the parameters
+    identically."""
+    if mesh is not None and axis != mesh.axis:
+        raise ValueError(f"axis {axis!r} is not the mesh's {mesh.axis!r}")
+
     def step(state: TrainState, target, seed: int = 0):
         opt = optimizer(list(state.params.values()))
         opt.load_state_dict(state.opt_state)
         opt.zero_grad(set_to_none=True)
         loss = render_loss(state.params, rest, cam,
-                           target.to(rest.device), settings, seed)
-        loss.backward()
+                           target.to(rest.device), settings, seed, mesh)
+        if loss.requires_grad:
+            loss.backward()
+        if mesh is not None and mesh.size > 1:
+            loss = all_reduce_grads(state.params, loss, mesh)
         opt.step()
         return TrainState(state.params, opt.state_dict(),
                           state.step + 1), loss.detach()

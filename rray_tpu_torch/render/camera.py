@@ -73,10 +73,15 @@ def rays_for_pixels_soa(cam: CameraData, px, py):
     return origin, direction
 
 
-def all_rays_soa(cam: CameraData):
-    """SoA rays for the full raster in row-major order."""
+def rows_rays_soa(cam: CameraData, r0: int, r1: int):
+    """SoA rays of raster rows [r0, r1) in row-major order."""
     dev = cam.inv.device
-    ys, xs = torch.meshgrid(torch.arange(cam.vsize, device=dev),
+    ys, xs = torch.meshgrid(torch.arange(r0, r1, device=dev),
                             torch.arange(cam.hsize, device=dev),
                             indexing="ij")
     return rays_for_pixels_soa(cam, xs.reshape(-1), ys.reshape(-1))
+
+
+def all_rays_soa(cam: CameraData):
+    """SoA rays for the full raster in row-major order."""
+    return rows_rays_soa(cam, 0, cam.vsize)

@@ -21,8 +21,10 @@ kernel (kernels/analytic.py).
 
 Area lights draw their jitter from rray_tpu's key chain: level l of the
 Whitted chain and light li use seed_table(seed)[l, li] (ops/jitter.py),
-the seed that rray_tpu derives from fold_in(fold_in(PRNGKey(seed), l),
-1000 + li) on both of its routes.
+the seed that rray_tpu derives from fold_in(fold_in(root, l), 1000 + li)
+on both of its routes; the root is PRNGKey(seed) for a frame, and
+fold_in(PRNGKey(seed), row_start) for a band of a progressive frame
+(render/progressive.py).
 
 Gradients: the torch nodes are differentiable torch ops (each level
 checkpointed under settings.remat); the closest-triangle kernels sit
@@ -31,6 +33,8 @@ inputs. On the kernel route WhittedKernel recomputes the torch node in
 its backward pass, as rray_tpu's custom VJP recomputes its XLA node.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -42,7 +46,7 @@ from ..ops.vec import V3, div
 from ..scene import data as sd
 from ..scene.data import SceneData
 from . import shade_soa
-from .camera import CameraData, all_rays_soa
+from .camera import CameraData, rows_rays_soa
 
 
 def route(scene) -> str:
@@ -514,9 +518,9 @@ def reference_node(scene: SceneData, ro: V3, rd: V3, remaining: int,
     return color_at_fast(scene, ro, rd, remaining, settings, seeds)
 
 
-def _kernel_frame(scene, settings, seed: int, width: int, rays):
+def _kernel_frame(scene, settings, seed, width, rays):
     """whitted_compact over the six ray components; the raster width
-    lets the kernel shade the rays in pixel tiles."""
+    lets the kernel shade the rays in pixel tiles (None: row order)."""
     return whitted.whitted_compact(
         rays[:3], rays[3:], **whitted.kernel_inputs(scene, settings, seed),
         width=width)
@@ -532,7 +536,9 @@ class WhittedKernel(torch.autograd.Function):
     on the CPU. Backward: the scene rebuilt from detached leaves,
     reference_node recomputed with the same seed table, and
     torch.autograd.grad into the leaves and rays, in batches of
-    `_tile_rays` rays, so that memory stays bounded on a large frame."""
+    `_tile_rays` rays, so that memory stays bounded on a large frame
+    (rays without a raster width in one batch, as rray_tpu's color_at
+    has them)."""
 
     @staticmethod
     def forward(ctx, frame, *tensors):
@@ -553,7 +559,7 @@ class WhittedKernel(torch.autograd.Function):
         grads = [None if not n else torch.zeros_like(t)
                  for t, n in zip(tensors, needs)]
         R = tensors[0].shape[0]
-        tile = _tile_rays(scene, width, settings)
+        tile = _tile_rays(scene, width, settings) if width else max(R, 1)
         for i in range(0, R, tile):
             rays = [t[i:i + tile].detach().requires_grad_(n)
                     for t, n in zip(tensors[:6], needs[:6])]
@@ -579,32 +585,66 @@ class WhittedKernel(torch.autograd.Function):
         return (None, *grads)
 
 
+def trace_rays(scene: SceneData, ro: V3, rd: V3, settings: RenderSettings,
+               seed=0, width=None):
+    """The Whitted tree of a canonical scene along rays -> (r, g, b) [R]
+    tensors, through the scene's route at depth settings.depth. `seed`,
+    an int or a root key (ops/prng.py), keys the area lights' jitter.
+    `width` is the raster width of camera rays in row-major order (the
+    whitted kernel's pixel tiles, the sorted node's batches of raster
+    rows); without it the rays are one batch, as in rray_tpu's
+    color_at. Autograd reaches the scene's float leaves on every route:
+    through the torch nodes, and through WhittedKernel on the kernel
+    route when some leaf or ray requires grad."""
+    node = route(scene)
+    if node == "kernel":
+        rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
+        frame = (scene, settings, seed, width)
+        if torch.is_grad_enabled() and (
+                scene.requires_grad() or any(c.requires_grad for c in rays)):
+            return WhittedKernel.apply(frame, *rays, *(
+                t for _, t in sd.float_leaves(scene)))
+        return _kernel_frame(*frame, rays)
+    seeds = jitter.seed_table(seed, settings.depth, len(scene.lights))
+    if node == "fast":
+        out = color_at_fast(scene, ro, rd, settings.depth, settings, seeds)
+    elif width:
+        out = sorted_frame(scene, ro, rd, width, settings, seeds)
+    else:
+        out = color_at_sorted(scene, ro, rd, settings.depth, settings, seeds)
+    return out.x, out.y, out.z
+
+
+def color_at(scene: SceneData, ro, rd, remaining: int,
+             settings: RenderSettings, key):
+    """Colour seen along rays, [R, 3] origins and directions -> [R, 3]
+    (rray_tpu's public color_at): the scene canonicalized, then its
+    route at depth `remaining`, keyed by `key` (an int seed or a root
+    key), the rays in one batch."""
+    scene = sd.canonicalize(scene)
+    settings = dataclasses.replace(settings, depth=remaining)
+    rgb = trace_rays(scene, V3(ro[:, 0], ro[:, 1], ro[:, 2]),
+                     V3(rd[:, 0], rd[:, 1], rd[:, 2]), settings, key)
+    return torch.stack(rgb, dim=-1)
+
+
+def render_block(scene: SceneData, cam: CameraData, r0: int, r1: int,
+                 settings: RenderSettings = RenderSettings(), seed=0):
+    """Raster rows [r0, r1) of a frame -> [r1 - r0, hsize, 3] on the
+    scene's device: the scene canonicalized (scene.data.canonicalize),
+    then the rows' camera rays traced (`trace_rays`) with the raster
+    width, keyed by `seed` (an int or a root key)."""
+    if r1 <= r0:  # an empty block: a rank past the last row
+        return cam.inv.new_zeros((0, cam.hsize, 3))
+    ro, rd = rows_rays_soa(cam, r0, r1)
+    rgb = trace_rays(sd.canonicalize(scene), ro, rd, settings, seed,
+                     cam.hsize)
+    return torch.stack(rgb, dim=-1).reshape(r1 - r0, cam.hsize, 3)
+
+
 def render(scene: SceneData, cam: CameraData,
            settings: RenderSettings = RenderSettings(), seed: int = 0):
     """Full-frame render -> image [vsize, hsize, 3] (linear, unclamped),
     on the scene's device. `seed` keys the area lights' jitter, as
-    rray_tpu's render(seed=...) does. The scene is canonicalized first
-    (scene.data.canonicalize). Autograd reaches the scene's float leaves
-    on every route: through the torch nodes, and through WhittedKernel on
-    the kernel route when some leaf or ray requires grad."""
-    scene = sd.canonicalize(scene)
-    node = route(scene)
-    ro, rd = all_rays_soa(cam)
-    if node == "kernel":
-        rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
-        frame = (scene, settings, seed, cam.hsize)
-        if torch.is_grad_enabled() and (
-                scene.requires_grad() or any(c.requires_grad for c in rays)):
-            rgb = WhittedKernel.apply(frame, *rays, *(
-                t for _, t in sd.float_leaves(scene)))
-        else:
-            rgb = _kernel_frame(*frame, rays)
-    else:
-        seeds = jitter.seed_table(seed, settings.depth, len(scene.lights))
-        if node == "fast":
-            out = color_at_fast(scene, ro, rd, settings.depth, settings,
-                                seeds)
-        else:
-            out = sorted_frame(scene, ro, rd, cam.hsize, settings, seeds)
-        rgb = (out.x, out.y, out.z)
-    return torch.stack(rgb, dim=-1).reshape(cam.vsize, cam.hsize, 3)
+    rray_tpu's render(seed=...) does (`render_block` over every row)."""
+    return render_block(scene, cam, 0, cam.vsize, settings, seed)

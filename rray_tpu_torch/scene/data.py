@@ -96,6 +96,14 @@ class Material:
     refractive_index: float = 1.0
 
 
+def glass_material() -> Material:
+    """A clear glass material: transparency 1, refractive index 1.5."""
+    m = Material()
+    m.transparency = 1.0
+    m.refractive_index = 1.5
+    return m
+
+
 @dataclasses.dataclass
 class Shape:
     """Host scene-graph node; leaves become SoA rows, interior nodes fold."""

@@ -446,3 +446,49 @@ def test_blocks_per_sm_reports_occupancy(cuda):
         small = whitted.blocks_per_sm(W, ext, KB, 0)
         big = whitted.blocks_per_sm(W, ext, KB, 100 * 1024)
         assert 1 <= big <= small <= 16
+
+
+def test_progressive_area_frame_matches_plain_bands(cuda, monkeypatch):
+    """Config 3 band by band on the card: one whitted launch per band,
+    the scene's tables packed once for the frame, the frame within the
+    main path's image thresholds (max |diff| <= 1/255, at most 0.1% of
+    values past 1e-4) of the same bands through the plain version."""
+    from rray_tpu_torch.render import progressive
+
+    spec, lights, shapes = load_scene_file(
+        os.path.join(BASE, "examples", "area_light.yaml"))
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device=cuda)
+    cam = Camera(160, 120, spec["fov"])
+    cam.transform = spec["transform"]
+    cam = compile_camera(cam, torch.float32, cuda)
+    launches, builds = whitted.launches, whitted.table_builds
+    got = progressive.ProgressiveRender(scene, cam, seed=3,
+                                        band_rows=32).run()
+    assert whitted.launches - launches == 4
+    assert whitted.table_builds - builds == 1
+    monkeypatch.setattr(
+        whitted, "whitted_compact",
+        lambda *a, width=None, **k: whitted.whitted_compact_reference(*a,
+                                                                      **k))
+    plain = progressive.ProgressiveRender(scene, cam, seed=3,
+                                          band_rows=32).run()
+    diff = np.abs(got - plain)
+    assert np.isfinite(got).all() and got.max() > 0.1
+    assert diff.max() <= 1.0 / 255.0
+    assert float((diff > 1e-4).mean()) <= 1e-3
+
+
+def test_profiling_trace_names_the_whitted_kernel(cuda, tmp_path):
+    import glob
+
+    from rray_tpu_torch.utils import profiling
+
+    with profiling.trace(str(tmp_path)):
+        api.render_scene_from_file(os.path.join(BASE, "examples",
+                                                "glass.yaml"), 160, 120, "",
+                                   device="cuda")
+    files = glob.glob(str(tmp_path / "*.pt.trace.json"))
+    assert len(files) == 1
+    with open(files[0]) as f:
+        assert "whitted_kernel" in f.read()
+    assert profiling.live_arrays_bytes() == torch.cuda.memory_allocated()
