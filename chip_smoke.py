@@ -41,8 +41,22 @@ and glass4 with parallel.mesh.render_sharded against the single-process
 frames, and one sharded Adam step of parallel.train.make_train_step on
 example1 against the single-process step; and utils.profiling.trace
 around a glass render, whose Chrome trace must name the whitted kernel.
-The JSON line's launches count the main path's runs, the progressive
-frames and both ranks' sharded frames, each from 0. It prints the card, one line per phase, a JSON
+Then the oracle phase: rray_tpu's per-ray reference path
+(integrator.render_aos: ops/hits.py, ops/normals.py,
+render/patterns.py, no kernel; it must launch none) at 800x600 in
+float32 on example1, glass, mesh4 and config 5 at 1920x1080 (kernel
+route), mesh9 and mesh4b (fast node), glass4 and csgglass (sorted
+node), each held against the routed frame at wavefront_capacity
+2^depth within rray_tpu's budget for two f32 formulations of one scene
+(under 5e-3 of the pixels over 1e-3, median |diff| under 1e-6), with
+the AoS frame's wall time and peak memory; and the unrolled phase:
+render_scene_from_file under RenderSettings(wavefront="unrolled") at
+800x600 on glass, glass4, glass21 and csgglass and at 400x300 on
+glass4b (its exhaustive wavefronts' mesh fold), within 2e-6 of
+the "scan" frame, B2/B3, B4 and B5 launched and the whitted kernel not.
+The JSON line's launches count the main path's runs, the oracle's
+routed frames, the unrolled runs, the progressive frames and both
+ranks' sharded frames, each from 0. It prints the card, one line per phase, a JSON
 line describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before the last line; without CUDA it
 exits 1 at once.
 
@@ -1179,6 +1193,150 @@ def whitted_plain_image(torch, np, path, aa):
     return canvas.downsample(image.cpu().numpy(), aa)
 
 
+# The oracle phase: integrator.render_aos (rray_tpu's per-ray
+# _color_at_sorted: ops/hits.py, ops/normals.py, render/patterns.py,
+# none of the kernels) against the routed frame of the same scene
+# (api.render_scene_from_file at wavefront_capacity 2^depth, where no
+# path is dropped) on the card in float32, point lights only (the AoS
+# key chain is not the routed one), by (scene, route). The budget is
+# rray_tpu's for two f32 formulations of one scene
+# (tests/test_wavefront.py): under ORACLE_SHARE of the pixels with a
+# channel |diff| over ORACLE_PIX, and a median channel |diff| under
+# ORACLE_MEDIAN.
+ORACLE = (("example1", "kernel"), ("glass", "kernel"), ("mesh4", "kernel"),
+          ("csg", "kernel"), ("mesh9", "fast"), ("mesh4b", "fast"),
+          ("glass4", "sorted"), ("csgglass", "sorted"))
+ORACLE_PIX, ORACLE_SHARE, ORACLE_MEDIAN = 1e-3, 5e-3, 1e-6
+# The unrolled phase: render_scene_from_file under wavefront "unrolled"
+# against "scan" at 800x600 (the same per-level seeds, area lights
+# included; only the order of each pixel's sum differs), within
+# UNROLLED_TOL (rray_tpu's scan-versus-reordered bound,
+# tests/test_wavefront.py), and the kernels each unrolled run must
+# launch; whitted_compact must not (rray_tpu's dispatcher takes
+# "unrolled" past its kernel). glass4b renders at UNROLLED_HALF: its
+# transparent 3120-triangle mesh's n1/n2 fold is torch code over every
+# row of the exhaustive wavefronts (2^l rows per pixel at level l, 32
+# at every level for "scan"), and the pair took 70.6 s of the phase's
+# 90.4 s at 800x600 on an H100 at 700 W.
+UNROLLED = (("glass", ()), ("glass4", ("closest_triangle", "any_triangle")),
+            ("glass4b", ("bvh_closest_triangle",)),
+            ("glass21", ("area_shadow_fraction",)), ("csgglass", ()))
+UNROLLED_HALF = {"glass4b": (WIDTH // 2, HEIGHT // 2)}
+UNROLLED_TOL = 2e-6
+
+
+def oracle_phase(torch, np, scene_paths, card):
+    """Each ORACLE scene's AoS frame (rows batched by integrator.render_aos,
+    launch counts from 0 around it: it must launch none) against its
+    routed frame (launches counted from 0 around it) -> the routed
+    frames' launch counts summed."""
+    from rray_tpu_torch import api
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.render import integrator
+
+    t_phase = time.perf_counter()
+    total = launch_counts(reset=True)
+    for name, want in ORACLE:
+        w, h = size_of(name)
+        scene, cam = camera_data(scene_paths[name], torch, (w, h))
+        settings = RenderSettings()
+        settings = dataclasses.replace(
+            settings, wavefront_capacity=2 ** settings.depth)
+        if integrator.route(scene, settings) != want:
+            fail(f"oracle {name}: route {integrator.route(scene, settings)}, "
+                 f"not {want}")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        launch_counts(reset=True)
+        t0 = time.perf_counter()
+        aos = integrator.render_aos(scene, cam, settings)
+        torch.cuda.synchronize()
+        aos_ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        if any(launch_counts().values()):
+            fail(f"oracle {name}: the AoS frame launched kernels "
+                 f"{launch_counts()}")
+        t0 = time.perf_counter()
+        routed = api.render_scene_from_file(scene_paths[name], w, h, "",
+                                            settings=settings, device=DEVICE)
+        routed_ms = (time.perf_counter() - t0) * 1e3
+        counts = launch_counts()
+        total = {k: total[k] + counts[k] for k in total}
+        aos = aos.cpu().numpy()
+        if not np.isfinite(aos).all() or aos.max() <= 0.1:
+            fail(f"oracle {name}: non-finite or black AoS frame")
+        diff = np.abs(aos - routed)
+        share = float((diff.max(axis=2) > ORACLE_PIX).mean())
+        median = float(np.median(diff))
+        print(f"oracle {name} {w}x{h} route {want}: AoS {aos_ms:.1f} ms "
+              f"wall, routed {routed_ms:.1f} ms wall (launches "
+              f"{json.dumps({k: n for k, n in counts.items() if n})}), "
+              f"share over {ORACLE_PIX} {share:.3e}, median |diff| "
+              f"{median:.3e}, max |diff| {float(diff.max()):.3e}, AoS peak "
+              f"memory {peak:.1f} MiB [{card}]")
+        if not (share < ORACLE_SHARE and median < ORACLE_MEDIAN):
+            fail(f"oracle {name}: share {share:.3e} (limit {ORACLE_SHARE}), "
+                 f"median {median:.3e} (limit {ORACLE_MEDIAN})")
+    print(f"oracle phase: {time.perf_counter() - t_phase:.1f} s wall "
+          f"[{card}]")
+    # The sharded phase's ranks share this card: hand back the blocks
+    # the AoS frames left in the caching allocator.
+    torch.cuda.empty_cache()
+    return total
+
+
+def unrolled_phase(torch, np, scene_paths, card):
+    """Each UNROLLED scene through render_scene_from_file under
+    "unrolled" (launch counts from 0 around it) against "scan" -> the
+    unrolled runs' launch counts summed."""
+    from rray_tpu_torch import api
+    from rray_tpu_torch.config import RenderSettings
+
+    t_phase = time.perf_counter()
+    total = launch_counts(reset=True)
+    for name, expect in UNROLLED:
+        w, h = UNROLLED_HALF.get(name, (WIDTH, HEIGHT))
+        frames, ms, peak = {}, {}, {}
+        for wavefront in ("unrolled", "scan"):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            launch_counts(reset=True)
+            t0 = time.perf_counter()
+            frames[wavefront] = api.render_scene_from_file(
+                scene_paths[name], w, h, "",
+                settings=RenderSettings(wavefront=wavefront), device=DEVICE)
+            ms[wavefront] = (time.perf_counter() - t0) * 1e3
+            peak[wavefront] = torch.cuda.max_memory_allocated() / 2 ** 20
+            if wavefront == "unrolled":
+                counts = launch_counts()
+        total = {k: total[k] + counts[k] for k in total}
+        image = frames["unrolled"]
+        if not np.isfinite(image).all() or image.max() <= 0.1:
+            fail(f"unrolled {name}: non-finite or black image")
+        diff = float(np.abs(image - frames["scan"]).max())
+        half = (" (half size: the exhaustive wavefronts' mesh fold)"
+                if (w, h) != (WIDTH, HEIGHT) else "")
+        print(f"unrolled {name} {w}x{h}{half}: {ms['unrolled']:.1f} ms wall "
+              f"(scan {ms['scan']:.1f} ms), peak memory "
+              f"{peak['unrolled']:.1f} MiB (scan {peak['scan']:.1f} MiB), "
+              f"max |unrolled - scan| {diff:.3e}, launches "
+              f"{json.dumps({k: n for k, n in counts.items() if n})} "
+              f"[{card}]")
+        if diff > UNROLLED_TOL:
+            fail(f"unrolled {name}: max |unrolled - scan| {diff:.3e} > "
+                 f"{UNROLLED_TOL}")
+        if counts["whitted_compact"]:
+            fail(f"unrolled {name}: whitted_compact launched "
+                 f"{counts['whitted_compact']} times")
+        for kname in expect:
+            if not counts[kname]:
+                fail(f"unrolled {name}: {kname} did not launch")
+    print(f"unrolled phase: {time.perf_counter() - t_phase:.1f} s wall "
+          f"[{card}]")
+    torch.cuda.empty_cache()  # as after the oracle phase
+    return total
+
+
 def frame_breakdown(torch, np, name, path, aa=1, reps=5):
     """Where a CLI-path frame's wall time goes at the scene's size, aa
     (host clock, each phase ended by a synchronize; medians of `reps`
@@ -2029,6 +2187,8 @@ def main() -> int:
             torch.from_numpy(plain).to(DEVICE).unbind(-1), f"main path {name}")
         print(f"parity main path {name} {w}x{h}: max |kernels - plain| "
               f"{diff:.3e} (plain-kernel frame {wall * 1e3:.1f} ms wall)")
+    oracle = oracle_phase(torch, np, scene_paths, card)
+    unrolled = unrolled_phase(torch, np, scene_paths, card)
     for name, aa, reps in (("mesh4", 1, 5), ("mesh9", 1, 5), ("mesh4b", 1, 5),
                            ("area", 3, 5), ("csg", 5, 3), ("glass4", 1, 3),
                            ("csgglass", 1, 3)):
@@ -2040,9 +2200,11 @@ def main() -> int:
     sharded = sharded_phase(torch, np, scene_paths, images)
     profile_phase(torch, scene_paths)
     tmp.cleanup()
-    # The JSON line's launches: the main path's runs, the progressive
-    # frames' and both ranks' sharded frames', each counted from 0.
-    counts = {k: counts[k] + prog[k] + sharded[k] for k in counts}
+    # The JSON line's launches: the main path's runs, the oracle's routed
+    # frames, the unrolled runs, the progressive frames' and both ranks'
+    # sharded frames', each counted from 0.
+    counts = {k: counts[k] + oracle[k] + unrolled[k] + prog[k] + sharded[k]
+              for k in counts}
 
     # Times on the card, in turns.
     kernels = []

@@ -184,3 +184,14 @@ def solve_quartic_parts(c4, c3, c2, c1, c0, polish_iters: int = 3):
             x = x - torch.where(valids[i], step, 0.0)
         roots[i] = x
     return tuple(roots), valids
+
+
+def solve_quartic(c4, c3, c2, c1, c0, polish_iters: int = 3,
+                  safe_transcendentals: bool = False):
+    """All real roots of c4 x^4 + c3 x^3 + c2 x^2 + c1 x + c0 = 0 ->
+    (roots [..., 4], valid [..., 4]), `solve_quartic_parts` stacked on
+    a last axis (rray_tpu's solve_quartic). Invalid lanes hold junk.
+    `safe_transcendentals` selects rray_tpu's Mosaic-safe atan2/acos on
+    a TPU; it has no meaning here and is ignored."""
+    roots, valids = solve_quartic_parts(c4, c3, c2, c1, c0, polish_iters)
+    return torch.stack(roots, dim=-1), torch.stack(valids, dim=-1)

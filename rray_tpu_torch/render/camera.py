@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .. import mathutils as mu
+from ..ops.intersect import affine
 from ..ops.vec import V3
 
 
@@ -34,6 +35,11 @@ class Camera:
         pixel_size = half_width * 2.0 / self.hsize
         return half_width, half_height, pixel_size
 
+    @property
+    def pixel_size(self):
+        """World width of one pixel on the canvas (camera.rs:29-60)."""
+        return self._derived[2]
+
 
 @dataclasses.dataclass
 class CameraData:
@@ -54,6 +60,36 @@ def compile_camera(cam: Camera, dtype=torch.float32,
     return CameraData(inv=t(mu.affine(mu.inverse(cam.transform))),
                       half_width=t(hw), half_height=t(hh), pixel_size=t(ps),
                       hsize=cam.hsize, vsize=cam.vsize)
+
+
+def rays_for_pixels(cam: CameraData, px, py):
+    """ray_for_pixel (camera.rs:75-93) for integer pixel tensors [R] ->
+    (origins [R, 3], unit directions [R, 3]), rray_tpu's per-ray (AoS)
+    form. The operations run in rays_for_pixels_soa's order, so both
+    forms give the same rays."""
+    dtype = cam.inv.dtype
+    xoff = (px.to(dtype) + 0.5) * cam.pixel_size
+    yoff = (py.to(dtype) + 0.5) * cam.pixel_size
+    wx = cam.half_width - xoff
+    wy = cam.half_height - yoff
+    canvas = torch.stack([wx, wy, -torch.ones_like(wx)], -1)
+    pixel = affine(cam.inv, canvas[:, None, :], True)[:, 0]
+    origin = cam.inv[:, 3].expand(pixel.shape).contiguous()
+    direction = pixel - origin
+    d2 = (direction[:, 0] * direction[:, 0] + direction[:, 1] * direction[:, 1]
+          + direction[:, 2] * direction[:, 2])
+    floor = 1e-30 if dtype == torch.float64 else 1e-18
+    return origin, direction * torch.rsqrt(torch.clamp_min(d2, floor))[:, None]
+
+
+def all_rays(cam: CameraData):
+    """[R, 3] rays for the full raster in row-major order
+    (camera.rs:134-136)."""
+    dev = cam.inv.device
+    ys, xs = torch.meshgrid(torch.arange(cam.vsize, device=dev),
+                            torch.arange(cam.hsize, device=dev),
+                            indexing="ij")
+    return rays_for_pixels(cam, xs.reshape(-1), ys.reshape(-1))
 
 
 def rays_for_pixels_soa(cam: CameraData, px, py):

@@ -41,21 +41,28 @@ from torch.utils.checkpoint import checkpoint
 
 from ..config import RenderSettings, offset_eps
 from ..kernels import analytic, whitted
-from ..ops import jitter, soa
+from ..ops import hits, jitter, normals, prng, soa
 from ..ops.vec import V3, div
 from ..scene import data as sd
 from ..scene.data import SceneData
-from . import shade_soa
-from .camera import CameraData, rows_rays_soa
+from . import patterns, shade_soa
+from .camera import CameraData, all_rays, rows_rays_soa
 
 
-def route(scene) -> str:
+def route(scene, settings: RenderSettings = None) -> str:
     """"kernel" (the whitted kernel), "sorted" (the sorted torch node:
     CSG or transparency the kernel rejects) or "fast" (the torch fast
-    node: the other scenes the kernel rejects)."""
+    node: the other scenes the kernel rejects). Under a settings.wavefront
+    other than "compact" ("scan", "unrolled") every scene with CSG or
+    transparency takes the sorted node: rray_tpu's dispatcher
+    (_color_at_sorted_soa) tries its kernel on "compact" alone."""
+    sorted_scene = bool(scene.csg_ops) or scene.has_transparent
+    if (sorted_scene and settings is not None
+            and settings.wavefront != "compact"):
+        return "sorted"
     if whitted.applicable(scene):
         return "kernel"
-    if scene.csg_ops or scene.has_transparent:
+    if sorted_scene:
         return "sorted"
     return "fast"
 
@@ -442,16 +449,67 @@ def _color_at_compact_scan(scene: SceneData, ro: V3, rd: V3, remaining: int,
     return V3(*acc)
 
 
+def _color_at_sorted_unrolled(scene: SceneData, ro: V3, rd: V3,
+                              remaining: int, settings: RenderSettings,
+                              seeds) -> V3:
+    """The level-synchronous wavefront over the exact Whitted ray tree
+    (rray_tpu _color_at_sorted_unrolled): level l is one node evaluation
+    over the previous level's children, concatenated (reflect rays, then
+    refract rays, when both spawn: 2^l R rays), with per-ray path
+    weights; no path is dropped. A level whose weights are all zero
+    ends the walk (its levels would add zeros). Level l draws its
+    jitter with seeds[l]."""
+    seeds = seeds.tolist()
+    R = ro.x.shape[0]
+    zero = torch.zeros_like(ro.x)
+    acc = V3(zero, zero, zero)
+    spawn_refl, spawn_refr = scene.has_reflective, scene.has_transparent
+    weights = torch.ones_like(ro.x)
+    for level in range(remaining + 1):
+        if level and not bool((weights != 0.0).any()):
+            break
+        surface, over, under, reflectv, refr_dir, refl_w, refr_w = _level(
+            scene, settings, lambda ro, rd, s=seeds[level]: _sorted_node_eval(
+                scene, ro, rd, settings, s), ro, rd)
+        contrib = surface * weights
+        width = contrib.x.shape[0] // R
+        acc = acc + V3(*(c.reshape(width, R).sum(0)
+                         for c in (contrib.x, contrib.y, contrib.z)))
+        if level == remaining:
+            break
+        if spawn_refl and spawn_refr:
+            ro = V3(*(torch.cat(p) for p in zip(
+                (over.x, over.y, over.z), (under.x, under.y, under.z))))
+            rd = V3(*(torch.cat(p) for p in zip(
+                (reflectv.x, reflectv.y, reflectv.z),
+                (refr_dir.x, refr_dir.y, refr_dir.z))))
+            weights = torch.cat([weights * refl_w, weights * refr_w])
+        elif spawn_refl:
+            ro, rd, weights = over, reflectv, weights * refl_w
+        elif spawn_refr:
+            ro, rd, weights = under, refr_dir, weights * refr_w
+        else:
+            break
+    return acc
+
+
+WAVEFRONTS = ("compact", "scan", "unrolled")
+
+
 def color_at_sorted(scene: SceneData, ro: V3, rd: V3, remaining: int,
                     settings: RenderSettings, seeds) -> V3:
     """The sorted node's wavefront (rray_tpu _color_at_sorted_soa
-    without its kernel branch, which route() takes first): "compact"
-    where both reflection and refraction spawn below depth 0, else the
-    exhaustive scan, whose width there is 1. seeds: the [remaining + 1,
-    L] table of ops/jitter.py seed_table."""
-    if settings.wavefront not in ("compact", "scan"):
-        raise ValueError(f"wavefront {settings.wavefront!r}: 'compact' or "
-                         "'scan'")
+    without its kernel branch, which route() takes first): "unrolled"
+    when asked for; else "compact" where both reflection and refraction
+    spawn below depth 0, and the exhaustive scan otherwise, whose width
+    there is 1. seeds: the [remaining + 1, L] table of ops/jitter.py
+    seed_table."""
+    if settings.wavefront not in WAVEFRONTS:
+        raise ValueError(f"wavefront {settings.wavefront!r}: one of "
+                         f"{', '.join(map(repr, WAVEFRONTS))}")
+    if settings.wavefront == "unrolled":
+        return _color_at_sorted_unrolled(scene, ro, rd, remaining, settings,
+                                         seeds)
     if (settings.wavefront == "compact" and remaining > 0
             and scene.has_reflective and scene.has_transparent):
         return _color_at_compact_scan(scene, ro, rd, remaining, settings,
@@ -475,6 +533,7 @@ def _tile_rays(scene: SceneData, hsize: int, settings: RenderSettings) -> int:
         return min(rows, max(max_rays // hsize, 1))
 
     if scene.has_transparent and scene.has_reflective:
+        # "scan" and "unrolled" widen to 2^depth rays per pixel.
         if settings.wavefront == "compact":
             W = min(max(int(settings.wavefront_capacity), 2),
                     2 ** settings.depth)
@@ -596,7 +655,7 @@ def trace_rays(scene: SceneData, ro: V3, rd: V3, settings: RenderSettings,
     color_at. Autograd reaches the scene's float leaves on every route:
     through the torch nodes, and through WhittedKernel on the kernel
     route when some leaf or ray requires grad."""
-    node = route(scene)
+    node = route(scene, settings)
     if node == "kernel":
         rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
         frame = (scene, settings, seed, width)
@@ -648,3 +707,189 @@ def render(scene: SceneData, cam: CameraData,
     on the scene's device. `seed` keys the area lights' jitter, as
     rray_tpu's render(seed=...) does (`render_block` over every row)."""
     return render_block(scene, cam, 0, cam.vsize, settings, seed)
+
+
+# ---------------------------------------------------------------------------
+# The per-ray (AoS) reference node (rray_tpu integrator.py:742-891).
+# ---------------------------------------------------------------------------
+
+def _dot(a, b):
+    return torch.sum(a * b, dim=-1)
+
+
+def _reflect(v, n):
+    return v - n * (2.0 * _dot(v, n))[:, None]
+
+
+def _normalize(v):
+    return v / torch.clamp_min(torch.linalg.norm(v, dim=-1, keepdim=True),
+                               1e-30)
+
+
+def _schlick(eyev, normalv, n1, n2):
+    """Fresnel reflectance, Schlick's approximation (computations.rs:
+    39-54); 1 under total internal reflection."""
+    cos = _dot(eyev, normalv)
+    n = n1 / n2
+    sin2_t = n * n * (1.0 - cos * cos)
+    cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 1e-30))
+    cos_eff = torch.where(n1 > n2, cos_t, cos)
+    r0 = ((n1 - n2) / (n1 + n2)) ** 2
+    reflectance = r0 + (1.0 - r0) * (1.0 - cos_eff) ** 5
+    tir = (n1 > n2) & (sin2_t > 1.0)
+    return torch.where(tir, 1.0, reflectance)
+
+
+def _lighting(scene, prim, base_color, light, point, eyev, normalv,
+              shadow_frac):
+    """Phong (light.rs:98-140) on [R, 3] vectors; `shadow_frac` in [0, 1]."""
+    effective = base_color * light.intensity[None, :]
+    lightv = _normalize(light.position[None, :] - point)
+    ambient = effective * scene.mat_ambient[prim][:, None]
+    ldn = _dot(lightv, normalv)
+    lit = ldn >= 0.0
+    diffuse = effective * (scene.mat_diffuse[prim] * ldn)[:, None]
+    reflectv = _reflect(-lightv, normalv)
+    rde = _dot(reflectv, eyev)
+    spec_on = lit & (rde > 0.0)
+    factor = torch.pow(torch.clamp_min(rde, 1e-30), scene.mat_shininess[prim])
+    specular = (light.intensity[None, :]
+                * (scene.mat_specular[prim] * factor)[:, None])
+    diffuse = torch.where(lit[:, None], diffuse, 0.0)
+    specular = torch.where(spec_on[:, None], specular, 0.0)
+    return ambient + (diffuse + specular) * (1.0 - shadow_frac)[:, None]
+
+
+def _shadow_fraction(scene, light, over, settings, seed: int):
+    """Point lights: 0/1; area lights: the blocked share of level^2
+    jittered-grid samples, drawn from the point-keyed hash with `seed`
+    (ops/jitter.py, the draws of the torch nodes and the kernels)."""
+    R = over.shape[0]
+    dtype = over.dtype
+    if light.kind == "point":
+        v = light.position[None, :] - over
+        dist = torch.linalg.norm(v, dim=-1)
+        direction = v / torch.clamp_min(dist[:, None], 1e-30)
+        return hits.shadow_hit(scene, over, direction, dist,
+                               settings).to(dtype)
+    level = light.level
+    n = level * level
+    held = over.detach()
+    rand = jitter.point_jitter(seed, held[:, 0], held[:, 1], held[:, 2], n,
+                               dtype=dtype).permute(1, 2, 0)  # [n, R, 2]
+    k = torch.arange(n, device=over.device)
+    ur = div((k % level).to(dtype)[:, None] + rand[:, :, 0], level)
+    vr = div((k // level).to(dtype)[:, None] + rand[:, :, 1], level)
+    pos = (light.corner[None, None, :]
+           + light.uvec[None, None, :] * ur[:, :, None]
+           + light.vvec[None, None, :] * vr[:, :, None])  # [n, R, 3]
+    over_t = over[None].expand(pos.shape).reshape(n * R, 3)
+    v = pos.reshape(n * R, 3) - over_t
+    dist = torch.linalg.norm(v, dim=-1)
+    direction = v / torch.clamp_min(dist[:, None], 1e-30)
+    shadowed = hits.shadow_hit(scene, over_t, direction, dist, settings)
+    return torch.mean(shadowed.reshape(n, R).to(dtype), dim=0)
+
+
+def color_at_aos(scene: SceneData, ro, rd, remaining: int,
+                 settings: RenderSettings, seed=0):
+    """The per-ray Whitted node over [R, 3] rays -> [R, 3] colours
+    (rray_tpu/render/integrator.py::_color_at_sorted): the sorted hit
+    prefix (ops/hits.py), normals (ops/normals.py), patterns
+    (render/patterns.py), Phong with shadows, and the exact recursion
+    tree of reflection and refraction (Schlick-blended where both
+    spawn), 2^(remaining + 1) - 1 node evaluations over all R rays.
+
+    This is rray_tpu's A/B oracle, written apart from the routed nodes:
+    plain torch ops on the rays' device, none of the port's CUDA
+    kernels. `seed` (an int or a root key, ops/prng.py) keys the area
+    jitter by rray_tpu's per-node chain: light li draws from
+    fold_in(key, 1000 + li), the reflected child takes fold_in(key, 1),
+    the refracted child fold_in(key, 2). That chain is not the routed
+    nodes' per-level seed_table, so area-light frames draw other jitter
+    than render()'s."""
+    key = prng.root_key(seed)
+    dtype = ro.dtype
+    eps = offset_eps(dtype)
+    slots = hits.gather_sorted_hits(scene, ro, rd, settings)
+    found, hit_idx, t, prim, u, v = hits.select_hit(slots)
+    prim = prim.long()
+
+    point = ro + rd * torch.where(found, t, 0.0)[:, None]
+    eyev = -rd
+    normalv = normals.normal_at(scene, prim, u, v, point)
+    inside = _dot(normalv, eyev) < 0.0
+    normalv = torch.where(inside[:, None], -normalv, normalv)
+    over = point + normalv * eps
+    under = point - normalv * eps
+    reflectv = _reflect(rd, normalv)
+
+    if scene.has_transparent:
+        n1, n2 = hits.refractive_indices(scene, slots, hit_idx,
+                                         settings.containers_depth)
+    else:
+        n1 = n2 = torch.ones_like(t)
+    del slots  # the children run while this node's locals stay alive
+
+    base_color = patterns.pattern_at_object(scene, prim, over)
+    surface = torch.zeros_like(ro)
+    for li, light in enumerate(scene.lights):
+        frac = _shadow_fraction(
+            scene, light, over, settings,
+            jitter.seed_from_key(prng.fold_in(key, 1000 + li)))
+        surface = surface + _lighting(scene, prim, base_color, light, over,
+                                      eyev, normalv, frac)
+
+    reflective = scene.mat_reflective[prim]
+    transparency = scene.mat_transparency[prim]
+    reflected = torch.zeros_like(ro)
+    refracted = torch.zeros_like(ro)
+
+    if remaining > 0 and scene.has_reflective:
+        rc = color_at_aos(scene, over, reflectv, remaining - 1, settings,
+                          prng.fold_in(key, 1))
+        reflected = rc * reflective[:, None]
+
+    if remaining > 0 and scene.has_transparent:
+        n_ratio = n1 / n2
+        cos_i = _dot(eyev, normalv)
+        sin2_t = n_ratio * n_ratio * (1.0 - cos_i * cos_i)
+        tir = sin2_t > 1.0
+        cos_t = torch.sqrt(torch.clamp_min(1.0 - sin2_t, 1e-30))
+        direction = (normalv * (n_ratio * cos_i - cos_t)[:, None]
+                     - eyev * n_ratio[:, None])
+        live = found & ~tir & (transparency > 0.0)
+        safe_dir = torch.where(live[:, None], direction,
+                               torch.tensor([0.0, 0.0, 1.0], dtype=dtype,
+                                            device=ro.device))
+        rc = color_at_aos(scene, under, safe_dir, remaining - 1, settings,
+                          prng.fold_in(key, 2))
+        refracted = torch.where(live[:, None], rc * transparency[:, None],
+                                0.0)
+
+    if scene.has_reflective and scene.has_transparent:
+        both = (reflective > 0.0) & (transparency > 0.0)
+        reflectance = _schlick(eyev, normalv, n1, n2)
+        blended = (reflected * reflectance[:, None]
+                   + refracted * (1.0 - reflectance)[:, None])
+        secondary = torch.where(both[:, None], blended, reflected + refracted)
+    else:
+        secondary = reflected + refracted
+    return torch.where(found[:, None], surface + secondary, 0.0)
+
+
+def render_aos(scene: SceneData, cam: CameraData,
+               settings: RenderSettings = RenderSettings(), seed=0):
+    """A full frame through color_at_aos -> image [vsize, hsize, 3] on
+    the scene's device: the camera's [R, 3] rays (camera.all_rays) in
+    batches of raster rows by the sorted node's rule for the exhaustive
+    wavefront (_tile_rays under "scan"), each batch keyed by `seed`."""
+    scene = sd.canonicalize(scene)
+    ro, rd = all_rays(cam)
+    tile = _tile_rays(scene, cam.hsize,
+                      dataclasses.replace(settings, wavefront="scan"))
+    out = [color_at_aos(scene, ro[i:i + tile], rd[i:i + tile],
+                        settings.depth, settings, seed)
+           for i in range(0, ro.shape[0], tile)]
+    return torch.cat(out).reshape(cam.vsize, cam.hsize, 3)
+

@@ -52,6 +52,10 @@ CSG_UNION, CSG_INTERSECTION, CSG_DIFFERENCE = range(3)
 _CSG_OPS = {"union": CSG_UNION, "intersection": CSG_INTERSECTION,
             "difference": CSG_DIFFERENCE}
 
+# Hit slots that each analytic primitive contributes to a ray's slot
+# list (ops/intersect.py).
+SLOTS_PER_TYPE = {SPHERE: 2, PLANE: 1, CUBE: 2, CYLINDER: 4, CONE: 5, TORUS: 4}
+
 
 # --------------------------------------------------------------------------
 # Host-side pattern / material / shape description (what the YAML loader and
@@ -131,6 +135,18 @@ class Shape:
     operation: str = "union"
     left: Optional["Shape"] = None
     right: Optional["Shape"] = None
+
+
+def sphere(transform=None, material=None):
+    """A unit sphere leaf (rray_tpu's test constructor)."""
+    return Shape("sphere", transform if transform is not None else mu.identity(),
+                 material or Material())
+
+
+def plane(transform=None, material=None):
+    """An xz-plane leaf (rray_tpu's test constructor)."""
+    return Shape("plane", transform if transform is not None else mu.identity(),
+                 material or Material())
 
 
 @dataclasses.dataclass
@@ -728,3 +744,11 @@ def _canonicalize(scene: SceneData) -> SceneData:
                 pmin, pmax, closed, torr]))
         upd["cls_table"] = torch.stack(rows)
     return dataclasses.replace(scene, **upd)
+
+
+def analytic_slot_count(scene: SceneData) -> int:
+    """Hit slots of the scene's analytic prims per ray (SLOTS_PER_TYPE)."""
+    ns, npl, ncu, ncy, nco, nto, _, _ = scene.counts
+    return (SLOTS_PER_TYPE[SPHERE] * ns + SLOTS_PER_TYPE[PLANE] * npl
+            + SLOTS_PER_TYPE[CUBE] * ncu + SLOTS_PER_TYPE[CYLINDER] * ncy
+            + SLOTS_PER_TYPE[CONE] * nco + SLOTS_PER_TYPE[TORUS] * nto)

@@ -492,3 +492,54 @@ def test_profiling_trace_names_the_whitted_kernel(cuda, tmp_path):
     with open(files[0]) as f:
         assert "whitted_kernel" in f.read()
     assert profiling.live_arrays_bytes() == torch.cuda.memory_allocated()
+
+
+@pytest.mark.parametrize("name", ["glass.yaml", "mesh4", "csgglass"])
+def test_aos_oracle_matches_routed_frame(cuda, name, tmp_path):
+    """integrator.render_aos (rray_tpu's per-ray path) on the card at
+    64x48 launches no kernel and holds the routed frame at full
+    capacity within chip_smoke.py's oracle budget."""
+    import dataclasses
+
+    import chip_smoke as cs
+    from rray_tpu_torch.render import integrator
+    if name in cs.SCENES:
+        path = ms.write_scene(str(tmp_path), name, **cs.SCENES[name])
+    elif name in cs.CONFIG5:
+        path = ms.write_config5(str(tmp_path), name, **cs.CONFIG5[name])
+    else:
+        path = os.path.join(BASE, "examples", name)
+    cam_spec, lights, shapes = load_scene_file(path)
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device=cuda)
+    cam = Camera(64, 48, cam_spec["fov"])
+    cam.transform = cam_spec["transform"]
+    settings = RenderSettings()
+    settings = dataclasses.replace(settings,
+                                   wavefront_capacity=2 ** settings.depth)
+    before = cs.launch_counts()
+    aos = integrator.render_aos(scene, compile_camera(cam, torch.float32,
+                                                      cuda), settings)
+    assert cs.launch_counts() == before
+    routed = api.render_scene_from_file(path, 64, 48, "", settings=settings,
+                                        device="cuda")
+    diff = np.abs(aos.cpu().numpy() - routed)
+    assert float((diff.max(-1) > cs.ORACLE_PIX).mean()) < cs.ORACLE_SHARE
+    assert float(np.median(diff)) < cs.ORACLE_MEDIAN
+
+
+def test_unrolled_launches_the_fast_kernels_not_whitted(cuda, tmp_path):
+    """glass4 under wavefront "unrolled" on the card: the triangle
+    kernels launch, the whitted kernel does not, and the frame is the
+    "scan" frame within chip_smoke.py's bound."""
+    import chip_smoke as cs
+    path = ms.write_scene(str(tmp_path), "glass4", **cs.SCENES["glass4"])
+    frames = {}
+    for wavefront in ("unrolled", "scan"):
+        before = cs.launch_counts()
+        frames[wavefront] = api.render_scene_from_file(
+            path, 64, 48, "", settings=RenderSettings(wavefront=wavefront),
+            device="cuda")
+        launched = {k: n - before[k] for k, n in cs.launch_counts().items()}
+        assert launched["closest_triangle"] and launched["any_triangle"]
+        assert not launched["whitted_compact"]
+    assert np.abs(frames["unrolled"] - frames["scan"]).max() <= cs.UNROLLED_TOL

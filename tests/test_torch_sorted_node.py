@@ -90,21 +90,22 @@ def test_compact_scan(tmp, name, depth, cap):
 
 
 def test_depth0_evaluates_level0_only(tmp):
-    """At depth 0 both wavefronts give level 0's surface (rray_tpu's scan
-    fails there when both reflection and refraction spawn)."""
+    """At depth 0 every wavefront gives level 0's surface (rray_tpu's scan
+    fails there when both reflection and refraction spawn), and an
+    unknown wavefront name raises."""
     jscene, tscene, jset, tset, (jo, jd), (to, td) = _case(tmp, "glass")
     seeds = jitter.seed_table(SEED, 0, len(tscene.lights))
     want = jint._sorted_node_eval(
         jscene, jo, jd, jset, jax.random.fold_in(jax.random.PRNGKey(SEED),
                                                  0))[0]
-    for wavefront in ("compact", "scan"):
+    for wavefront in ("compact", "scan", "unrolled"):
         got = integrator.color_at_sorted(
             tscene, to, td, 0, RenderSettings(depth=0, wavefront=wavefront),
             seeds)
         sp.assert_same(_v3s([got]), _v3s([want]), wavefront)
-    with pytest.raises(ValueError, match="unrolled"):
+    with pytest.raises(ValueError, match="bogus"):
         integrator.color_at_sorted(tscene, to, td, 1,
-                                   RenderSettings(wavefront="unrolled"), seeds)
+                                   RenderSettings(wavefront="bogus"), seeds)
 
 
 SOLID = {"type": "solid", "color": [0.8, 0.3, 0.2]}
