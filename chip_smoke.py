@@ -54,11 +54,20 @@ render_scene_from_file under RenderSettings(wavefront="unrolled") at
 800x600 on glass, glass4, glass21 and csgglass and at 400x300 on
 glass4b (its exhaustive wavefronts' mesh fold), within 2e-6 of
 the "scan" frame, B2/B3, B4 and B5 launched and the whitted kernel not.
-The JSON line's launches count the main path's runs, the oracle's
-routed frames, the unrolled runs, the progressive frames and both
-ranks' sharded frames, each from 0. It prints the card, one line per phase, a JSON
-line describing the kernels, and last a JSON line naming the device. Any failure exits non-zero before the last line; without CUDA it
-exits 1 at once.
+Then the local mesh phase: parallel.mesh.render_sharded over
+make_mesh(devices=[cuda:(i % n) for four entries]) (four blocks on one
+card when n = 1) on glass, config 3,
+mesh4b, glass4 and area21, each frame bit for bit the single-process
+frame, every kernel launched, with launches and table builds per entry
+and peak memory; one local-mesh Adam step on example1 against the
+single-process step; and the compute API with no device argument
+(compile_scene, compile_camera) rendering glass on the card. The JSON
+line's launches count the main path's runs, the oracle's routed
+frames, the unrolled runs, the progressive frames, both ranks' sharded
+frames and the local mesh's frames, each from 0. It prints the card,
+one line per phase, a JSON line describing the kernels, and last a JSON
+line naming the device. Any failure exits non-zero before the last
+line; without CUDA it exits 1 at once.
 
 The generated scenes are written as YAML + OBJ into a temporary
 directory by rray_tpu_torch/io/mesh_scenes.py, the writer the CPU tests
@@ -1651,6 +1660,17 @@ SHARDED_RUNS = (("glass", ("whitted_compact",)),
 # SHARD_RTOL of that leaf's largest gradient.
 SHARD_RTOL = 1e-5
 SHARD_TRAIN_STEPS = 2
+# The local mesh: render_sharded over LOCAL_ENTRIES entries of one
+# process, entry i on cuda:(i % device_count) (four blocks on one card
+# here), each frame bit for bit the single-process frame and each
+# LOCAL_RUNS kernel launched; one local-mesh Adam step on example1 within
+# SHARD_RTOL of each leaf's largest single-process gradient.
+LOCAL_ENTRIES = 4
+LOCAL_RUNS = (("glass", ("whitted_compact",)),
+              ("area", ("whitted_compact",)),
+              ("mesh4b", ("bvh_closest_triangle",)),
+              ("glass4", ("closest_triangle", "any_triangle")),
+              ("area21", ("area_shadow_fraction",)))
 
 
 @contextlib.contextmanager
@@ -2016,6 +2036,178 @@ def _sharded_entry(rank, world, port, scene_paths, outs):
     sharded_worker(rank, world, port, scene_paths, outs[rank])
 
 
+@contextlib.contextmanager
+def per_entry_counts(tallies):
+    """Tally every kernel-module counter (kernels/build.py count) by the
+    row block whose integrator.render_block is running (a local mesh
+    runs its entries in turn): tallies[r0]["<module>.<counter>"] (the
+    module counters count as before)."""
+    from rray_tpu_torch.kernels import build
+    from rray_tpu_torch.render import integrator
+
+    count, render_block = build.count, integrator.render_block
+    current = [None]
+
+    def counted(namespace, name):
+        count(namespace, name)
+        if current[0] is not None:
+            key = f"{namespace['__name__'].rsplit('.', 1)[-1]}.{name}"
+            entry = tallies.setdefault(current[0], {})
+            entry[key] = entry.get(key, 0) + 1
+
+    def block_of(scene, cam, r0, *args, **kwargs):
+        current[0] = r0
+        try:
+            return render_block(scene, cam, r0, *args, **kwargs)
+        finally:
+            current[0] = None
+
+    build.count, integrator.render_block = counted, block_of
+    try:
+        yield tallies
+    finally:
+        build.count, integrator.render_block = count, render_block
+
+
+def local_mesh_phase(torch, np, scene_paths):
+    """render_sharded over a local mesh (parallel/mesh.py make_mesh(
+    devices=...)): LOCAL_ENTRIES entries in this process, entry i on
+    cuda:(i % n). Each LOCAL_RUNS frame against the single-process
+    frame of a fresh copy of the scene, bit for bit, with wall ms of the
+    first calls (tables built) and the second (tables kept), the first
+    call's launches and table builds per entry, and peak memory per
+    card; one local-mesh
+    Adam step on example1 against the single-process step; and the
+    default compute API (compile_scene and compile_camera with no device)
+    rendering glass on the card with one whitted launch -> the launch
+    counts of the mesh frames' first calls."""
+    from rray_tpu_torch import compile_camera, compile_scene, render
+    from rray_tpu_torch.config import RenderSettings
+    from rray_tpu_torch.io.yaml_loader import load_scene_file
+    from rray_tpu_torch.parallel import mesh as pmesh, train
+    from rray_tpu_torch.render import integrator
+    from rray_tpu_torch.render.camera import Camera
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    n = torch.cuda.device_count()
+    mesh = pmesh.make_mesh(devices=[f"{DEVICE}:{i % n}"
+                                    for i in range(LOCAL_ENTRIES)])
+    cards = sorted({d.index for d in mesh.devices})
+    settings = RenderSettings()
+
+    def peaks():
+        return [round(torch.cuda.max_memory_allocated(c) / 2 ** 20, 1)
+                for c in cards]
+
+    def reset_peaks():
+        for c in cards:
+            torch.cuda.reset_peak_memory_stats(c)
+
+    def single_frame(scene, cam):
+        with torch.no_grad():
+            return integrator.render(scene, cam, settings)
+
+    total = launch_counts(reset=True)
+    for name, expect in LOCAL_RUNS:
+        scene, cam = camera_data(scene_paths[name], torch, (WIDTH, HEIGHT))
+        fresh = pmesh.replica(scene, mesh.device)
+        reset_peaks()
+        single, single_ms = timed(torch, single_frame, fresh, cam)
+        single_peak = peaks()
+        _, single_ms2 = timed(torch, single_frame, fresh, cam)
+        reset_peaks()
+        tallies = {}
+        launch_counts(reset=True)
+        with per_entry_counts(tallies):
+            image, ms = timed(torch, pmesh.render_sharded, scene, cam, mesh,
+                              settings)
+        counts = launch_counts()
+        peak = peaks()
+        _, ms2 = timed(torch, pmesh.render_sharded, scene, cam, mesh,
+                       settings)
+        if image.device != single.device or not torch.equal(image, single):
+            diff = float((image.to(single.device) - single).abs().max())
+            fail(f"local mesh {name}: the frame on {image.device} is not "
+                 f"the single-process frame bit for bit (max |diff| "
+                 f"{diff:.3e})")
+        for kname in expect:
+            if counts[kname] < 1:
+                fail(f"local mesh {name}: {kname} launched {counts[kname]} "
+                     f"times")
+        entries = [tallies.get(pmesh.row_block(cam.vsize, mesh, i)[0], {})
+                   for i in range(LOCAL_ENTRIES)]
+        print(f"local mesh {name} {WIDTH}x{HEIGHT} (route "
+              f"{integrator.route(scene)}): {LOCAL_ENTRIES} entries on "
+              f"{len(cards)} distinct card(s) of n={n}, bit for bit the "
+              f"single-process frame; render_sharded {ms:.1f} ms wall "
+              f"(second call {ms2:.1f} ms) against the single frame's "
+              f"{single_ms:.1f} ms (second call {single_ms2:.1f} ms); "
+              f"first call's launches "
+              f"{json.dumps({k: v for k, v in counts.items() if v})}; per "
+              f"entry launches and table builds {json.dumps(entries)}; peak "
+              f"memory per card {peak} MiB (single frame {single_peak} MiB) "
+              f"[{card_state()}]")
+        total = {k: total[k] + counts[k] for k in total}
+        del scene, fresh, cam, single, image
+        torch.cuda.empty_cache()
+
+    scene, cam = camera_data(scene_paths["example1"], torch, (WIDTH, HEIGHT))
+    target = single_frame(scene, cam)
+    adam = lambda params: torch.optim.Adam(params, lr=5e-2)
+    steps = {}
+    for key, step_mesh in (("single", None), ("local", mesh)):
+        state, rest = train.init_train_state(corrupted(torch, scene), adam,
+                                             trainable)
+        step = train.make_train_step(rest, cam, settings, adam,
+                                     mesh=step_mesh)
+        launch_counts(reset=True)
+        (state, loss), step_ms = timed(torch, step, state, target)
+        steps[key] = (float(loss), {k: t.grad.cpu().numpy()
+                                    for k, t in state.params.items()},
+                      step_ms, launch_counts()["whitted_compact"])
+    (loss1, grads1, ms1, n1), (loss4, grads4, ms4, n4) = (
+        steps["single"], steps["local"])
+    worst = abs(loss4 - loss1) / abs(loss1)
+    for k, g in grads1.items():
+        diff = float(np.abs(grads4[k] - g).max())
+        scale = float(np.abs(g).max())
+        if diff > SHARD_RTOL * scale:
+            fail(f"local mesh train step: {k} gradient max |diff| "
+                 f"{diff:.3e}, largest gradient {scale:.3e}")
+        worst = max(worst, diff / scale if scale else 0.0)
+    if worst > SHARD_RTOL or n4 < LOCAL_ENTRIES:
+        fail(f"local mesh train step: loss {loss4} vs {loss1}, whitted "
+             f"launches {n4}")
+    print(f"local mesh train example1 {WIDTH}x{HEIGHT}, one Adam step over "
+          f"{LOCAL_ENTRIES} entries: loss {loss4:.6e} (single process "
+          f"{loss1:.6e}), max relative difference of the loss and the "
+          f"gradients {worst:.3e} (bound {SHARD_RTOL}); step {ms4:.1f} ms "
+          f"(single process {ms1:.1f} ms); whitted launches {n4} "
+          f"(single {n1}) [{card_state()}]")
+
+    spec, lights, shapes = load_scene_file(scene_paths["glass"])
+    camera = Camera(WIDTH, HEIGHT, spec["fov"])
+    camera.transform = spec["transform"]
+    launch_counts(reset=True)
+    with torch.no_grad():
+        image = render(compile_scene(shapes, lights), compile_camera(camera))
+    counts = launch_counts()
+    glass, glass_cam = camera_data(scene_paths["glass"], torch,
+                                   (WIDTH, HEIGHT))
+    if not image.is_cuda or counts["whitted_compact"] != 1 or \
+            not torch.equal(image, single_frame(glass, glass_cam)):
+        fail(f"render(compile_scene(...), compile_camera(...)) with no "
+             f"device: {image.device}, launches {counts}")
+    print(f"default compute API: render(compile_scene(shapes, lights), "
+          f"compile_camera(cam)) on glass -> {image.device}, launches "
+          f"{json.dumps({k: v for k, v in counts.items() if v})}, equal to "
+          f"the explicit-device frame")
+    torch.cuda.empty_cache()
+    print(f"local mesh phase: {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def profile_phase(torch, scene_paths):
     """utils.profiling.trace around one main-path glass render: the
     Chrome trace exists and names the whitted kernel; prints
@@ -2198,13 +2390,14 @@ def main() -> int:
     prog = progressive_phase(torch, np, scene_paths, images)
     resilient_phase(np, scene_paths)
     sharded = sharded_phase(torch, np, scene_paths, images)
+    local = local_mesh_phase(torch, np, scene_paths)
     profile_phase(torch, scene_paths)
     tmp.cleanup()
     # The JSON line's launches: the main path's runs, the oracle's routed
-    # frames, the unrolled runs, the progressive frames' and both ranks'
-    # sharded frames', each counted from 0.
+    # frames, the unrolled runs, the progressive frames', both ranks'
+    # sharded frames' and the local mesh's frames', each counted from 0.
     counts = {k: counts[k] + oracle[k] + unrolled[k] + prog[k] + sharded[k]
-              for k in counts}
+              + local[k] for k in counts}
 
     # Times on the card, in turns.
     kernels = []

@@ -18,7 +18,7 @@ import time
 import numpy as np
 import torch
 
-from .config import RenderSettings, default_dtype
+from .config import RenderSettings, checked_device, default_dtype
 from .io.yaml_loader import load_scene_file, load_scene_str
 from .render import canvas
 from .render.camera import Camera, compile_camera
@@ -26,14 +26,6 @@ from .render.integrator import render
 from .scene.data import compile_scene
 
 log = logging.getLogger("rray_tpu_torch")
-
-
-def _device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(f"device {device!r} requested, but "
-                           "torch.cuda.is_available() is False")
-    return dev
 
 
 def _build(camera_spec, lights, shapes, width, height, aa, dtype, dev):
@@ -50,7 +42,7 @@ def render_scene(camera_spec, lights, shapes, width: int, height: int,
     (already AA-downsampled). `seed` keys the area lights' jitter draws,
     as rray_tpu's `seed` does (the same seed gives the same image);
     point lights draw no random numbers. dtype None: default_dtype()."""
-    dev = _device(device)
+    dev = checked_device(device)
     settings = settings or RenderSettings()
     scene, cam = _build(camera_spec, lights, shapes, width, height, aa,
                         dtype or default_dtype(), dev)
@@ -101,7 +93,7 @@ def render_scene_progressive(path: str, width: int, height: int,
     frame completes."""
     from .render.progressive import ProgressiveRender
 
-    dev = _device(device)
+    dev = checked_device(device)
     settings = settings or RenderSettings()
     camera_spec, lights, shapes = load_scene_file(path)
     scene, cam = _build(camera_spec, lights, shapes, width, height, aa,

@@ -17,6 +17,17 @@ import torch
 EPSILON = 1e-5
 
 
+def checked_device(device="cuda") -> torch.device:
+    """`device` as a torch.device; a CUDA device where CUDA is missing is
+    a RuntimeError (no path falls back to the CPU by itself: the caller
+    passes "cpu" for the plain versions)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested, but "
+                           "torch.cuda.is_available() is False")
+    return dev
+
+
 def default_dtype():
     """Compute dtype of the render path (rray_tpu config.default_dtype):
     float32, the CUDA kernels' type. float64 runs only the plain

@@ -1,12 +1,13 @@
-"""ctypes bindings for the C++ host runtime (native/rray_host.cpp).
+"""ctypes bindings for the C++ host runtime (io/csrc/rray_host.cpp).
 
 The reference's host runtime is native Rust (tobj, the `image` crate);
 ours is C++ behind a C ABI: single-pass OBJ parsing to flat arrays, PNG
-encoding, and the canvas quantization cast. The port compiles its own
-copy of the shared source with g++ at first use, into the build
-directory of its CUDA kernels (`build/rray_tpu_torch/`, named by a hash
-of the source and flags); it never writes into `native/`. Every caller
-has a pure-Python fallback, so a missing toolchain only costs speed.
+encoding, and the canvas quantization cast. The source is the package's
+own copy of rray_tpu's `native/rray_host.cpp` (the same bytes), shipped
+as package data; g++ compiles it at first use into the build directory
+of the CUDA kernels (`build/rray_tpu_torch/`, named by a hash of the
+source and flags). Every caller has a pure-Python fallback, so a
+missing toolchain only costs speed.
 """
 from __future__ import annotations
 
@@ -24,8 +25,8 @@ _LOCK = threading.Lock()
 _LIB = None
 _TRIED = False
 
-_SRC = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
-    os.path.abspath(__file__)))), "native", "rray_host.cpp")
+_SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
+                    "rray_host.cpp")
 _FLAGS = ("-O2", "-shared", "-fPIC")
 
 

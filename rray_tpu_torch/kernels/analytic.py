@@ -197,7 +197,6 @@ def area_shadow_fraction_reference(over_comps, seed: int, light_params,
 
 def _launch(over_comps, seed, light_params, prim_params, kinds, level,
             bounds=None):
-    global launches
     from . import build
 
     device = over_comps[0].device
@@ -224,7 +223,7 @@ def _launch(over_comps, seed, light_params, prim_params, kinds, level,
             ptr(prim_params), ptr(bounds), ptr(kinds_t), P, level, int(seed),
             ptr(frac), R, build.stream(device))
     build.check_launch("area_shadow_fraction", rc)
-    launches += 1
+    build.count(globals(), "launches")
     return frac
 
 

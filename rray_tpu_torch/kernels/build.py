@@ -42,6 +42,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _LOCK = threading.Lock()
 _LIB = None
+# The one lock of the kernel modules' counters (launches, table and tree
+# builds): over a local mesh (parallel/mesh.py) the wrappers run on
+# several threads at once, and `n += 1` is a read, an add and a write.
+COUNT_LOCK = threading.Lock()
 # What the last load did: {"path", "cache_hit", "seconds", "log"}.
 last_build: dict = {}
 
@@ -98,6 +102,13 @@ def _compile(path: str) -> str:
             if os.path.exists(obj):
                 os.remove(obj)
     return "".join(log)
+
+
+def count(namespace: dict, name: str):
+    """Add one to the counter `name` of a kernel module (its globals())
+    under COUNT_LOCK."""
+    with COUNT_LOCK:
+        namespace[name] += 1
 
 
 def load_library():

@@ -162,7 +162,8 @@ def card_tables(tri_comps, aux=(), leaf: int = LEAF) -> Tables:
     rray_tpu's heap (`build_tree`) with leaves of `leaf` triangles, the
     node rows (`card_nodes`), the walk rows (p1 e1 e2 and three zeros)
     and the payload table (triangles.pack_table)."""
-    global tree_builds
+    from . import build
+
     T = tri_comps[0].shape[0]
     node_boxes, _, Lp = build_tree(tri_comps[0:3], tri_comps[3:6],
                                    tri_comps[6:9], leaf, leaf)
@@ -171,13 +172,12 @@ def card_tables(tri_comps, aux=(), leaf: int = LEAF) -> Tables:
     walk[:, :9] = torch.stack([c.float() for c in tri_comps[:9]], 1)
     block = torch.cat([card_nodes(node_boxes, T, Lp, leaf).reshape(-1),
                        walk.reshape(-1)])
-    tree_builds += 1
+    build.count(globals(), "tree_builds")
     return Tables(block, tri.pack_table(tri_comps, aux), T, Lp, leaf,
                   len(tri_comps) == 18, len(aux))
 
 
 def _launch(ro_comps, rd_comps, tri_comps, dist, aux, any_hit, tables):
-    global launches
     from . import build
 
     device = ro_comps[0].device
@@ -212,7 +212,7 @@ def _launch(ro_comps, rd_comps, tri_comps, dist, aux, any_hit, tables):
             len(aux), build.ptr(fout), build.ptr(iout), R, int(staged),
             build.ptr(counter), build.stream(device))
     build.check_launch("bvh_closest_triangle", rc)
-    launches += 1
+    build.count(globals(), "launches")
     rows = fout.unbind(0)
     return rows[:3] + (iout,) + rows[3:]
 

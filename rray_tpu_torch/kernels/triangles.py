@@ -270,7 +270,6 @@ def chunk_tables(tri_comps, aux=(), group: int = GROUP) -> Tables:
     `group` rows; each exactly as chunk_boxes computes it) and the
     geometry rows (p1 e1 e2 and three zeros), and the payload table
     (pack_table) that the kernels read for the winner only."""
-    global table_builds
     T = tri_comps[0].shape[0]
     chunk = group * -(-chunk_size(T) // group)
     geom = [c.float() for c in tri_comps[:9]]
@@ -280,7 +279,7 @@ def chunk_tables(tri_comps, aux=(), group: int = GROUP) -> Tables:
     block = torch.cat([box_rows(chunks[:, -1:]), box_rows(chunks[:, :-1]),
                        box_rows(chunk_boxes(geom, group)[:, :-1]),
                        rows.reshape(-1)])
-    table_builds += 1
+    build.count(globals(), "table_builds")
     return Tables(block, pack_table(tri_comps, aux), T, group, chunk,
                   len(tri_comps) == 18, len(aux))
 
@@ -299,7 +298,6 @@ def check_tables(tables: Tables, T: int, normals: bool, n_aux: int,
 def _launch(ro_comps, rd_comps, bound, tables: Tables, any_hit: bool):
     """Launch the closest-hit (bound: t_init or None) or any-hit (bound:
     dist) kernel over `tables`."""
-    global closest_launches, any_launches
     device = ro_comps[0].device
     R = check_rays(ro_comps, rd_comps, device,
                    () if bound is None else (bound,))
@@ -318,7 +316,7 @@ def _launch(ro_comps, rd_comps, bound, tables: Tables, any_hit: bool):
         with build.device_guard(device):
             rc = lib.any_triangle_launch(*head, ints.data_ptr(), *tail)
         build.check_launch("any_triangle", rc)
-        any_launches += 1
+        build.count(globals(), "any_launches")
         return ints[:R]
     build.check_arg("tables.payload", tables.payload,
                     tuple(tables.payload.shape), device)
@@ -330,7 +328,7 @@ def _launch(ro_comps, rd_comps, bound, tables: Tables, any_hit: bool):
             int(tables.normals), tables.n_aux, fout.data_ptr(),
             ints.data_ptr(), *tail)
     build.check_launch("closest_triangle", rc)
-    closest_launches += 1
+    build.count(globals(), "closest_launches")
     rows = fout.unbind(0)
     return rows[:3] + (ints[:R],) + rows[3:]
 

@@ -418,7 +418,8 @@ def kernel_inputs(scene, settings, seed=0):
 
 
 def _scene_inputs(scene, depth: int, W: int) -> dict:
-    global table_builds
+    from . import build
+
     pat_tbl, descrs = pack_patterns(scene)
     inputs = dict(
         prim_tbl=pack_prims(scene), pat_tbl=pat_tbl,
@@ -436,7 +437,7 @@ def _scene_inputs(scene, depth: int, W: int) -> dict:
     tex_tbl, tex_meta = pack_texels(scene)
     if tex_tbl is not None:
         inputs["tex_tbl"], inputs["tex_meta"] = tex_tbl, tex_meta
-    table_builds += 1
+    build.count(globals(), "table_builds")
     return inputs
 
 
@@ -1210,7 +1211,6 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             pat_descrs, prim_pat, depth, W, has_refl, has_refr, tri_tbl=None,
             tri_boxes=None, *, light_levels, seeds, csg=((), ()),
             tex_tbl=None, tex_meta=(), width=None):
-    global launches
     from . import build
 
     device = ro_comps[0].device
@@ -1289,7 +1289,7 @@ def _launch(ro_comps, rd_comps, prim_tbl, pat_tbl, light_tbl, kinds,
             ctypes.byref(blocks),
             build.stream(device))
     build.check_launch("whitted", rc)
-    launches += 1
+    build.count(globals(), "launches")
     last_launch.update(W=W, ext=kt.ext, KB=kt.KB, smem=kt.smem,
                        blocks_per_sm=blocks.value)
     return tuple(outs)

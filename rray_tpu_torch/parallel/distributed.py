@@ -10,6 +10,12 @@ the PNG). Two processes on the CPU, or two ranks on one card, use gloo
 (NCCL refuses two ranks on one GPU); with a card per rank, NCCL. The
 backend is the caller's choice and never changes by itself.
 
+A job of one process drives several devices without a process group:
+`mesh.make_mesh(devices=[...])` is a local mesh, every entry in this
+process, run in turn from one thread. It does not combine
+with a process group: `make_mesh(devices=...)` raises ValueError once
+`init_distributed` has joined one, so a rank drives one device.
+
     torchrun --nproc-per-node 2 script.py   # script: init_distributed(),
                                             # global_mesh("cpu"), ...
 """

@@ -11,13 +11,18 @@ leaves in both packages. `torch.optim` takes the place of optax; the
 optimizer's state travels in TrainState as its state_dict, as optax's
 does. The step runs on the scene's device.
 
-The sharded step (`mesh=`, parallel/mesh.py): each rank renders its
+The sharded step (`mesh=`, parallel/mesh.py): each entry renders its
 block of raster rows and takes its share of the whole frame's mean, the
-sum of its squared errors over vsize * hsize * 3; the gradients (and
-the loss) are summed over the ranks in one all-reduce, so every rank
-steps the same parameters with the single-process gradients. (A mean
-per rank, averaged over the ranks, would weigh the pixels of a short
-block more.)
+sum of its squared errors over vsize * hsize * 3. (A mean per entry,
+averaged over the entries, would weigh the pixels of a short block
+more.) Over a process group the gradients (and the loss) are summed
+over the ranks in one all-reduce, so every rank steps the same
+parameters with the single-process gradients. Over a local mesh each
+entry renders from differentiable `.to(device)` copies of the one set
+of parameters (mesh.run_entries; on the parameters' own device the
+parameters themselves), the shares are summed on the first entry's
+device, and one backward reaches the parameters through the copies; no
+collective runs.
 """
 from __future__ import annotations
 
@@ -32,7 +37,7 @@ from ..ops.vec import div
 from ..render.camera import CameraData
 from ..render.integrator import render, render_block
 from ..scene import data as sd
-from .mesh import Mesh, row_block
+from .mesh import Mesh, replica, row_block, run_entries
 
 
 def partition_scene(scene: sd.SceneData, trainable=None):
@@ -55,14 +60,30 @@ def merge_scene(params: dict, rest: sd.SceneData) -> sd.SceneData:
 def render_loss(params: dict, rest, cam: CameraData, target, settings,
                 seed: int = 0, mesh: Mesh = None):
     """Mean-squared pixel loss of a full render against `target`. With a
-    mesh, this rank's share of it: the squared errors of its block of
-    rows (mesh.row_block) summed and divided by the whole frame's
-    vsize * hsize * 3, which the ranks' shares sum to."""
-    scene = merge_scene(params, rest)
+    process-group mesh, this rank's share of it: the squared errors of
+    its block of rows (mesh.row_block) summed and divided by the whole
+    frame's vsize * hsize * 3, which the ranks' shares sum to. With a
+    local mesh, every entry's share, from replicas of the parameters,
+    summed in entry order on the mesh's first device: the whole loss."""
     if mesh is None:
-        image = render(scene, cam, settings, seed)
+        image = render(merge_scene(params, rest), cam, settings, seed)
         return torch.mean((image - target) ** 2)
-    r0, r1, _ = row_block(cam.vsize, mesh)
+    if not mesh.devices:
+        return _share(merge_scene(params, rest), cam, target, settings,
+                      seed, row_block(cam.vsize, mesh))
+    parts = [(merge_scene({k: t.to(d) for k, t in params.items()},
+                          replica(rest, d)), replica(cam, d), target.to(d))
+             for d in mesh.devices]
+    shares = run_entries(mesh, lambda i, device: _share(
+        *parts[i], settings, seed, row_block(cam.vsize, mesh, i)))
+    return sum((s.to(mesh.device) for s in shares[1:]),
+               shares[0].to(mesh.device))
+
+
+def _share(scene, cam: CameraData, target, settings, seed, rows):
+    """The squared errors of raster rows rows[0]:rows[1] against the
+    target's, over the whole frame's vsize * hsize * 3."""
+    r0, r1, _ = rows
     block = render_block(scene, cam, r0, r1, settings, seed)
     return div(((block - target[r0:r1]) ** 2).sum(),
                cam.vsize * cam.hsize * 3)
@@ -115,11 +136,13 @@ def make_train_step(rest, cam: CameraData, settings: RenderSettings,
     target, seed=0) -> (new state, the loss before the update). The
     optimizer `optimizer` makes (the factory given to init_train_state)
     takes the state's opt_state, one gradient of render_loss, and steps
-    the parameters in place. With a mesh (parallel/mesh.py, its axis
-    named `axis`), every rank calls the step with the whole target: it
-    renders its rows, all_reduce_grads sums the gradients and the loss
-    over the ranks, and each rank steps its own copy of the parameters
-    identically."""
+    the parameters in place. With a process-group mesh (parallel/mesh.py,
+    its axis named `axis`), every rank calls the step with the whole
+    target: it renders its rows, all_reduce_grads sums the gradients and
+    the loss over the ranks, and each rank steps its own copy of the
+    parameters identically. With a local mesh, render_loss renders every
+    entry's rows from copies of the parameters and one backward sums
+    their gradients into the parameters."""
     if mesh is not None and axis != mesh.axis:
         raise ValueError(f"axis {axis!r} is not the mesh's {mesh.axis!r}")
 
@@ -131,7 +154,7 @@ def make_train_step(rest, cam: CameraData, settings: RenderSettings,
                            target.to(rest.device), settings, seed, mesh)
         if loss.requires_grad:
             loss.backward()
-        if mesh is not None and mesh.size > 1:
+        if mesh is not None and mesh.size > 1 and not mesh.devices:
             loss = all_reduce_grads(state.params, loss, mesh)
         opt.step()
         return TrainState(state.params, opt.state_dict(),

@@ -13,6 +13,7 @@ import numpy as np
 import torch
 
 from .. import mathutils as mu
+from ..config import checked_device
 from ..ops.intersect import affine
 from ..ops.vec import V3
 
@@ -54,7 +55,10 @@ class CameraData:
 
 
 def compile_camera(cam: Camera, dtype=torch.float32,
-                   device="cpu") -> CameraData:
+                   device="cuda") -> CameraData:
+    """The camera's parameters on `device` (the card unless the caller
+    passes "cpu"; config.checked_device)."""
+    device = checked_device(device)
     t = lambda v: torch.as_tensor(v, dtype=dtype, device=device)
     hw, hh, ps = cam._derived
     return CameraData(inv=t(mu.affine(mu.inverse(cam.transform))),

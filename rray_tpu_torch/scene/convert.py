@@ -18,6 +18,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..config import checked_device
 from . import data as sd
 
 
@@ -89,11 +90,14 @@ def _pattern_from_numpy(f, m, dtype, device):
         b=_pattern_from_numpy(f["b"], m["b"], dtype, device))
 
 
-def scene_from_numpy(fields, meta, device="cpu", dtype=None) -> sd.SceneData:
-    """Build the port's SceneData from (fields, meta).
+def scene_from_numpy(fields, meta, device="cuda",
+                     dtype=None) -> sd.SceneData:
+    """Build the port's SceneData from (fields, meta) on `device` (the
+    card unless the caller passes "cpu"; config.checked_device).
 
     `dtype` is the float dtype of the tables; by default the float dtype
     of `fields["cls_table"]` is kept."""
+    device = checked_device(device)
     dtype = dtype or _FLOAT_DTYPES[np.asarray(fields["cls_table"]).dtype]
     t = lambda v: _to_tensor(v, dtype, device)
     opt = lambda v: None if v is None else t(v)

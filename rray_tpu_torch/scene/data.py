@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from .. import mathutils as mu
+from ..config import checked_device
 
 # Primitive type codes.
 SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, TRIANGLE = range(7)
@@ -463,8 +464,10 @@ def _compile_light(light, dtype, device) -> LightData:
 
 
 def compile_scene(objects, lights, dtype=torch.float32,
-                  device="cpu") -> SceneData:
-    """Fold a host scene graph into SoA tables on `device`."""
+                  device="cuda") -> SceneData:
+    """Fold a host scene graph into SoA tables on `device` (the card
+    unless the caller passes "cpu"; config.checked_device)."""
+    device = checked_device(device)
     leaves, csgs = [], []
     for obj in objects:
         if not obj.hidden:

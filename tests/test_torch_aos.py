@@ -117,7 +117,7 @@ def _case(tmp, name):
     path = write(tmp)
     cam_spec, lights, shapes = jax_yaml.load_scene_file(path)
     jscene = compile_scene(shapes, lights, dtype=jnp.float64)
-    tscene = scene_from_numpy(*scene_to_numpy(jscene))
+    tscene = scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
     jc = jcam.Camera(W, H, cam_spec["fov"])
     jc.transform = cam_spec["transform"]
     tc = camera.Camera(W, H, cam_spec["fov"])
@@ -128,7 +128,7 @@ def _case(tmp, name):
             RenderSettings(depth=depth, tri_chunk=chunk,
                            wavefront_capacity=2 ** depth),
             jcam.compile_camera(jc, jnp.float64),
-            camera.compile_camera(tc, torch.float64))
+            camera.compile_camera(tc, torch.float64, "cpu"))
 
 
 @pytest.fixture(scope="module")

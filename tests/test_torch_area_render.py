@@ -79,7 +79,7 @@ def test_any_number_of_analytic_prims_reaches_the_area_kernel(
     as rray_tpu does, and never to the plain sample loop."""
     _, lights, shapes = load_scene_file(ms.write_scene(
         str(tmp_path), "many", lat_lon=None, spheres=800, area_level=2))
-    scene = compile_scene(shapes, lights)
+    scene = compile_scene(shapes, lights, device="cpu")
     calls = []
     monkeypatch.setattr(analytic, "area_shadow_fraction",
                         lambda *a, **k: calls.append(a) or torch.zeros(4))

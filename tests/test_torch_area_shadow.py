@@ -43,7 +43,7 @@ def _scenes(dtype, level):
                       vvec=np.array([0.0, 1.5, 0.0]), level=level,
                       intensity=np.ones(3))
     jscene = compile_scene(shapes, [light], dtype=getattr(jnp, dtype))
-    return jscene, scene_from_numpy(*scene_to_numpy(jscene))
+    return jscene, scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
 
 
 def _over(n, dtype):

@@ -34,7 +34,7 @@ def _area_scenes(dtype, floor_reflective=0.0, level=None):
     if level is not None:
         lights[0].level = level
     jscene = compile_scene(shapes, lights, dtype=getattr(jnp, dtype))
-    return jscene, scene_from_numpy(*scene_to_numpy(jscene))
+    return jscene, scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
 
 
 def _port(tscene, o, d, seed, depth=5):

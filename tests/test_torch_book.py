@@ -40,7 +40,7 @@ PORT = types.SimpleNamespace(
     Shape=rt.Shape, Material=rt.Material, Pattern=rt.Pattern,
     PointLight=rt.PointLight, mu=tmu,
     compile=lambda objs, lights: rt.compile_scene(
-        objs, lights, dtype=torch.float64))
+        objs, lights, dtype=torch.float64, device="cpu"))
 JSET = rray_tpu.RenderSettings()
 TSET = rt.RenderSettings()
 R2 = np.sqrt(2.0) / 2
@@ -535,7 +535,8 @@ def test_rays_for_pixels(case):
     jc = jcam.Camera(201, 101, np.pi / 2)
     if transform is not None:
         tc.transform, jc.transform = transform(tmu), transform(jmu)
-    ro, rd = tcam.rays_for_pixels(tcam.compile_camera(tc, torch.float64),
+    tc = tcam.compile_camera(tc, torch.float64, "cpu")
+    ro, rd = tcam.rays_for_pixels(tc,
                                   torch.tensor([px]), torch.tensor([py]))
     jro, jrd = jcam.rays_for_pixels(jcam.compile_camera(jc, jnp.float64),
                                     jnp.asarray([px]), jnp.asarray([py]))

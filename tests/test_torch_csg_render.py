@@ -56,13 +56,14 @@ def test_fast_node_tex5r_matches_xla_f64(area_level, tmp_path, monkeypatch):
                             area_level=area_level, split_csg=True)
     _, lights, shapes = jax_yaml.load_scene_file(path)
     jscene = compile_scene(shapes, lights, dtype=jnp.float64)
-    tscene = scene_from_numpy(*scene_to_numpy(jscene))
+    tscene = scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
     assert not tscene.csg_ops and integrator.route(tscene) == "fast"
     assert "reflection" in whitted.unsupported(tscene)
     cam_spec, _, _ = jax_yaml.load_scene_file(path)
     cam = camera.Camera(32, 18, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
-    ro, rd = camera.all_rays_soa(camera.compile_camera(cam, torch.float64))
+    ro, rd = camera.all_rays_soa(camera.compile_camera(cam, torch.float64,
+                                                        "cpu"))
     depth = 5
     ref = jax_integrator._color_at_soa_xla(
         jscene, JV3(*(jnp.asarray(c.numpy()) for c in (ro.x, ro.y, ro.z))),
@@ -95,11 +96,13 @@ def test_config5_routes(tmp_path):
                               split_csg=True): "fast"}
     for path, want in cases.items():
         _, lights, shapes = load_scene_file(path)
-        assert integrator.route(port_compile(shapes, lights)) == want
+        scene = port_compile(shapes, lights, device="cpu")
+        assert integrator.route(scene) == want
     # A textured reflective scene WITH a CSG: the sorted node.
     path = ms.write_config5(tmp, "csg_tex_refl", floor_reflective=0.3)
     _, lights, shapes = load_scene_file(path)
-    assert integrator.route(port_compile(shapes, lights)) == "sorted"
+    scene = port_compile(shapes, lights, device="cpu")
+    assert integrator.route(scene) == "sorted"
     # 10x8: at 8x6 and at odd heights a config 5 pixel lands on a
     # checker edge of the floor, where rounding picks the square (and
     # rray_tpu's compiled frame differs from its own scan).

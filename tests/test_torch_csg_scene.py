@@ -75,7 +75,8 @@ def _both(path):
     _, lights, shapes = jax_yaml.load_scene_file(path)
     jscene = jax_compile(shapes, lights, dtype=jnp.float32)
     _, lights, shapes = load_scene_file(path)
-    return jscene, compile_scene(shapes, lights, dtype=torch.float32)
+    return jscene, compile_scene(shapes, lights, dtype=torch.float32,
+                                  device="cpu")
 
 
 @pytest.mark.parametrize("name", ["csg_showcase", "nested"])

@@ -35,7 +35,7 @@ CSG = os.path.join(tp.BASE, "examples", "csg_showcase.yaml")
 def _scenes(path, dtype):
     _, lights, shapes = jax_yaml.load_scene_file(path)
     jscene = compile_scene(shapes, lights, dtype=getattr(jnp, dtype))
-    return jscene, scene_from_numpy(*scene_to_numpy(jscene))
+    return jscene, scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
 
 
 def _port(tscene, o, d, seed, depth=5):

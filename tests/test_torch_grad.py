@@ -246,10 +246,10 @@ def _mesh_scene(lat_lon):
     with tempfile.TemporaryDirectory() as tmp:
         spec, lights, shapes = load_scene_file(
             ms.write_scene(tmp, "m", lat_lon=lat_lon))
-    scene = sd.compile_scene(shapes, lights, dtype=torch.float64)
+    scene = sd.compile_scene(shapes, lights, dtype=torch.float64, device="cpu")
     cam = Camera(16, 12, spec["fov"])
     cam.transform = spec["transform"]
-    return scene, all_rays_soa(compile_camera(cam, torch.float64))
+    return scene, all_rays_soa(compile_camera(cam, torch.float64, "cpu"))
 
 
 @pytest.mark.parametrize("route", ["closest_triangle", "bvh_closest_triangle"])
@@ -347,7 +347,7 @@ def test_canonicalize_matches_rray_tpu(case):
             jnp.asarray(fields[jax.tree_util.keystr(p)[1:]])
             if jax.tree_util.keystr(p)[1:] in fields else v
             for p, v in flat])
-    scene = scene_from_numpy(fields, meta)
+    scene = scene_from_numpy(fields, meta, device="cpu")
     want = scene_to_numpy(jax_canonicalize(jscene))[0]
     got = scene_to_numpy(sd.canonicalize(scene))[0]
     for name in sd.TENSOR_FIELDS:
@@ -366,7 +366,7 @@ def test_requires_grad_after_a_render_reaches_the_leaf():
     and the torch folds' tables are not reused while a leaf requires
     grad."""
     scene, cam = _mesh_pair()
-    fresh = scene_from_numpy(*scene_to_numpy(scene))
+    fresh = scene_from_numpy(*scene_to_numpy(scene), device="cpu")
     with torch.no_grad():
         integrator.render(scene, cam, SET)
     grads = []

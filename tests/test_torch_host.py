@@ -78,7 +78,7 @@ def _compile_both(path, jdtype, tdtype):
     _, lights, shapes = jax_yaml.load_scene_file(path)
     _, t_lights, t_shapes = torch_yaml.load_scene_file(path)
     return (jax_compile_scene(shapes, lights, dtype=jdtype),
-            compile_scene(t_shapes, t_lights, dtype=tdtype))
+            compile_scene(t_shapes, t_lights, dtype=tdtype, device="cpu"))
 
 
 @pytest.mark.parametrize("path", EXAMPLES, ids=os.path.basename)
@@ -117,7 +117,8 @@ def test_camera_rays_match_f64(w, h):
     tc.transform = cam_spec["transform"]
     jro, jrd = jax_camera.all_rays_soa(jax_camera.compile_camera(
         jc, jnp.float64))
-    tro, trd = camera.all_rays_soa(camera.compile_camera(tc, torch.float64))
+    tro, trd = camera.all_rays_soa(camera.compile_camera(tc, torch.float64,
+                                                        "cpu"))
     for j, t in ((jro, tro), (jrd, trd)):
         for a in "xyz":
             np.testing.assert_allclose(getattr(t, a).numpy(),
@@ -143,7 +144,7 @@ def test_scene_from_numpy_gives_port_tables(path, dtype):
     compile of the same file, tables and structure."""
     jscene, tscene = _compile_both(path, getattr(jnp, dtype),
                                    getattr(torch, dtype))
-    carried = scene_from_numpy(*scene_to_numpy(jscene))
+    carried = scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
     assert carried.dtype == getattr(torch, dtype)
     _assert_tree_equal(scene_to_numpy(carried), scene_to_numpy(tscene))
 
@@ -158,7 +159,9 @@ def test_port_imports_no_jax():
             "rray_tpu_torch.ops.jitter, rray_tpu_torch.ops.noise, "
             "rray_tpu_torch.ops.quartic, rray_tpu_torch.io.mesh_scenes, "
             "rray_tpu_torch.config, rray_tpu_torch.scene.convert, "
-            "rray_tpu_torch.render.camera; "
+            "rray_tpu_torch.render.camera, rray_tpu_torch.parallel.mesh, "
+            "rray_tpu_torch.parallel.train, "
+            "rray_tpu_torch.parallel.distributed; "
             "from rray_tpu_torch.render import integrator; "
             "bad = sorted(m for m in sys.modules if m == 'jax' "
             "or m.startswith(('jax.', 'rray_tpu.')) or m == 'rray_tpu'); "
@@ -167,3 +170,38 @@ def test_port_imports_no_jax():
     proc = subprocess.run([sys.executable, "-c", code], cwd=BASE, env=env,
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr
+
+
+def test_compute_api_runs_on_the_card_by_default(monkeypatch):
+    """compile_scene, compile_camera and scene_from_numpy put their
+    tensors on the card unless the caller passes device="cpu": without
+    CUDA the default raises and returns nothing on the CPU."""
+    spec, lights, shapes = torch_yaml.load_scene_file(SLICE[1])
+    jscene, _ = _compile_both(SLICE[1], jnp.float32, torch.float32)
+    cam = camera.Camera(8, 6, spec["fov"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    calls = (lambda **kw: compile_scene(shapes, lights, **kw),
+             lambda **kw: camera.compile_camera(cam, torch.float32, **kw),
+             lambda **kw: scene_from_numpy(*scene_to_numpy(jscene), **kw))
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+        assert call(device="cpu") is not None
+    assert compile_scene(shapes, lights, device="cpu").device == \
+        torch.device("cpu")
+
+
+def test_host_library_builds_from_the_ports_own_source():
+    """io/native.py compiles the package's copy of the host runtime,
+    which is native/rray_host.cpp byte for byte, into the port's build
+    directory."""
+    from rray_tpu_torch.io import native
+
+    package = os.path.join(BASE, "rray_tpu_torch")
+    src = os.path.abspath(native._SRC)
+    assert src.startswith(package + os.sep), src
+    with open(src, "rb") as a, open(os.path.join(
+            BASE, "native", "rray_host.cpp"), "rb") as b:
+        assert a.read() == b.read()
+    assert os.path.dirname(native.library_path()) == os.path.join(
+        BASE, "build", "rray_tpu_torch")

@@ -108,7 +108,7 @@ def test_routing(tmp_path):
     def scene(name, **kw):
         _, lights, shapes = load_scene_file(
             ms.write_scene(str(tmp_path), name, **kw))
-        return compile_scene(shapes, lights)
+        return compile_scene(shapes, lights, device="cpu")
 
     assert integrator.route(scene("small", lat_lon=(11, 11))) == "kernel"
     big = scene("big", lat_lon=(24, 24))
@@ -121,7 +121,8 @@ def test_routing(tmp_path):
     path = ms.write_scene(str(tmp_path), "glassy", lat_lon=(3, 4))
     _, lights, shapes = load_scene_file(path)
     shapes[1].children[0].material.transparency = 0.5
-    assert integrator.route(compile_scene(shapes, lights)) == "sorted"
+    scene = compile_scene(shapes, lights, device="cpu")
+    assert integrator.route(scene) == "sorted"
     cam_spec, jlights, jshapes = jax_yaml.load_scene_file(path)
     jshapes[1].children[0].material.transparency = 0.5
     want = np.asarray(jax_api.render_scene(cam_spec, jlights, jshapes, 8, 6,

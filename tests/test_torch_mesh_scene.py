@@ -32,7 +32,7 @@ def _compile_both(path, jdtype, tdtype):
     _, lights, shapes = jax_yaml.load_scene_file(path)
     _, t_lights, t_shapes = torch_yaml.load_scene_file(path)
     return (jax_compile_scene(shapes, lights, dtype=jdtype),
-            compile_scene(t_shapes, t_lights, dtype=tdtype))
+            compile_scene(t_shapes, t_lights, dtype=tdtype, device="cpu"))
 
 
 @pytest.mark.parametrize("name", list(SCENES))
@@ -41,7 +41,7 @@ def test_compile_scene_mesh_tables_match_f64(name, tmp_path):
     jscene, tscene = _compile_both(path, jnp.float64, torch.float64)
     assert tscene.counts[6] > 0
     _assert_tree_equal(scene_to_numpy(jscene), scene_to_numpy(tscene))
-    carried = scene_from_numpy(*scene_to_numpy(jscene))
+    carried = scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
     _assert_tree_equal(scene_to_numpy(carried), scene_to_numpy(tscene))
 
 
@@ -70,7 +70,7 @@ def test_group_transform_and_flat_normals(tmp_path):
     jscene = jax_compile_scene(*scene(JShape, JMaterial, JPointLight, jmu),
                                dtype=jnp.float64)
     tscene = compile_scene(*scene(Shape, Material, PointLight, tmu),
-                           dtype=torch.float64)
+                           dtype=torch.float64, device="cpu")
     assert tscene.counts[6] == 2 and tscene.n_classes == 2
     np.testing.assert_allclose(
         np.linalg.norm(tscene.tri_n1.numpy(), axis=1), 1.0, atol=1e-12)

@@ -46,7 +46,7 @@ def jax_api():
     """rray_tpu's scene API, float64 (the worker's scene functions take it)."""
     return types.SimpleNamespace(pkg=rray_tpu, mu=jax_mu,
                                  load_obj_str=jax_load_obj_str,
-                                 dtype=jnp.float64)
+                                 dtype=jnp.float64, device_kw={})
 
 
 @pytest.fixture(scope="module")

@@ -137,8 +137,8 @@ def _compiled(jscene, spec, width, height):
     cam = Camera(width, height, spec["fov"])
     cam.transform = spec["transform"]
     return ((jscene, jcompile(jcam, jnp.float64)),
-            (scene_from_numpy(*scene_to_numpy(jscene)),
-             compile_camera(cam, torch.float64)))
+            (scene_from_numpy(*scene_to_numpy(jscene), device="cpu"),
+             compile_camera(cam, torch.float64, "cpu")))
 
 
 @pytest.mark.parametrize("band_rows", [4, 7])

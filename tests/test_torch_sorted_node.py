@@ -142,7 +142,7 @@ def test_area_shadow_kernel_gate(split, monkeypatch):
     text = _gate_scene(split)
     _, lights, shapes = jax_load_str(text, ".")
     jscene = compile_scene(shapes, lights, dtype=np.float64)
-    tscene = scene_from_numpy(*scene_to_numpy(jscene))
+    tscene = scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
     assert bool(tscene.csg_ops) != split and tscene.has_transparent
     assert integrator.route(tscene) == ("kernel" if split else "sorted")
     calls = []

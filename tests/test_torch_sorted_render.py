@@ -41,7 +41,8 @@ def test_render_matches_rray_tpu_f64(name, tmp_path):
     write, depth = CASES[name]
     path = write(str(tmp_path))
     _, lights, shapes = load_scene_file(path)
-    assert integrator.route(compile_scene(shapes, lights)) == "sorted"
+    scene = compile_scene(shapes, lights, device="cpu")
+    assert integrator.route(scene) == "sorted"
     want = np.asarray(jax_api.render_scene_from_file(
         path, 16, 12, "", dtype=jnp.float64,
         settings=JaxSettings(depth=depth)))
@@ -62,9 +63,11 @@ def test_routes_and_a_transparent_test_pattern(tmp_path):
 
     glass = os.path.join(ms.EXAMPLES, "glass.yaml")
     _, lights, shapes = load_scene_file(glass)
-    assert integrator.route(compile_scene(shapes, lights)) == "kernel"
+    scene = compile_scene(shapes, lights, device="cpu")
+    assert integrator.route(scene) == "kernel"
     shapes[0].material.pattern = Pattern("test")
-    assert integrator.route(compile_scene(shapes, lights)) == "sorted"
+    scene = compile_scene(shapes, lights, device="cpu")
+    assert integrator.route(scene) == "sorted"
     cam_spec, jlights, jshapes = jax_load(glass)
     jshapes[0].material.pattern = type(jshapes[0].material.pattern)("test")
     want = np.asarray(jax_api.render_scene(cam_spec, jlights, jshapes, 10, 8,
@@ -76,4 +79,5 @@ def test_routes_and_a_transparent_test_pattern(tmp_path):
         _, lights, shapes = load_scene_file(ms.write_scene(
             str(tmp_path), f"s17{glassy}", lat_lon=None, spheres=17,
             glass=glassy))
-        assert integrator.route(compile_scene(shapes, lights)) == node
+        assert integrator.route(compile_scene(shapes, lights,
+                                               device="cpu")) == node

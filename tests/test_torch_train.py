@@ -84,7 +84,7 @@ def test_training_reduces_loss_and_matches_optax():
     (jscene, jcam), (scene, cam) = _small_setup()
     jbad = _corrupt_jax(jscene)
     want = _jax_losses(jscene, jbad, jcam, 25)
-    bad = scene_from_numpy(*scene_to_numpy(jbad))
+    bad = scene_from_numpy(*scene_to_numpy(jbad), device="cpu")
     settings = RenderSettings(**KW)
     with torch.no_grad():
         target = integrator.render(scene, cam, settings)
@@ -127,7 +127,7 @@ def test_train_then_render_path_invariant():
     route (its tolerance, 2e-6), and the step moved the frame."""
     scene, cam = _tetrahedron_scene()
     fields, meta = scene_to_numpy(scene)
-    scene = scene_from_numpy(fields, meta, dtype=torch.float32)
+    scene = scene_from_numpy(fields, meta, device="cpu", dtype=torch.float32)
     cam = dataclasses.replace(cam, **{k: getattr(cam, k).float() for k in (
         "inv", "half_width", "half_height", "pixel_size")})
     settings = RenderSettings(rows_per_tile=24)
@@ -160,10 +160,10 @@ def _geometry_scene(lat_lon):
     with tempfile.TemporaryDirectory() as tmp:
         spec, lights, shapes = load_scene_file(ms.write_scene(
             tmp, "g", lat_lon=lat_lon, spheres=3, area_level=2))
-    scene = sd.compile_scene(shapes, lights, dtype=torch.float64)
+    scene = sd.compile_scene(shapes, lights, dtype=torch.float64, device="cpu")
     cam = Camera(12, 8, spec["fov"])
     cam.transform = spec["transform"]
-    return scene, compile_camera(cam, torch.float64)
+    return scene, compile_camera(cam, torch.float64, "cpu")
 
 
 def _tables(scene):
@@ -200,7 +200,8 @@ def test_kernel_tables_follow_a_train_step(leaf):
     assert moved.kernel_cache == {}
     assert dataclasses.replace(scene).kernel_cache == {}
     got = _tables(sd.canonicalize(moved))
-    want = _tables(sd.canonicalize(scene_from_numpy(*scene_to_numpy(moved))))
+    want = _tables(sd.canonicalize(scene_from_numpy(*scene_to_numpy(moved),
+                                                   device="cpu")))
     assert not any(t.requires_grad for t in old + got)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())

@@ -60,7 +60,7 @@ def test_unported_scenes_raise(name, tmp_path):
         str(tmp_path), name, **{name: 0.5 if name == "transparent_operand"
                                 else True})
     _, lights, shapes = load_scene_file(path)
-    scene = compile_scene(shapes, lights)
+    scene = compile_scene(shapes, lights, device="cpu")
     assert "sorted torch node" in whitted.unsupported(scene)
     assert integrator.route(scene) == "sorted"
     # 10x8: at 8x6 and at odd heights a config 5 pixel lands on a
@@ -81,14 +81,14 @@ def test_applicable_gating():
     _, lights, shapes = load_scene_file(tp.GLASS)
     # Glass plus a torus: stage e with the compact wavefront.
     torus = compile_scene(shapes + [Shape("torus", material=shapes[0].material)],
-                          lights)
+                          lights, device="cpu")
     assert whitted.applicable(torus) and integrator.route(torus) == "kernel"
     assert whitted.needs_ext(torus)
     # More than 16 prims leave the kernel for the torch fast node, which
     # takes opaque scenes: glass with its transparency zeroed.
     for shape in shapes:
         shape.material.transparency = 0.0
-    many = compile_scene(shapes * 5, lights)
+    many = compile_scene(shapes * 5, lights, device="cpu")
     assert len(many.prim_kinds) == 20
     assert "more than 16" in whitted.unsupported(many)
     assert integrator.route(many) == "fast"

@@ -269,11 +269,11 @@ def _scene_path(name, tmp):
                                       ("csg_showcase.yaml", 4), ("csg5r", 4)])
 def test_device_code_matches_plain_version(host_lib, name, cap, tmp_path):
     cam_spec, lights, shapes = load_scene_file(_scene_path(name, tmp_path))
-    scene = compile_scene(shapes, lights, dtype=torch.float32)
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device="cpu")
     assert whitted.applicable(scene)
     cam = Camera(96, 72, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
-    ro, rd = all_rays_soa(compile_camera(cam, torch.float32))
+    ro, rd = all_rays_soa(compile_camera(cam, torch.float32, "cpu"))
     rays = (ro.x, ro.y, ro.z, rd.x, rd.y, rd.z)
     args = whitted.kernel_inputs(scene, RenderSettings(wavefront_capacity=cap),
                                  seed=11)
@@ -490,7 +490,7 @@ def test_area_count_device_code_matches_plain_version(host_lib, level):
         Shape("cone", minimum=-1.0, maximum=0.0, closed=True,
               transform=np.array([[1, 0, 0, 0], [0, 1, 0, 2],
                                   [0, 0, 1, 3], [0, 0, 0, 1.0]]))]
-    scene = compile_scene(shapes, lights, dtype=torch.float32)
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device="cpu")
     light = scene.lights[0]
     lp = torch.cat([light.corner, light.uvec, light.vvec])
     pids = range(len(scene.prim_kinds))
@@ -641,7 +641,7 @@ def test_pattern_programs_match_plain_trees(host_lib, name, tmp_path):
     else:
         path = _scene_path(name, tmp_path)
     _, lights, shapes = load_scene_file(path)
-    scene = compile_scene(shapes, lights, dtype=torch.float32)
+    scene = compile_scene(shapes, lights, dtype=torch.float32, device="cpu")
     rows = range(len(whitted.kernel_inputs(scene, RenderSettings())
                      ["prim_pat"]))
     _assert_patterns_match(_host_patterns(host_lib, scene, rows,
@@ -711,7 +711,7 @@ def test_pattern_programs_depth_limit_and_select_leaves(host_lib, kind):
               for t in trees]
     scene = compile_scene(shapes, [PointLight(np.array([-5.0, 5.0, -5.0]),
                                               np.ones(3))],
-                          dtype=torch.float32)
+                          dtype=torch.float32, device="cpu")
     inputs = whitted.kernel_inputs(scene, RenderSettings())
     depths = [whitted._descr_depth(d) for d in inputs["pat_descrs"]]
     assert max(depths) == whitted.MAX_PATTERN_DEPTH

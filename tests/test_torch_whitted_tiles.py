@@ -19,7 +19,7 @@ BASE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def _example(name):
     _, lights, shapes = load_scene_file(os.path.join(BASE, "examples", name))
-    return compile_scene(shapes, lights, dtype=torch.float32)
+    return compile_scene(shapes, lights, dtype=torch.float32, device="cpu")
 
 
 @pytest.mark.parametrize("w,h", [(9600, 5400), (161, 97), (7, 5), (300, 1)])
@@ -61,7 +61,7 @@ def _csg_of(n):
         node = Shape("csg", operation="union", left=node, right=leaf)
     return compile_scene([node], [PointLight(np.array([-5.0, 5.0, -5.0]),
                                              np.ones(3))],
-                         dtype=torch.float32)
+                         dtype=torch.float32, device="cpu")
 
 
 @pytest.mark.parametrize("case,bucket", [("csg_showcase.yaml", 8),

@@ -33,7 +33,7 @@ def pair(shapes, lights, width, height, fov, transform):
     tcam = Camera(width, height, fov)
     tcam.transform = transform
     return ((jscene, jax_compile_camera(cam, jnp.float64)),
-            (scene_from_numpy(*scene_to_numpy(jscene)),
+            (scene_from_numpy(*scene_to_numpy(jscene), device="cpu"),
              compile_camera(tcam, torch.float64, "cpu")))
 
 

@@ -24,7 +24,8 @@ def scenes(tmp, name, dtype, **kw):
     path = ms.write_scene(str(tmp), name, **kw)
     _, lights, shapes = jax_yaml.load_scene_file(path)
     jscene = compile_scene(shapes, lights, dtype=getattr(jnp, dtype))
-    return path, jscene, scene_from_numpy(*scene_to_numpy(jscene))
+    return path, jscene, scene_from_numpy(*scene_to_numpy(jscene),
+                                          device="cpu")
 
 
 def camera_rays(path, w, h, dtype):
@@ -33,7 +34,7 @@ def camera_rays(path, w, h, dtype):
     cam = camera.Camera(w, h, cam_spec["fov"])
     cam.transform = cam_spec["transform"]
     ro, rd = camera.all_rays_soa(camera.compile_camera(
-        cam, getattr(torch, dtype)))
+        cam, getattr(torch, dtype), "cpu"))
     return ([c.numpy() for c in (ro.x, ro.y, ro.z)],
             [c.numpy() for c in (rd.x, rd.y, rd.z)])
 

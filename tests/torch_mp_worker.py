@@ -58,7 +58,8 @@ def trainable(key):
 
 
 def port_api():
-    """rray_tpu_torch's scene API, float64 on the CPU."""
+    """rray_tpu_torch's scene API, float64 on the CPU (device_kw: the
+    keywords that put its tables there; rray_tpu's API takes none)."""
     import torch
 
     import rray_tpu_torch as pkg
@@ -67,7 +68,7 @@ def port_api():
 
     return types.SimpleNamespace(
         pkg=pkg, mu=mathutils, load_obj_str=load_obj_str,
-        dtype=torch.float64)
+        dtype=torch.float64, device_kw=dict(device="cpu"))
 
 
 def setup(api, width=32, height=24):
@@ -82,10 +83,11 @@ def setup(api, width=32, height=24):
                                                                 0.2]),
                                        diffuse=0.7))
     light = p.PointLight(np.array([-10.0, 10.0, -10.0]), np.ones(3))
-    scene = p.compile_scene([floor, ball], [light], dtype=api.dtype)
+    scene = p.compile_scene([floor, ball], [light], dtype=api.dtype,
+                            **api.device_kw)
     cam = p.Camera(width, height, np.pi / 3)
     cam.transform = mu.view_transform([0, 1.5, -5], [0, 1, 0], [0, 1, 0])
-    return scene, p.compile_camera(cam, api.dtype)
+    return scene, p.compile_camera(cam, api.dtype, **api.device_kw)
 
 
 def hard_setup(api, mesh_in_csg=False, area_extent=1e-6, width=28,
@@ -130,11 +132,12 @@ def hard_setup(api, mesh_in_csg=False, area_extent=1e-6, width=28,
                     np.array([0.0, area_extent, 0.0]),
                     np.full(3, 0.4), level=2),
     ]
-    scene = p.compile_scene(shapes, lights, dtype=api.dtype)
+    scene = p.compile_scene(shapes, lights, dtype=api.dtype,
+                            **api.device_kw)
     cam = p.Camera(width, height, np.pi / 3)
     cam.transform = mu.view_transform([0, 1.8, -4.5], [0.4, 0.8, 0],
                                       [0, 1, 0])
-    return scene, p.compile_camera(cam, api.dtype)
+    return scene, p.compile_camera(cam, api.dtype, **api.device_kw)
 
 
 def case(api, name):

@@ -45,7 +45,7 @@ def scenes(path, dtype, reflection_only=False):
     """(rray_tpu SceneData, the port's SceneData of the same tables)."""
     _, lights, shapes = load(path, reflection_only)
     jscene = compile_scene(shapes, lights, dtype=getattr(jnp, dtype))
-    return jscene, scene_from_numpy(*scene_to_numpy(jscene))
+    return jscene, scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
 
 
 def port_render_rays(tscene, o, d, depth=5, cap=4):

@@ -61,7 +61,8 @@ def scenes(tmp, name):
     path = write(str(tmp))
     _, lights, shapes = jax_yaml.load_scene_file(path)
     jscene = compile_scene(shapes, lights, dtype=jnp.float64)
-    return (path, jscene, scene_from_numpy(*scene_to_numpy(jscene)),
+    tscene = scene_from_numpy(*scene_to_numpy(jscene), device="cpu")
+    return (path, jscene, tscene,
             JaxSettings(pallas="off", tri_chunk=chunk),
             RenderSettings(tri_chunk=chunk))
 
