@@ -24,6 +24,7 @@ from .render import canvas
 from .render.camera import Camera, compile_camera
 from .render.integrator import render
 from .scene.data import compile_scene
+from .utils import profiling
 
 log = logging.getLogger("rray_tpu_torch")
 
@@ -48,10 +49,12 @@ def render_scene(camera_spec, lights, shapes, width: int, height: int,
                         dtype or default_dtype(), dev)
     t0 = time.perf_counter()
     image = render(scene, cam, settings, seed)
-    image = image.cpu().numpy()
+    with profiling.span("copy"):
+        image = image.cpu().numpy()
     dt = time.perf_counter() - t0
-    log.info("rendered %dx%d (aa=%d) on %s: %.3fs, %.3g primary rays/s",
-             width, height, aa, dev, dt, cam.hsize * cam.vsize / max(dt, 1e-9))
+    log.info("rendered %dx%d (aa=%d, %d raster rays) on %s: render and "
+             "copy to the host %.3fs", width, height, aa,
+             cam.hsize * cam.vsize, dev, dt)
     return canvas.downsample(image, aa)
 
 
@@ -59,11 +62,12 @@ def render_scene_from_str(contents: str, width: int, height: int,
                           png_file: str, aa: int = 1, base_dir: str = ".",
                           settings: RenderSettings = None, seed: int = 0,
                           dtype=None, device="cuda") -> np.ndarray:
-    camera_spec, lights, shapes = load_scene_str(contents, base_dir)
-    image = render_scene(camera_spec, lights, shapes, width, height, aa,
-                         settings, seed, dtype, device)
-    if png_file:
-        canvas.write_png(png_file, image)
+    with profiling.span("frame"):
+        camera_spec, lights, shapes = load_scene_str(contents, base_dir)
+        image = render_scene(camera_spec, lights, shapes, width, height, aa,
+                             settings, seed, dtype, device)
+        if png_file:
+            canvas.write_png(png_file, image)
     return image
 
 
@@ -71,11 +75,12 @@ def render_scene_from_file(path: str, width: int, height: int,
                            png_file: str, aa: int = 1,
                            settings: RenderSettings = None, seed: int = 0,
                            dtype=None, device="cuda") -> np.ndarray:
-    camera_spec, lights, shapes = load_scene_file(path)
-    image = render_scene(camera_spec, lights, shapes, width, height, aa,
-                         settings, seed, dtype, device)
-    if png_file:
-        canvas.write_png(png_file, image)
+    with profiling.span("frame"):
+        camera_spec, lights, shapes = load_scene_file(path)
+        image = render_scene(camera_spec, lights, shapes, width, height, aa,
+                             settings, seed, dtype, device)
+        if png_file:
+            canvas.write_png(png_file, image)
     return image
 
 
@@ -95,23 +100,24 @@ def render_scene_progressive(path: str, width: int, height: int,
 
     dev = checked_device(device)
     settings = settings or RenderSettings()
-    camera_spec, lights, shapes = load_scene_file(path)
-    scene, cam = _build(camera_spec, lights, shapes, width, height, aa,
-                        dtype or default_dtype(), dev)
-    prog = None
-    if checkpoint_path and os.path.exists(checkpoint_path):
-        try:
-            prog = ProgressiveRender.resume(checkpoint_path, scene, cam,
-                                            settings, seed, band_rows)
-        except Exception as e:  # truncated/corrupt checkpoint: start over
-            log.warning("checkpoint %s unreadable (%s); starting fresh",
-                        checkpoint_path, e)
-    if prog is None:
-        prog = ProgressiveRender(scene, cam, settings, seed, band_rows,
-                                 checkpoint_path)
-    image = canvas.downsample(prog.run(), aa)
-    if png_file:
-        canvas.write_png(png_file, image)
+    with profiling.span("frame"):
+        camera_spec, lights, shapes = load_scene_file(path)
+        scene, cam = _build(camera_spec, lights, shapes, width, height, aa,
+                            dtype or default_dtype(), dev)
+        prog = None
+        if checkpoint_path and os.path.exists(checkpoint_path):
+            try:
+                prog = ProgressiveRender.resume(checkpoint_path, scene, cam,
+                                                settings, seed, band_rows)
+            except Exception as e:  # truncated/corrupt checkpoint: restart
+                log.warning("checkpoint %s unreadable (%s); starting fresh",
+                            checkpoint_path, e)
+        if prog is None:
+            prog = ProgressiveRender(scene, cam, settings, seed, band_rows,
+                                     checkpoint_path)
+        image = canvas.downsample(prog.run(), aa)
+        if png_file:
+            canvas.write_png(png_file, image)
     return image
 
 

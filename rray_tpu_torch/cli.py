@@ -46,7 +46,8 @@ def build_parser() -> argparse.ArgumentParser:
                         "without CUDA) or cpu (their plain PyTorch "
                         "versions). Default cuda")
     p.add_argument("-v", "--verbose", action="store_true",
-                   help="Log render time and throughput")
+                   help="Log each frame's time to render and copy to "
+                        "the host")
     p.add_argument("--checkpoint", default=None,
                    help="Band-checkpoint file: render progressively and "
                         "resume from it if it exists (crash recovery)")

@@ -17,6 +17,7 @@ import yaml
 
 from .. import mathutils as mu
 from ..scene.data import AreaLight, Material, Pattern, PointLight, Shape
+from ..utils import profiling
 from .obj_loader import load_obj_file
 
 
@@ -186,6 +187,11 @@ def create_shape(s: dict, base_dir: str) -> Shape:
 
 def load_scene_str(contents: str, base_dir: str = "."):
     """Parse a YAML scene -> (camera_spec, lights, shapes)."""
+    with profiling.span("load"):
+        return _parse_scene(contents, base_dir)
+
+
+def _parse_scene(contents: str, base_dir: str):
     doc = yaml.safe_load(contents)
 
     cam = doc["camera"]
@@ -217,6 +223,8 @@ def load_scene_str(contents: str, base_dir: str = "."):
 
 
 def load_scene_file(path: str):
-    with open(path) as f:
-        contents = f.read()
-    return load_scene_str(contents, base_dir=os.path.dirname(os.path.abspath(path)))
+    with profiling.span("load"):
+        with open(path) as f:
+            contents = f.read()
+        return _parse_scene(contents,
+                            os.path.dirname(os.path.abspath(path)))

@@ -35,6 +35,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from ..utils import profiling
 from . import triangles as tri
 
 # Triangles per leaf of the card's tree (PERF.md: the leaf-size sweep).
@@ -164,17 +165,18 @@ def card_tables(tri_comps, aux=(), leaf: int = LEAF) -> Tables:
     and the payload table (triangles.pack_table)."""
     from . import build
 
-    T = tri_comps[0].shape[0]
-    node_boxes, _, Lp = build_tree(tri_comps[0:3], tri_comps[3:6],
-                                   tri_comps[6:9], leaf, leaf)
-    walk = torch.zeros((T, WALK), dtype=torch.float32,
-                       device=tri_comps[0].device)
-    walk[:, :9] = torch.stack([c.float() for c in tri_comps[:9]], 1)
-    block = torch.cat([card_nodes(node_boxes, T, Lp, leaf).reshape(-1),
-                       walk.reshape(-1)])
-    build.count(globals(), "tree_builds")
-    return Tables(block, tri.pack_table(tri_comps, aux), T, Lp, leaf,
-                  len(tri_comps) == 18, len(aux))
+    with profiling.span("tables"):
+        T = tri_comps[0].shape[0]
+        node_boxes, _, Lp = build_tree(tri_comps[0:3], tri_comps[3:6],
+                                       tri_comps[6:9], leaf, leaf)
+        walk = torch.zeros((T, WALK), dtype=torch.float32,
+                           device=tri_comps[0].device)
+        walk[:, :9] = torch.stack([c.float() for c in tri_comps[:9]], 1)
+        block = torch.cat([card_nodes(node_boxes, T, Lp, leaf).reshape(-1),
+                           walk.reshape(-1)])
+        build.count(globals(), "tree_builds")
+        return Tables(block, tri.pack_table(tri_comps, aux), T, Lp, leaf,
+                      len(tri_comps) == 18, len(aux))
 
 
 def _launch(ro_comps, rd_comps, tri_comps, dist, aux, any_hit, tables):

@@ -37,6 +37,7 @@ import torch
 from . import build
 from ..config import EPSILON
 from ..ops.vec import V3
+from ..utils import profiling
 
 CHUNK = 256         # chunk for meshes of 1024 triangles and more
 CHUNK_ALIGN = 8     # small meshes round their chunk up to this
@@ -270,18 +271,20 @@ def chunk_tables(tri_comps, aux=(), group: int = GROUP) -> Tables:
     `group` rows; each exactly as chunk_boxes computes it) and the
     geometry rows (p1 e1 e2 and three zeros), and the payload table
     (pack_table) that the kernels read for the winner only."""
-    T = tri_comps[0].shape[0]
-    chunk = group * -(-chunk_size(T) // group)
-    geom = [c.float() for c in tri_comps[:9]]
-    chunks = chunk_boxes(geom, chunk)  # the last column: the whole table
-    rows = torch.zeros((T, ROW), dtype=torch.float32, device=geom[0].device)
-    rows[:, :9] = torch.stack(geom, 1)
-    block = torch.cat([box_rows(chunks[:, -1:]), box_rows(chunks[:, :-1]),
-                       box_rows(chunk_boxes(geom, group)[:, :-1]),
-                       rows.reshape(-1)])
-    build.count(globals(), "table_builds")
-    return Tables(block, pack_table(tri_comps, aux), T, group, chunk,
-                  len(tri_comps) == 18, len(aux))
+    with profiling.span("tables"):
+        T = tri_comps[0].shape[0]
+        chunk = group * -(-chunk_size(T) // group)
+        geom = [c.float() for c in tri_comps[:9]]
+        chunks = chunk_boxes(geom, chunk)  # the last column: the whole table
+        rows = torch.zeros((T, ROW), dtype=torch.float32,
+                           device=geom[0].device)
+        rows[:, :9] = torch.stack(geom, 1)
+        block = torch.cat([box_rows(chunks[:, -1:]), box_rows(chunks[:, :-1]),
+                           box_rows(chunk_boxes(geom, group)[:, :-1]),
+                           rows.reshape(-1)])
+        build.count(globals(), "table_builds")
+        return Tables(block, pack_table(tri_comps, aux), T, group, chunk,
+                      len(tri_comps) == 18, len(aux))
 
 
 def check_tables(tables: Tables, T: int, normals: bool, n_aux: int,

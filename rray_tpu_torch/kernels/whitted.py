@@ -48,6 +48,7 @@ from ..ops import jitter, noise, quartic, soa
 from ..ops.vec import V3, div
 from ..render import shade_soa
 from ..scene import data as sd
+from ..utils import profiling
 from . import triangles
 from .analytic import OCCLUSION_KINDS, _occludes, area_sample
 
@@ -420,24 +421,25 @@ def kernel_inputs(scene, settings, seed=0):
 def _scene_inputs(scene, depth: int, W: int) -> dict:
     from . import build
 
-    pat_tbl, descrs = pack_patterns(scene)
-    inputs = dict(
-        prim_tbl=pack_prims(scene), pat_tbl=pat_tbl,
-        light_tbl=pack_lights(scene),
-        kinds=tuple(k for k in scene.prim_kinds if k != sd.TRIANGLE),
-        pat_descrs=descrs,
-        prim_pat=tuple(scene.prim_pattern_static[i]
-                       for i in prim_rows(scene)),
-        depth=depth, W=W, has_refl=scene.has_reflective,
-        has_refr=scene.has_transparent, light_levels=light_levels(scene))
-    if scene.counts[6]:
-        inputs["tri_tbl"], inputs["tri_boxes"] = pack_tris(scene)
-    if scene.csg_ops:
-        inputs["csg"] = csg_meta(scene)
-    tex_tbl, tex_meta = pack_texels(scene)
-    if tex_tbl is not None:
-        inputs["tex_tbl"], inputs["tex_meta"] = tex_tbl, tex_meta
-    build.count(globals(), "table_builds")
+    with profiling.span("tables"):
+        pat_tbl, descrs = pack_patterns(scene)
+        inputs = dict(
+            prim_tbl=pack_prims(scene), pat_tbl=pat_tbl,
+            light_tbl=pack_lights(scene),
+            kinds=tuple(k for k in scene.prim_kinds if k != sd.TRIANGLE),
+            pat_descrs=descrs,
+            prim_pat=tuple(scene.prim_pattern_static[i]
+                           for i in prim_rows(scene)),
+            depth=depth, W=W, has_refl=scene.has_reflective,
+            has_refr=scene.has_transparent, light_levels=light_levels(scene))
+        if scene.counts[6]:
+            inputs["tri_tbl"], inputs["tri_boxes"] = pack_tris(scene)
+        if scene.csg_ops:
+            inputs["csg"] = csg_meta(scene)
+        tex_tbl, tex_meta = pack_texels(scene)
+        if tex_tbl is not None:
+            inputs["tex_tbl"], inputs["tex_meta"] = tex_tbl, tex_meta
+        build.count(globals(), "table_builds")
     return inputs
 
 

@@ -7,14 +7,18 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..utils import profiling
+
 
 def downsample(image: np.ndarray, aa: int) -> np.ndarray:
     """Average aa x aa pixel blocks (canvas.rs:76-105)."""
     if aa <= 1:
         return image
-    h, w = image.shape[:2]
-    oh, ow = h // aa, w // aa
-    return image[: oh * aa, : ow * aa].reshape(oh, aa, ow, aa, 3).mean(axis=(1, 3))
+    with profiling.span("downsample"):
+        h, w = image.shape[:2]
+        oh, ow = h // aa, w // aa
+        return image[: oh * aa, : ow * aa].reshape(
+            oh, aa, ow, aa, 3).mean(axis=(1, 3))
 
 
 def to_u8(image: np.ndarray) -> np.ndarray:
@@ -25,7 +29,11 @@ def to_u8(image: np.ndarray) -> np.ndarray:
 
 def write_png(path: str, image: np.ndarray, aa: int = 1) -> None:
     image = downsample(np.asarray(image), aa)
+    with profiling.span("png"):
+        _write_png(path, image)
 
+
+def _write_png(path: str, image: np.ndarray) -> None:
     # Native tier: C++ quantizer + zlib PNG encoder (native/rray_host.cpp).
     from ..io.native import encode_png_native, quantize_native
 

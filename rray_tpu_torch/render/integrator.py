@@ -45,6 +45,7 @@ from ..ops import hits, jitter, normals, prng, soa
 from ..ops.vec import V3, div
 from ..scene import data as sd
 from ..scene.data import SceneData
+from ..utils import profiling
 from . import patterns, shade_soa
 from .camera import CameraData, all_rays, rows_rays_soa
 
@@ -695,10 +696,11 @@ def render_block(scene: SceneData, cam: CameraData, r0: int, r1: int,
     width, keyed by `seed` (an int or a root key)."""
     if r1 <= r0:  # an empty block: a rank past the last row
         return cam.inv.new_zeros((0, cam.hsize, 3))
-    ro, rd = rows_rays_soa(cam, r0, r1)
-    rgb = trace_rays(sd.canonicalize(scene), ro, rd, settings, seed,
-                     cam.hsize)
-    return torch.stack(rgb, dim=-1).reshape(r1 - r0, cam.hsize, 3)
+    with profiling.span("render"):
+        ro, rd = rows_rays_soa(cam, r0, r1)
+        rgb = trace_rays(sd.canonicalize(scene), ro, rd, settings, seed,
+                         cam.hsize)
+        return torch.stack(rgb, dim=-1).reshape(r1 - r0, cam.hsize, 3)
 
 
 def render(scene: SceneData, cam: CameraData,

@@ -29,6 +29,7 @@ import torch
 from ..config import RenderSettings
 from ..ops import prng
 from ..scene import data as sd
+from ..utils import profiling
 from . import integrator
 from .camera import CameraData
 
@@ -118,7 +119,8 @@ class ProgressiveRender:
             with torch.no_grad():
                 band = render_rows(self.scene, self.cam, row0, rows,
                                    self.settings, self.seed)
-            band = band.cpu().numpy()
+            with profiling.span("copy"):
+                band = band.cpu().numpy()
             dt = time.perf_counter() - t0
             self.canvas[row0:row0 + rows] = band
             self.done[b] = True

@@ -25,6 +25,7 @@ import torch
 
 from .. import mathutils as mu
 from ..config import checked_device
+from ..utils import profiling
 
 # Primitive type codes.
 SPHERE, PLANE, CUBE, CYLINDER, CONE, TORUS, TRIANGLE = range(7)
@@ -467,7 +468,11 @@ def compile_scene(objects, lights, dtype=torch.float32,
                   device="cuda") -> SceneData:
     """Fold a host scene graph into SoA tables on `device` (the card
     unless the caller passes "cpu"; config.checked_device)."""
-    device = checked_device(device)
+    with profiling.span("compile"):
+        return _compile_scene(objects, lights, dtype, checked_device(device))
+
+
+def _compile_scene(objects, lights, dtype, device) -> SceneData:
     leaves, csgs = [], []
     for obj in objects:
         if not obj.hidden:

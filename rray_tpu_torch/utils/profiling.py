@@ -5,6 +5,30 @@ CUDA is available, the card's kernels, and writes a Chrome trace
 (`<host>_<pid>.<time>.pt.trace.json`, viewable in chrome://tracing,
 Perfetto or TensorBoard) into the directory; `live_arrays_bytes()`
 reports the device memory that tensors hold.
+
+The program marks the layers of a CLI frame with `span(name)`: in a
+trace they are host ranges named "rray.<name>" on the profiler's own
+clock, beside the card's rows, so the card's idle gaps can be put down
+to the host work open at the time:
+
+    rray.frame       api.render_scene_from_file / _from_str /
+                     render_scene_progressive, the whole call
+    rray.load        io/yaml_loader.py: the YAML parsed into a scene
+    rray.compile     scene/data.py::compile_scene
+    rray.render      integrator.render_block: the rays, the route, the
+                     tables and the launches, enqueued with no wait
+    rray.tables      a per-scene kernel table packed (whitted, the
+                     triangle kernels, the BVH tree)
+    rray.copy        the raster (or a band) copied to the host
+    rray.downsample  canvas.downsample, where aa > 1
+    rray.png         canvas.write_png: quantize, encode, write
+
+With no profiler recording, a span is one flag check and a shared
+no-op; it never synchronizes the card. An operator sees the spans by
+tracing a frame; the Chrome trace holds them as `rray.*` ranges:
+
+    with trace("/tmp/rray-trace"):
+        api.render_scene_from_file("scene.yaml", 800, 600, "out.png")
 """
 from __future__ import annotations
 
@@ -12,6 +36,20 @@ import contextlib
 import os
 
 import torch
+
+PREFIX = "rray."
+
+_recording = torch._C._autograd._profiler_enabled
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks `name` as the range "rray.<name>"
+    while a torch.profiler profile records, and does nothing
+    otherwise."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(PREFIX + name)
 
 
 @contextlib.contextmanager
@@ -45,3 +83,4 @@ def live_arrays_bytes(device="cuda") -> int:
         raise RuntimeError(f"device {device!r} requested, but "
                            "torch.cuda.is_available() is False")
     return torch.cuda.memory_allocated(dev)
+
