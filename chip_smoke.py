@@ -64,7 +64,12 @@ single-process step; and the compute API with no device argument
 (compile_scene, compile_camera) rendering glass on the card. The JSON
 line's launches count the main path's runs, the oracle's routed
 frames, the unrolled runs, the progressive frames, both ranks' sharded
-frames and the local mesh's frames, each from 0. It prints the card,
+frames and the local mesh's frames, each from 0; a main-path frame
+launches the box-filter kernel (kernels/downsample.py) once at aa > 1
+and never at aa = 1, and the progressive frames never. The downsample
+phase holds that kernel bit for bit against canvas.downsample on a
+9600x5400 raster and times it beside its byte bound, its plain version
+and torch.mean, for its row of the JSON line. It prints the card,
 one line per phase, a JSON line describing the kernels, and last a JSON
 line naming the device. Any failure exits non-zero before the last
 line; without CUDA it exits 1 at once.
@@ -1121,16 +1126,19 @@ MIN_LAUNCHES = {("area9", "any_triangle"): 5}
 
 def launch_counts(reset=False):
     """Every kernel wrapper's launch count (set to 0 first if `reset`)."""
-    from rray_tpu_torch.kernels import analytic, bvh, triangles, whitted
+    from rray_tpu_torch.kernels import (analytic, bvh, downsample, triangles,
+                                        whitted)
 
     if reset:
         whitted.launches = analytic.launches = bvh.launches = 0
         triangles.closest_launches = triangles.any_launches = 0
+        downsample.launches = 0
     return {"whitted_compact": whitted.launches,
             "closest_triangle": triangles.closest_launches,
             "any_triangle": triangles.any_launches,
             "bvh_closest_triangle": bvh.launches,
-            "area_shadow_fraction": analytic.launches}
+            "area_shadow_fraction": analytic.launches,
+            "downsample": downsample.launches}
 
 
 def main_path(torch, np, scene_paths):
@@ -1182,9 +1190,77 @@ def main_path(torch, np, scene_paths):
                 if counts[kname] < MIN_LAUNCHES.get((name, kname), 1):
                     fail(f"the main path on {name} aa={aa} launched {kname} "
                          f"{counts[kname]} times")
+            # The box filter runs on the card once a frame at aa > 1, and
+            # not at all at aa = 1.
+            if counts["downsample"] != (1 if aa > 1 else 0):
+                fail(f"the main path on {name} aa={aa} launched downsample "
+                     f"{counts['downsample']} times")
             total = {k: total[k] + counts[k] for k in total}
     print(f"main path kernel launches: {json.dumps(total)}")
     return images, total
+
+
+def downsample_phase(torch, np, size=(1920, 1080), aa=5, reps=3):
+    """The box-filter downsample kernel (kernels/downsample.py) at config
+    5's main-path size: one launch on a seeded [h*aa, w*aa, 3] raster on
+    the card, bit for bit against canvas.downsample of its host copy and
+    against the plain version on the card; then, in turns, its device
+    time beside its byte bound, the plain version's time, and
+    torch.mean(dim=(1, 3)) as a yardstick (not the same bits, never on
+    the port's path); and, on the host clock, the frame's output steps
+    before and after it: the raster's copy and numpy's mean, against the
+    image's copy."""
+    from rray_tpu_torch.kernels import downsample
+    from rray_tpu_torch.render import canvas
+
+    w, h = size
+    gen = torch.Generator(device=DEVICE).manual_seed(16)
+    raster = torch.rand((h * aa, w * aa, 3), generator=gen, device=DEVICE)
+    before = downsample.launches
+    image = downsample.downsample(raster, aa)
+    if downsample.launches != before + 1:
+        fail(f"downsample made {downsample.launches - before} launches")
+    torch.cuda.synchronize()
+
+    def host_ms(fn):
+        out, times = None, []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, sorted(times)[len(times) // 2]
+
+    host, raster_copy_ms = host_ms(lambda: raster.cpu().numpy())
+    want, mean_host_ms = host_ms(lambda: canvas.downsample(host, aa))
+    got, image_copy_ms = host_ms(lambda: image.cpu().numpy())
+    if not np.array_equal(got, want, equal_nan=True):
+        fail(f"downsample {w}x{h} aa={aa}: the kernel differs from "
+             f"canvas.downsample at {int((got != want).sum())} values")
+    if not torch.equal(downsample.downsample_reference(raster, aa), image):
+        fail(f"downsample {w}x{h} aa={aa}: the kernel differs from its "
+             "plain version on the card")
+    print(f"parity downsample {w}x{h} aa={aa}: kernel, plain version on the "
+          f"card and canvas.downsample of the host copy bit for bit "
+          f"({got.size} values)")
+    ms, call, plain_ms = timed_turns(
+        torch, f"downsample {w}x{h} aa={aa}", "downsample_kernel",
+        lambda: downsample.downsample(raster, aa),
+        lambda: downsample.downsample_reference(raster, aa))
+    view = raster.view(h, aa, w, aa, 3)
+    mean_ms, _ = window_ms(torch, lambda: view.mean(dim=(1, 3)))
+    bound = bound_ms(4 * (raster.numel() + image.numel()),
+                     raster.numel() + image.numel())
+    print(f"time downsample {w}x{h} aa={aa}: kernel {ms:.5f} ms on the "
+          f"device ({100 * bound[0] / ms:.1f}% of its bound), call "
+          f"{call:.5f} ms, plain {plain_ms:.5f} ms, torch.mean(dim=(1, 3)) "
+          f"{mean_ms:.5f} ms (not bit-exact), bound {bound[0]:.5f} ms "
+          f"({bound[1]}; {bound[2]}); host clock, medians of {reps}: raster "
+          f"copy {raster_copy_ms:.1f} ms + numpy mean {mean_host_ms:.1f} ms "
+          f"before, image copy {image_copy_ms:.2f} ms after "
+          f"[{card_state()}]")
+    return {"ms": ms, "call_ms": call, "plain_ms": plain_ms,
+            "mean_ms": mean_ms, "bound": bound,
+            "max_abs": float(np.abs(got - want).max())}
 
 
 def whitted_plain_image(torch, np, path, aa):
@@ -1354,7 +1430,7 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
     from rray_tpu_torch import api
     from rray_tpu_torch.config import RenderSettings
     from rray_tpu_torch.io.yaml_loader import load_scene_file
-    from rray_tpu_torch.kernels import whitted
+    from rray_tpu_torch.kernels import downsample, whitted
     from rray_tpu_torch.ops import jitter
     from rray_tpu_torch.render import canvas, integrator
     from rray_tpu_torch.render.camera import (Camera, all_rays_soa,
@@ -1406,10 +1482,11 @@ def frame_breakdown(torch, np, name, path, aa=1, reps=5):
                 rgb = (out.x, out.y, out.z)
                 t0 = mark("fast node (triangle kernels + torch ops)", t0)
             image = torch.stack(rgb, -1).reshape(h * aa, w * aa, 3)
+            if aa > 1:  # as api.render_scene: on the card, before the copy
+                image = downsample.downsample(image, aa)
+                t0 = mark("AA downsample (card)", t0)
             image = image.cpu().numpy()
             t0 = mark("image to host", t0)
-            image = canvas.downsample(image, aa)
-            t0 = mark("AA downsample (host)", t0)
             canvas.write_png(png, image)
             t0 = mark("write_png", t0)
             mark("frame, by phases", start)
@@ -1730,6 +1807,9 @@ def progressive_phase(torch, np, scene_paths, images):
     if counts["whitted_compact"] != bands or builds != 1:
         fail(f"progressive area: {counts['whitted_compact']} whitted "
              f"launches for {bands} bands, {builds} table builds (one)")
+    if counts["downsample"]:
+        fail(f"progressive area: {counts['downsample']} downsample launches "
+             f"(the band canvas is downsampled on the host)")
     with plain_whitted():
         plain, plain_ms = timed(torch, api.render_scene_progressive, area,
                                 w, h, "", aa=aa, band_rows=PROG_BAND_ROWS,
@@ -2340,6 +2420,7 @@ def main() -> int:
                (200, 150), timed=False)
 
     images, counts = main_path(torch, np, scene_paths)
+    box = downsample_phase(torch, np)
     # Main-path images against the plain versions': the whitted kernel's
     # scenes against whitted_compact_reference (area at aa=3 against the
     # plain image of the 4.32 M rays above, downsampled), the fast node's
@@ -2461,6 +2542,15 @@ def main() -> int:
             "ms": res["ms"], "plain_ms": res["plain_ms"],
             "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
             "library_ms": None})
+    # The port's own kernel: it replaces no TPU kernel (rray_tpu takes the
+    # mean on the host); its yardstick is torch.mean, not the same bits.
+    kernels.append({
+        "name": "downsample", "route": "cuda",
+        "source": "rray_tpu_torch/kernels/csrc/downsample.cu",
+        "replaces": None, "launches": counts["downsample"],
+        "max_abs_err": box["max_abs"], "ms": box["ms"],
+        "plain_ms": box["plain_ms"], "bound_ms": box["bound"][0],
+        "bound_by": box["bound"][1], "library_ms": box["mean_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,11 +3,13 @@
 `render_scene_from_file/str(path, width, height, png_file, aa)` reproduces
 the reference pipeline: build the scene from YAML, size the camera at
 width*aa x height*aa (scene_builder_yaml.rs:392), render, box-downsample
-by aa, and write the PNG. The device is explicit: "cuda" runs the CUDA
-kernels and is an error where CUDA is missing; "cpu" runs their plain
-PyTorch versions. `render_scene_progressive` renders band by band with
-a checkpoint (the CLI's --checkpoint), and `render_resilient` restarts
-that CLI in child processes until the frame is done.
+by aa on the raster's device (kernels/downsample.py, so only the image
+is copied to the host), and write the PNG. The device is explicit:
+"cuda" runs the CUDA kernels and is an error where CUDA is missing; "cpu"
+runs their plain PyTorch versions. `render_scene_progressive` renders
+band by band with a checkpoint (the CLI's --checkpoint) and downsamples
+its host canvas, and `render_resilient` restarts that CLI in child
+processes until the frame is done.
 """
 from __future__ import annotations
 
@@ -20,6 +22,7 @@ import torch
 
 from .config import RenderSettings, checked_device, default_dtype
 from .io.yaml_loader import load_scene_file, load_scene_str
+from .kernels import downsample
 from .render import canvas
 from .render.camera import Camera, compile_camera
 from .render.integrator import render
@@ -49,13 +52,17 @@ def render_scene(camera_spec, lights, shapes, width: int, height: int,
                         dtype or default_dtype(), dev)
     t0 = time.perf_counter()
     image = render(scene, cam, settings, seed)
+    if aa > 1:
+        # On the raster's device, before the copy: only the image crosses.
+        with profiling.span("downsample"):
+            image = downsample.downsample(image, aa)
     with profiling.span("copy"):
         image = image.cpu().numpy()
     dt = time.perf_counter() - t0
     log.info("rendered %dx%d (aa=%d, %d raster rays) on %s: render and "
              "copy to the host %.3fs", width, height, aa,
              cam.hsize * cam.vsize, dev, dt)
-    return canvas.downsample(image, aa)
+    return image
 
 
 def render_scene_from_str(contents: str, width: int, height: int,

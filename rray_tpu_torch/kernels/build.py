@@ -30,11 +30,12 @@ _CSRC = os.path.join(_HERE, "csrc")
 # the build, compile in four more units (csrc/whitted.cu RRAY_EXT_UNIT).
 _UNITS = (("whitted.cu", ()),
           *(("whitted.cu", (f"-DRRAY_EXT_UNIT={u}",)) for u in (1, 2, 3, 4)),
-          ("triangles.cu", ()), ("bvh.cu", ()), ("area.cu", ()))
+          ("triangles.cu", ()), ("bvh.cu", ()), ("area.cu", ()),
+          ("downsample.cu", ()))
 _SOURCES = ("whitted.cu", "triangles.cu", "bvh.cu", "area.cu",
-            "vec_device.cuh", "mesh_device.cuh", "whitted_device.cuh",
-            "jitter_device.cuh", "quartic_device.cuh", "noise_device.cuh",
-            "stage_device.cuh")
+            "downsample.cu", "vec_device.cuh", "mesh_device.cuh",
+            "whitted_device.cuh", "jitter_device.cuh", "quartic_device.cuh",
+            "noise_device.cuh", "stage_device.cuh", "downsample_device.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "rray_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -145,6 +146,8 @@ def load_library():
         lib.area_shadow_launch.restype = i32
         lib.area_shadow_launch.argtypes = (
             [ptr] * 7 + [i32] * 3 + [ptr, i32, ptr])
+        lib.downsample_launch.restype = i32
+        lib.downsample_launch.argtypes = [ptr, ptr] + [i32] * 5 + [ptr]
         lib.whitted_error_string.restype = ctypes.c_char_p
         lib.whitted_error_string.argtypes = [i32]
         _LIB = lib

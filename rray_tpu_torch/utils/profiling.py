@@ -19,8 +19,14 @@ to the host work open at the time:
                      tables and the launches, enqueued with no wait
     rray.tables      a per-scene kernel table packed (whitted, the
                      triangle kernels, the BVH tree)
-    rray.copy        the raster (or a band) copied to the host
-    rray.downsample  canvas.downsample, where aa > 1
+    rray.copy        api.render_scene's image (downsampled on the card
+                     where aa > 1) copied to the host, the wait for the
+                     card's work included; a band's raster in
+                     render/progressive.py
+    rray.downsample  where aa > 1: api.render_scene's box filter on the
+                     raster's device (on the card an enqueue with no
+                     wait; kernels/downsample.py), and canvas.downsample
+                     of a host canvas (render_scene_progressive, write_png)
     rray.png         canvas.write_png: quantize, encode, write
 
 With no profiler recording, a span is one flag check and a shared

@@ -20,9 +20,11 @@ from rray_tpu_torch.config import RenderSettings  # noqa: E402
 from rray_tpu_torch.io import mesh_scenes as ms  # noqa: E402
 from rray_tpu_torch.io.yaml_loader import load_scene_file  # noqa: E402
 from rray_tpu_torch.kernels import (  # noqa: E402
-    analytic, bvh, triangles, whitted)
+    analytic, bvh, downsample, triangles, whitted)
+from rray_tpu_torch.render import canvas  # noqa: E402
 from rray_tpu_torch.render.camera import (  # noqa: E402
     Camera, all_rays_soa, compile_camera)
+from rray_tpu_torch.render.integrator import render  # noqa: E402
 from rray_tpu_torch.scene.data import compile_scene  # noqa: E402
 
 pytestmark = pytest.mark.cuda
@@ -543,3 +545,81 @@ def test_unrolled_launches_the_fast_kernels_not_whitted(cuda, tmp_path):
         assert launched["closest_triangle"] and launched["any_triangle"]
         assert not launched["whitted_compact"]
     assert np.abs(frames["unrolled"] - frames["scan"]).max() <= cs.UNROLLED_TOL
+
+
+def _spread_raster(shape, dtype, seed):
+    """Values over 20 decades of both signs with a few NaN and +-inf."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(shape) * 10.0 ** rng.integers(-10, 10, shape)
+    x = x.astype(dtype)
+    for value in (np.nan, np.inf, -np.inf):
+        x.flat[rng.choice(x.size, 6, replace=False)] = value
+    return x
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("aa", [2, 3, 4, 5, 7])
+def test_downsample_kernel_matches_canvas_downsample(cuda, aa, dtype):
+    """One launch, bit for bit canvas.downsample of the host raster and
+    the plain version on the card; the rows and columns past the last
+    whole block are cropped."""
+    x = _spread_raster((37 * aa + aa - 1, 53 * aa + 1, 3), dtype, seed=aa)
+    raster = torch.from_numpy(x).to(cuda)
+    before = downsample.launches
+    got = downsample.downsample(raster, aa)
+    assert downsample.launches == before + 1
+    assert got.device == raster.device and got.shape == (37, 53, 3)
+    torch.cuda.synchronize()
+    want = canvas.downsample(x, aa)
+    assert got.dtype == raster.dtype
+    assert np.array_equal(got.cpu().numpy(), want, equal_nan=True)
+    plain = downsample.downsample_reference(raster, aa).cpu().numpy()
+    assert np.array_equal(plain, want, equal_nan=True)
+
+
+def test_downsample_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    raster = torch.zeros((8, 12, 3), device=cuda)
+    with pytest.raises(TypeError, match="float32 or float64"):
+        downsample.downsample(raster.half(), 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        downsample.downsample(raster[:, ::2], 2)
+    with pytest.raises(ValueError, match=r"\[h, w, 3\]"):
+        downsample.downsample(raster[..., :2].contiguous(), 2)
+
+
+@pytest.mark.parametrize("name,size,aa", [("glass.yaml", (160, 120), 2),
+                                          ("csg_showcase.yaml", (192, 108),
+                                           5)])
+def test_render_scene_downsamples_on_the_card(cuda, name, size, aa,
+                                               tmp_path):
+    """api.render_scene at aa > 1: one downsample launch, and the image
+    canvas.downsample makes of the copied raster, bit for bit, so the PNG
+    bytes are the same."""
+    spec, lights, shapes = load_scene_file(os.path.join(BASE, "examples",
+                                                        name))
+    w, h = size
+    before = downsample.launches
+    image = api.render_scene(spec, lights, shapes, w, h, aa, device="cuda")
+    assert downsample.launches == before + 1
+    scene, cam = api._build(spec, lights, shapes, w, h, aa, torch.float32,
+                            cuda)
+    raster = render(scene, cam, RenderSettings(), 0).cpu().numpy()
+    host = canvas.downsample(raster, aa)
+    assert image.dtype == host.dtype and image.max() > 0.1
+    assert np.array_equal(image, host, equal_nan=True)
+    canvas.write_png(str(tmp_path / "card.png"), image)
+    canvas.write_png(str(tmp_path / "host.png"), host)
+    assert ((tmp_path / "card.png").read_bytes()
+            == (tmp_path / "host.png").read_bytes())
+
+
+def test_cli_frame_launches_the_downsample_once_at_aa_over_one(cuda,
+                                                               tmp_path):
+    glass = os.path.join(BASE, "examples", "glass.yaml")
+    for aa, launched in ((1, 0), (2, 1), (3, 1), (1, 0)):
+        before = downsample.launches
+        image = api.render_scene_from_file(glass, 64, 48,
+                                           str(tmp_path / "a.png"), aa=aa,
+                                           device="cuda")
+        assert downsample.launches - before == launched
+        assert image.shape == (48, 64, 3)

@@ -90,7 +90,7 @@ def test_a_cpu_frame_holds_each_layer_in_its_frame(aa, tmp_path):
     frames = [r for r in host if r[2] == FRAME]
     assert len(frames) == 1
     names = [n for _, _, n in host if n != FRAME]
-    # aa = 1 returns from downsample before its span opens.
+    # aa = 1 opens no downsample span.
     want = LAYERS + (("rray.downsample",) if aa > 1 else ())
     assert sorted(names) == sorted(want)
     assert all(_inside(frames[0], r) for r in host)
@@ -190,3 +190,24 @@ def test_a_traced_card_frame_holds_the_copy_and_the_tables(cuda, tmp_path):
     assert names.count("rray.tables") == 1
     assert {"rray.copy", "rray.downsample", "rray.png"} <= set(names)
     assert any(_inside(frames[0], (s, e)) for s, e, _ in device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("aa", [1, 2])
+def test_a_traced_card_frame_downsamples_before_the_copy(cuda, aa,
+                                                         tmp_path):
+    """At aa = 2 the frame's rray.downsample span (the kernel's enqueue)
+    closes before its rray.copy opens, and the card runs
+    downsample_kernel inside the frame; aa = 1 has neither."""
+    api.render_scene_from_file(GLASS, 160, 120, "", aa=aa, device=cuda)
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        api.render_scene_from_file(GLASS, 160, 120, "", aa=aa, device=cuda)
+    host, device = _ranges(prof)
+    spans = {n: (s, e) for s, e, n in host}
+    kernels = [n for s, e, n in device
+               if "downsample_kernel" in n and _inside(spans[FRAME], (s, e))]
+    if aa == 1:
+        assert "rray.downsample" not in spans and not kernels
+        return
+    assert spans["rray.downsample"][1] <= spans["rray.copy"][0]
+    assert len(kernels) == 1
