@@ -65,6 +65,7 @@ class Run:
     spans: Spans | None = None
     timeline: trace_mod.Trace | None = None
     step_peaks: list = dataclasses.field(default_factory=list)
+    counts: dict = dataclasses.field(default_factory=dict)
 
 
 def forbidden_modules(names=None) -> list:
@@ -100,10 +101,17 @@ def _resolve(path: str):
     return importlib.import_module(mod), attr
 
 
-def _window(run: Run, runner, state, torch, cuda: bool):
+def read_counters(paths) -> dict:
+    """The program's counters, each a "module:attribute" path."""
+    return {path: getattr(*_resolve(path)) for path in paths}
+
+
+def _window(run: Run, runner, state, torch, cuda: bool, counters=()):
     """Items back to back until `run.seconds` have passed; each item's
-    start and end on the host clock. A traced run wraps the runner's
-    spans, profiles the card, and reads each step's peak memory."""
+    start and end on the host clock, and what each of the program's
+    `counters` counted from right before the first item to right after
+    the last (run.counts). A traced run wraps the runner's spans,
+    profiles the card, and reads each step's peak memory."""
     seconds = run.seconds
     spans = run.spans
 
@@ -128,10 +136,13 @@ def _window(run: Run, runner, state, torch, cuda: bool):
         run.ends.append(e)
         return e
 
+    before = read_counters(counters)
     t0 = time.perf_counter()
     i = 0
     while item(i) - t0 < seconds:
         i += 1
+    after = read_counters(counters)
+    run.counts = {path: after[path] - before[path] for path in counters}
 
 
 def run_cell(name: str, seed: int, seconds: float, trace: bool,
@@ -154,6 +165,7 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
     import torch
 
     cuda = device.startswith("cuda")
+    counters = registry.counters(name)
     if cuda:
         torch.cuda.reset_peak_memory_stats()
     state = runner.setup(run)
@@ -171,12 +183,12 @@ def run_cell(name: str, seed: int, seconds: float, trace: bool,
                 torch.profiler.profile(activities=activities) as prof:
             with torch.profiler.record_function(
                     trace_mod.PREFIX + trace_mod.WINDOW):
-                _window(run, runner, state, torch, cuda)
+                _window(run, runner, state, torch, cuda, counters)
             if cuda:
                 torch.cuda.synchronize()
         run.timeline = trace_mod.from_profiler(prof)
     else:
-        _window(run, runner, state, torch, cuda)
+        _window(run, runner, state, torch, cuda, counters)
 
     peak = max(run.step_peaks) if run.step_peaks else (
         torch.cuda.max_memory_allocated() if cuda else 0)

@@ -1,5 +1,6 @@
 """What the metric readers share: items of the window, span totals per
-item, and which device rows are the port's own CUDA kernels."""
+item, the program's own ranges and counters per item, and which device
+rows are the port's own CUDA kernels."""
 from __future__ import annotations
 
 import re
@@ -24,6 +25,31 @@ def span_ms(run, unit: str, *names) -> float | None:
     if not any(name in run.spans.seconds for name in names):
         return None
     return 1e3 * sum(run.spans.total(name) for name in names) / n
+
+
+def program_ms(run, unit: str, *names) -> float | None:
+    """The program's ranges `names` ("png" for rray.png) that start
+    inside the traced window, summed, in ms per item of `unit`: None
+    outside a traced run or where the window holds no rray.frame range,
+    0 where its frames hold none of `names`."""
+    n = items(run, unit)
+    if not n or run.timeline is None:
+        return None
+    tl = run.timeline
+    inside = [(s, e, name) for s, e, name in tl.program if tl.lo <= s < tl.hi]
+    if not any(name == "frame" for _, _, name in inside):
+        return None
+    return 1e3 * sum(e - s for s, e, name in inside if name in names) / n
+
+
+def count_per_item(run, unit: str, path: str) -> float | None:
+    """What the program's counter `path` ("module:attribute", declared in
+    the metric's COUNTERS) counted over the window, per item of `unit`
+    (None where it was not read)."""
+    n = items(run, unit)
+    if not n or path not in run.counts:
+        return None
+    return run.counts[path] / n
 
 
 def kernel_ms(run, unit: str) -> float | None:

@@ -5,7 +5,8 @@
                                ("runner": name) that runs it
     runners/<runner>.py        the code of a kind of traffic
     metrics/<metric>.py        one metric's reader: read(run) -> number
-                               or None
+                               or None, and the program's counters it
+                               reads (COUNTERS, optional)
     limits/<cell>.json         the limits of a cell's correctness numbers
 
 A new configuration, mix, metric or cell is a new file and an entry in
@@ -83,6 +84,16 @@ class Registry:
         key = "per_layer" if trace else "end_to_end"
         return [m for m in self.benchmark()[key]
                 if "workloads" not in m or cell in m["workloads"]]
+
+    def counters(self, cell: str) -> list:
+        """The program counters ("module:attribute") that the cell's
+        metrics read, end-to-end and per-layer, each once."""
+        paths = []
+        for m in self.metrics_for(cell, False) + self.metrics_for(cell, True):
+            for path in getattr(self.metric(m["name"]), "COUNTERS", ()):
+                if path not in paths:
+                    paths.append(path)
+        return paths
 
     def names(self, folder: str, suffix: str) -> list:
         path = os.path.join(self.bench_dir, folder)

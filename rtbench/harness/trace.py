@@ -1,9 +1,10 @@
 """The traced run's device timeline, from torch.profiler (CUPTI).
 
 Only the profiler's own rows are read: the card's kernels, copies and
-sets with their start and end, and the "rtbench.*" ranges that the
-benchmark's spans mark on the host. The trace stays in memory; nothing
-is exported to disk.
+sets with their start and end, the "rtbench.*" ranges that the
+benchmark's spans mark on the host, and the "rray.*" ranges that the
+program's own spans mark there (rray_tpu_torch/utils/profiling.py).
+The trace stays in memory; nothing is exported to disk.
 """
 from __future__ import annotations
 
@@ -13,6 +14,7 @@ import functools
 from . import window
 
 PREFIX = "rtbench."
+PROGRAM_PREFIX = "rray."
 
 
 @dataclasses.dataclass
@@ -25,6 +27,8 @@ class Trace:
     notes: list         # (start, end, span name): the benchmark's ranges
     lo: float           # the traced window
     hi: float
+    # (start, end, span name): the program's ranges, "rray." taken off
+    program: list = dataclasses.field(default_factory=list)
 
     @property
     def window_s(self) -> float:
@@ -96,7 +100,7 @@ def from_profiler(prof) -> Trace:
     import torch
 
     cuda = torch.autograd.DeviceType.CUDA
-    device, notes = [], []
+    device, notes, program = [], [], []
     events = prof.profiler.kineto_results.events()
     # Seconds from the first row, so that a float keeps the nanoseconds.
     base = events[0].start_ns() if events else 0
@@ -112,10 +116,14 @@ def from_profiler(prof) -> Trace:
                 name = ev.name()
                 if name.startswith(PREFIX):
                     notes.append((*span(ev), name[len(PREFIX):]))
+                elif name.startswith(PROGRAM_PREFIX):
+                    program.append((*span(ev),
+                                    name[len(PROGRAM_PREFIX):]))
         elif ev.device_type() == cuda:
             device.append((*span(ev), ev.name()))
     spans = [(s, e) for s, e, n in notes if n == WINDOW]
     if not spans:
         raise RuntimeError(f"the trace holds no {PREFIX}{WINDOW} range")
     lo, hi = spans[0]
-    return Trace(device, [r for r in notes if r[2] != WINDOW], lo, hi)
+    return Trace(device, [r for r in notes if r[2] != WINDOW], lo, hi,
+                 program)

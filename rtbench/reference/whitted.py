@@ -1,4 +1,4 @@
-# _dot, _reflect, _normalize, _schlick, _lighting and the point-light branch of _shadow_fraction:
+# _dot, _reflect, _normalize, _schlick, _lighting and the point-light branch of _shadow_fraction (point_shadow):
 # frozen copies of rray_tpu_torch/render/integrator.py at commit 6dfcb62; node() is its color_at_aos
 # without the recursion, and trace() follows its _color_at_compact_scan (same commit) over node().
 """The Whitted tree of the configurations as plain torch ops.
@@ -13,10 +13,21 @@ reflect rows before refract rows, zero weights last); with reflection
 alone, one chain of bounces. The per-ray path the port exports as its
 oracle keeps every path, so it cannot judge a frame at capacity 4.
 
-Area lights and scenes with refraction but no reflection are refused:
-no configuration of the benchmark has them yet.
+The shadow fraction is a seam, chosen by each light's kind. `node`
+carries the tree level down to `shadow_fraction(kind)`: `point_shadow`
+for a point light, else the function `shadow` of reference/<kind>.py,
+(scene, light index, light, over points [R, 3], settings, level) -> [R]
+fraction of the light that is blocked. A new kind of light is a new
+module alone. Frames render under the port's default seed, 0, so a
+module that replays the port's random numbers takes that seed. No
+module gives area lights yet: they are refused.
+
+Scenes with refraction but no reflection are refused: no configuration
+of the benchmark has them yet.
 """
 from __future__ import annotations
+
+import importlib
 
 import torch
 
@@ -70,9 +81,9 @@ def _lighting(scene, prim, base_color, light, point, eyev, normalv,
     return ambient + (diffuse + specular) * (1.0 - shadow_frac)[:, None]
 
 
-def _shadow_fraction(scene, light, over, settings):
-    if light.kind != "point":
-        raise NotImplementedError("the reference renders point lights only")
+def point_shadow(scene, li, light, over, settings, level):
+    """The fraction of a point light that is blocked at `over` [R, 3]:
+    one hard shadow ray, 0 or 1 (`li` and `level` unused)."""
     v = light.position[None, :] - over
     dist = torch.linalg.norm(v, dim=-1)
     direction = v / torch.clamp_min(dist[:, None], 1e-30)
@@ -80,11 +91,26 @@ def _shadow_fraction(scene, light, over, settings):
                            settings).to(over.dtype)
 
 
-def node(scene, ro, rd, settings):
-    """One Whitted node over [R, 3] rays -> (surface [R, 3], zero where
-    nothing is hit; over, under, reflect and refract directions [R, 3];
-    reflect and refract weights [R]). The weights carry reflective and
-    transparency, Schlick-blended where a material has both."""
+def shadow_fraction(kind: str):
+    """The shadow function of a kind of light: point_shadow, or `shadow`
+    of reference/<kind>.py."""
+    if kind == "point":
+        return point_shadow
+    try:
+        return importlib.import_module(f"{__package__}.{kind}").shadow
+    except ModuleNotFoundError as e:
+        if e.name != f"{__package__}.{kind}":
+            raise
+        raise NotImplementedError(
+            f"no reference module gives {kind} lights") from None
+
+
+def node(scene, ro, rd, settings, level=0):
+    """One Whitted node over [R, 3] rays at tree level `level` ->
+    (surface [R, 3], zero where nothing is hit; over, under, reflect and
+    refract directions [R, 3]; reflect and refract weights [R]). The
+    weights carry reflective and transparency, Schlick-blended where a
+    material has both."""
     dtype = ro.dtype
     eps = offset_eps(dtype)
     slots = hits.gather_sorted_hits(scene, ro, rd, settings)
@@ -108,8 +134,9 @@ def node(scene, ro, rd, settings):
 
     base_color = patterns.pattern_at_object(scene, prim, over)
     surface = torch.zeros_like(ro)
-    for light in scene.lights:
-        frac = _shadow_fraction(scene, light, over, settings)
+    for li, light in enumerate(scene.lights):
+        frac = shadow_fraction(light.kind)(scene, li, light, over,
+                                           settings, level)
         surface = surface + _lighting(scene, prim, base_color, light, over,
                                       eyev, normalv, frac)
     surface = torch.where(found[:, None], surface, 0.0)
@@ -150,7 +177,7 @@ def trace(scene, ro, rd, settings):
         if level and not bool((w != 0.0).any()):
             break
         surface, over, _, reflectv, _, refl_w, _ = node(scene, ro, rd,
-                                                        settings)
+                                                        settings, level)
         acc = acc + surface * w[:, None]
         ro, rd, w = over, reflectv, w * refl_w
     return acc
@@ -163,10 +190,10 @@ def _compact(scene, ro, rd, settings):
     acc = torch.zeros_like(ro)
     state = (ro, rd, torch.ones_like(ro[:, 0]))
 
-    def level_eval(state, width):
+    def level_eval(state, width, level):
         o, d, wf = state
         surface, over, under, reflectv, refr_dir, refl_w, refr_w = node(
-            scene, o, d, settings)
+            scene, o, d, settings, level)
         contrib = (surface * wf[:, None]).reshape(width, R, 3).sum(0)
         return contrib, ((over, under), (reflectv, refr_dir),
                          (wf * refl_w, wf * refr_w))
@@ -175,7 +202,7 @@ def _compact(scene, ro, rd, settings):
     while level <= depth and 2 * width <= W and level < 2:
         if level > 0 and not bool((state[2] != 0.0).any()):
             return acc
-        contrib, children = level_eval(state, width)
+        contrib, children = level_eval(state, width, level)
         acc = acc + contrib
         state = tuple(torch.cat(pair) for pair in children)
         width, level = 2 * width, level + 1
@@ -189,7 +216,7 @@ def _compact(scene, ro, rd, settings):
     for level in range(level, depth + 1):
         if not bool((state[2] != 0.0).any()):
             break
-        contrib, children = level_eval(state, W)
+        contrib, children = level_eval(state, W, level)
         acc = acc + contrib
         (o2, d2, w2) = [torch.cat([a.reshape(W, R, -1), b.reshape(W, R, -1)])
                         for a, b in children]

@@ -1,5 +1,6 @@
 """rtbench's tests: the CPU ones run anywhere; those marked `cuda` need
 a card and skip without one (decided in the fixture, never at import)."""
+import json
 import os
 import sys
 
@@ -10,15 +11,85 @@ ROOT = os.path.dirname(os.path.dirname(os.path.dirname(
 if ROOT not in sys.path:
     sys.path.insert(0, ROOT)
 
-# Tiny sizes of each cell for runs on the CPU (the port's plain versions).
-SMALL = {
-    "csg_showcase.turntable_aa5": {"config": {"width": 24, "height": 14},
-                                   "mix": {"aa": 2, "check_pixels": 48}},
-    "glass.turntable": {"config": {"width": 24, "height": 18},
-                        "mix": {"check_pixels": 48}},
-    "glass.adam": {"config": {"width": 24, "height": 18},
-                   "mix": {"check_rows": 9}},
-}
+
+def small_sizes(folder: str) -> dict:
+    """Each cell's tiny size for runs on the CPU (the port's plain
+    versions): small/<cell>.json, {"config": {...}, "mix": {...}}, the
+    keys that override the cell's configuration and mix."""
+    sizes = {}
+    for f in sorted(os.listdir(folder)):
+        if f.endswith(".json"):
+            with open(os.path.join(folder, f)) as fh:
+                sizes[f[: -len(".json")]] = json.load(fh)
+    return sizes
+
+
+SMALL = small_sizes(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                                 "small"))
+
+
+def control_readings(registry, cell: str, seed: int = 17):
+    """(sound numbers, control numbers, limits) of a cell at its small
+    size: set-up, two items through the window's own call, then the
+    check, and the check with the control in the program's place."""
+    from rtbench.harness import core
+
+    cfg = {**registry.config(registry.cell(cell)["config"]),
+           **SMALL[cell]["config"]}
+    mix = {**registry.mix(registry.cell(cell)["traffic"]),
+           **SMALL[cell]["mix"]}
+    runner = registry.runner(mix["runner"])
+    run = core.Run(cell, cfg, mix, seed, 0.2, False, "cpu", registry,
+                   unit=runner.UNIT)
+    state = runner.setup(run)
+    try:
+        for i in range(2):
+            runner.step(state, i)
+        sound = runner.check(state)
+        low = runner.check(state, control=True)
+    finally:
+        runner.close(state)
+    return sound, low, registry.limits(cell)
+
+
+# Every cell of the BENCHMARK.json beside `root`, run in a process of its
+# own whose `rtbench` is the one under `root`: untraced and traced, each
+# correct, and the control not correct; the last line of its output says
+# what each run gave and which top-level modules were loaded at the end.
+EVERY_CELL = """
+import json, sys
+sys.path[:0] = [{root!r}, {tests!r}]
+from conftest import SMALL, control_readings
+from rtbench.harness import core
+from rtbench.harness.registry import Registry
+reg = Registry()
+assert reg.root == {root!r}, reg.root
+runs = {{}}
+for cell in [w["name"] for w in reg.benchmark()["workloads"]]:
+    runs[cell] = []
+    for trace in (False, True):
+        r, _ = core.run_cell(cell, 5, 0.2, trace, "cpu", reg,
+                             overrides=SMALL[cell])
+        assert r["correct"], (cell, trace, r["checks"])
+        runs[cell].append(r)
+    sound, low, limits = control_readings(reg, cell)
+    assert all(v <= limits[k] for k, v in sound.items()), (cell, sound)
+    assert any(not v <= limits[k] for k, v in low.items()), (cell, low)
+print(json.dumps({{"runs": runs,
+                  "modules": sorted({{m.split(".")[0] for m in sys.modules}})}}))
+"""
+
+
+def run_every_cell(root: str) -> dict:
+    """EVERY_CELL over the checkout at `root`."""
+    import subprocess
+
+    code = EVERY_CELL.format(root=root,
+                             tests=os.path.join(root, "rtbench", "tests"))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=root)
+    assert out.returncode == 0, out.stderr[-4000:]
+    return json.loads(out.stdout.strip().splitlines()[-1])
 
 
 @pytest.fixture
@@ -35,8 +106,6 @@ def registry():
     """BENCHMARK.json's cells, and those held out of it (held_out/*.json:
     entries of the same form, measured but too noisy on the host to be
     bound), so that their checks keep being tested."""
-    import json
-
     from rtbench.harness.registry import Registry
 
     class WithHeldOut(Registry):

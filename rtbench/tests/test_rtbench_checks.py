@@ -8,7 +8,7 @@ import json
 import pytest
 import torch
 
-from conftest import SMALL
+from conftest import SMALL, control_readings
 from rtbench.harness import core
 
 TURNTABLES = ("csg_showcase.turntable_aa5", "glass.turntable")
@@ -38,21 +38,7 @@ def test_a_sound_run_is_correct_and_its_last_line_has_the_keys(
 
 @pytest.mark.parametrize("cell", [*TURNTABLES, "glass.adam"])
 def test_the_control_fails(cell, registry):
-    reg = registry
-    cfg = {**reg.config(reg.cell(cell)["config"]), **SMALL[cell]["config"]}
-    mix = {**reg.mix(reg.cell(cell)["traffic"]), **SMALL[cell]["mix"]}
-    runner = reg.runner(mix["runner"])
-    r = core.Run(cell, cfg, mix, 17, 0.2, False, "cpu", reg,
-                 unit=runner.UNIT)
-    state = runner.setup(r)
-    try:
-        for i in range(2):
-            runner.step(state, i)
-        limits = reg.limits(cell)
-        sound = runner.check(state)
-        low = runner.check(state, control=True)
-    finally:
-        runner.close(state)
+    sound, low, limits = control_readings(registry, cell)
     assert all(v <= limits[k] for k, v in sound.items()), sound
     assert any(not v <= limits[k] for k, v in low.items()), low
 

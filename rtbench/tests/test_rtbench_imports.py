@@ -2,7 +2,6 @@
 names compared whole), and the reference imports nothing of the port."""
 import ast
 import os
-import subprocess
 import sys
 
 from rtbench.harness.core import FORBIDDEN, forbidden_modules
@@ -51,23 +50,12 @@ def test_the_whole_name_is_compared():
 
 
 def test_a_run_loads_no_jax_module():
-    """Every cell, untraced and traced, with its check and every metric
-    reader: nothing of JAX or the JAX package is loaded at the end."""
-    code = ("import sys; sys.path.insert(0, %r); sys.path.insert(0, %r)\n"
-            "from conftest import SMALL\n"
-            "from rtbench.harness import core\n"
-            "from rtbench.harness.registry import Registry\n"
-            "reg = Registry()\n"
-            "for cell in [w['name'] for w in reg.benchmark()['workloads']]:\n"
-            "    for trace in (False, True):\n"
-            "        r, _ = core.run_cell(cell, 5, 0.2, trace, 'cpu', reg,"
-            " overrides=SMALL[cell])\n"
-            "        assert r['correct'], (cell, trace)\n"
-            "print(sorted({m.split('.')[0] for m in sys.modules}))\n"
-            % (ROOT, os.path.dirname(__file__)))
-    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
-                         text=True, check=True, cwd=ROOT).stdout
-    loaded = set(eval(out.strip().splitlines()[-1]))
+    """Every cell, untraced and traced, with its check, its control and
+    every metric reader: nothing of JAX or the JAX package is loaded at
+    the end."""
+    from conftest import run_every_cell
+
+    loaded = set(run_every_cell(ROOT)["modules"])
     assert "rray_tpu_torch" in loaded
     assert not loaded & set(FORBIDDEN)
 

@@ -37,9 +37,18 @@ def test_every_cell_reports_setup_another_end_to_end_and_a_layer(
 
 
 def test_a_new_config_mix_metric_and_cell_need_no_edit(tmp_path):
+    """In a copy of rtbench/, a cell comes by new files alone: a
+    configuration, a mix, limits, the cell's small size, an end-to-end
+    metric, a reader of the program's rray.png ranges and one of its
+    counters. Then every cell of the copy runs as
+    test_a_run_loads_no_jax_module runs them: untraced and traced,
+    correct, the control not correct."""
+    from conftest import run_every_cell
+
     root = tmp_path / "checkout"
     shutil.copytree(BENCH_DIR, root / "rtbench",
                     ignore=shutil.ignore_patterns("__pycache__"))
+    (root / "rray_tpu_torch").symlink_to(os.path.join(ROOT, "rray_tpu_torch"))
     bench = json.loads(open(os.path.join(ROOT, "BENCHMARK.json")).read())
     new = root / "rtbench"
     glass = json.loads((new / "configs" / "glass.json").read_text())
@@ -49,31 +58,56 @@ def test_a_new_config_mix_metric_and_cell_need_no_edit(tmp_path):
     mix = json.loads((new / "traffic" / "turntable.json").read_text())
     mix["range_deg"] = 10.0
     (new / "traffic" / "turntable_narrow.json").write_text(json.dumps(mix))
+    cell = "glass_far.turntable_narrow"
+    (new / "tests" / "small" / f"{cell}.json").write_text(
+        (new / "tests" / "small" / "glass.turntable.json").read_text())
+    (new / "limits" / f"{cell}.json").write_text(
+        json.dumps({"pix_share": 0.005, "png_share": 0.005}))
     (new / "metrics" / "frames_done.py").write_text(
         "def read(run):\n    return len(run.ends)\n")
-    (new / "limits" / "glass_far.turntable_narrow.json").write_text(
-        json.dumps({"pix_share": 0.005, "png_share": 0.005}))
-    bench["workloads"].append({"name": "glass_far.turntable_narrow",
-                               "config": "glass_far",
+    (new / "metrics" / "png_probe.py").write_text(
+        "from rtbench.harness import readers\n\n\n"
+        "def read(run):\n"
+        "    return readers.program_ms(run, 'frame', 'png')\n")
+    (new / "metrics" / "launch_probe.py").write_text(
+        "from rtbench.harness import readers\n\n"
+        "COUNTERS = ('rray_tpu_torch.kernels.whitted:table_builds',)\n\n\n"
+        "def read(run):\n"
+        "    return readers.count_per_item(run, 'frame', COUNTERS[0])\n")
+    bench["workloads"].append({"name": cell, "config": "glass_far",
                                "traffic": "turntable_narrow", "chips": 1,
                                "why": "a test cell"})
     bench["end_to_end"].append({"name": "frames_done", "unit": "frames",
                                 "better": "higher", "bound": 0.01,
-                                "source": "host_clock",
-                                "workloads": ["glass_far.turntable_narrow"]})
+                                "source": "host_clock", "workloads": [cell]})
+    for name, unit, source in (("png_probe", "ms", "program_span"),
+                               ("launch_probe", "tables/frame",
+                                "program_counter")):
+        bench["per_layer"].append({"name": name, "unit": unit,
+                                   "better": "lower", "source": source,
+                                   "layer": "test", "moves": "frames_done",
+                                   "workloads": [cell]})
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
 
-    reg = Registry(root=str(root), bench_dir=str(new))
-    assert "glass_far" in reg.names("configs", ".json")
-    assert "turntable_narrow" in reg.names("traffic", ".json")
-    assert "frames_done" in reg.names("metrics", ".py")
-    result, _ = core.run_cell("glass_far.turntable_narrow", 11, 0.3, False,
-                              device="cpu", registry=reg,
-                              overrides=SMALL["glass.turntable"])
-    assert result["correct"] is True
-    assert result["metrics"]["frames_done"]["value"] == result["attempted"]
+    out = run_every_cell(str(root))
+    untraced, traced = out["runs"][cell]
+    assert untraced["correct"] and traced["correct"]
+    assert untraced["metrics"]["frames_done"]["value"] == untraced[
+        "attempted"]
     # frame_ms lists its cells; setup_s, without the key, is in every cell.
-    assert set(result["metrics"]) == {"setup_s", "frames_done"}
+    assert set(untraced["metrics"]) == {"setup_s", "frames_done"}
+    assert set(traced["metrics"]) == {"png_probe", "launch_probe"}
+    assert traced["metrics"]["png_probe"]["value"] > 0
+    assert traced["metrics"]["launch_probe"]["value"] == 1.0
+    assert set(out["runs"]) == {w["name"] for w in bench["workloads"]}
+    assert not set(out["modules"]) & set(core.FORBIDDEN)
+
+
+def test_every_cell_has_its_small_size_and_every_size_a_cell(registry):
+    cells = {w["name"] for w in registry.benchmark()["workloads"]}
+    assert cells == set(SMALL)
+    for sizes in SMALL.values():
+        assert set(sizes) <= {"config", "mix"}
 
 
 def test_benchmark_json_keeps_the_contracts_form():
