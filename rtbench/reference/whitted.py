@@ -19,8 +19,8 @@ for a point light, else the function `shadow` of reference/<kind>.py,
 (scene, light index, light, over points [R, 3], settings, level) -> [R]
 fraction of the light that is blocked. A new kind of light is a new
 module alone. Frames render under the port's default seed, 0, so a
-module that replays the port's random numbers takes that seed. No
-module gives area lights yet: they are refused.
+module that replays the port's random numbers takes that seed, as
+area.py does for area lights. A kind that no module gives is refused.
 
 Scenes with refraction but no reflection are refused: no configuration
 of the benchmark has them yet.

@@ -101,8 +101,7 @@ def cuda_device():
     return "cuda"
 
 
-@pytest.fixture
-def registry():
+def with_held_out():
     """BENCHMARK.json's cells, and those held out of it (held_out/*.json:
     entries of the same form, measured but too noisy on the host to be
     bound), so that their checks keep being tested."""
@@ -120,3 +119,16 @@ def registry():
             return bench
 
     return WithHeldOut()
+
+
+def cells(runner=None):
+    """The names of the cells, held-out ones too, whose mix `runner`
+    runs (every cell without `runner`)."""
+    reg = with_held_out()
+    return [w["name"] for w in reg.benchmark()["workloads"]
+            if runner is None or reg.mix(w["traffic"])["runner"] == runner]
+
+
+@pytest.fixture
+def registry():
+    return with_held_out()
