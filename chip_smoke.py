@@ -69,7 +69,13 @@ launches the box-filter kernel (kernels/downsample.py) once at aa > 1
 and never at aa = 1, and the progressive frames never. The downsample
 phase holds that kernel bit for bit against canvas.downsample on a
 9600x5400 raster and times it beside its byte bound, its plain version
-and torch.mean, for its row of the JSON line. It prints the card,
+and torch.mean, for its row of the JSON line. Each main-path frame
+also launches the PNG's deflate match search (kernels/deflate.py) once,
+and the progressive frames never; the png phase holds its tables
+against the plain version on the card and its PNG against compress2's
+at both benchmark cells' sizes, and times the kernel beside its bound,
+the plain version, and the host's emitter beside compress2, for its row
+of the JSON line. It prints the card,
 one line per phase, a JSON line describing the kernels, and last a JSON
 line naming the device. Any failure exits non-zero before the last
 line; without CUDA it exits 1 at once.
@@ -1126,19 +1132,20 @@ MIN_LAUNCHES = {("area9", "any_triangle"): 5}
 
 def launch_counts(reset=False):
     """Every kernel wrapper's launch count (set to 0 first if `reset`)."""
-    from rray_tpu_torch.kernels import (analytic, bvh, downsample, triangles,
-                                        whitted)
+    from rray_tpu_torch.kernels import (analytic, bvh, deflate, downsample,
+                                        triangles, whitted)
 
     if reset:
         whitted.launches = analytic.launches = bvh.launches = 0
         triangles.closest_launches = triangles.any_launches = 0
-        downsample.launches = 0
+        downsample.launches = deflate.launches = 0
     return {"whitted_compact": whitted.launches,
             "closest_triangle": triangles.closest_launches,
             "any_triangle": triangles.any_launches,
             "bvh_closest_triangle": bvh.launches,
             "area_shadow_fraction": analytic.launches,
-            "downsample": downsample.launches}
+            "downsample": downsample.launches,
+            "deflate_match": deflate.launches}
 
 
 def main_path(torch, np, scene_paths):
@@ -1195,6 +1202,10 @@ def main_path(torch, np, scene_paths):
             if counts["downsample"] != (1 if aa > 1 else 0):
                 fail(f"the main path on {name} aa={aa} launched downsample "
                      f"{counts['downsample']} times")
+            # Each frame's PNG has its match search on the card, once.
+            if counts["deflate_match"] != 1:
+                fail(f"the main path on {name} aa={aa} launched the deflate "
+                     f"match search {counts['deflate_match']} times")
             total = {k: total[k] + counts[k] for k in total}
     print(f"main path kernel launches: {json.dumps(total)}")
     return images, total
@@ -1261,6 +1272,104 @@ def downsample_phase(torch, np, size=(1920, 1080), aa=5, reps=3):
     return {"ms": ms, "call_ms": call, "plain_ms": plain_ms,
             "mean_ms": mean_ms, "bound": bound,
             "max_abs": float(np.abs(got - want).max())}
+
+
+def png_phase(torch, np, scene_paths, reps=5):
+    """The PNG of a card image (kernels/deflate.py, io/deflate.py) at both
+    cells' sizes, config 5 at 1920x1080 aa=5 and glass at 800x600: one
+    match search on the main path's image, its tables equal to the plain
+    version's on the card (raw stream, table, listed rows by the
+    directory) and its PNG bytes equal to canvas.write_png's
+    (compress2); then, in turns, the match kernel's device time beside
+    its bound (the bytes it must read and write; the 4-byte words its
+    walks must compare, one integer operation each: a scan_end word per
+    candidate once a match is held, and the whole comparisons of the
+    candidates that pass it), the call (quantize, chain links in torch
+    ops, match search), the plain version; and on the host clock,
+    medians of `reps`, the emitter against compress2 on the same stream
+    and the whole PNG against canvas.write_png's."""
+    from rray_tpu_torch import api
+    from rray_tpu_torch.io import deflate as emitter
+    from rray_tpu_torch.io import native
+    from rray_tpu_torch.kernels import deflate
+    from rray_tpu_torch.render import canvas
+
+    print(f"png: the emitter links zlib {emitter.zlib_version()}")
+
+    def host_ms(fn):
+        out, times = None, []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            out = fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return out, sorted(times)[len(times) // 2]
+
+    rows_out = {}
+    for name, (w, h, aa) in (("csg", (1920, 1080, 5)),
+                             ("glass", (WIDTH, HEIGHT, 1))):
+        spec, lights, shapes = api.load_scene_file(scene_paths[name])
+        image, to_host = api._render_image(spec, lights, shapes, w, h, aa,
+                                           None, 0, None, DEVICE)
+        host = to_host()
+        n = deflate.raw_size(h, w)
+        before = deflate.launches
+        raw, table, rows, directory, count = deflate.match_tables(image)
+        if deflate.launches != before + 1:
+            fail(f"png {name}: {deflate.launches - before} match launches")
+        rows = rows[:int(count[0])]
+        ordered = torch.cat([rows[a:a + c] for a, c in directory.tolist()])
+        want_raw = deflate.quantize_reference(image)
+        want_table, want_rows, _ = deflate.match_tables_reference(want_raw)
+        work = dict(deflate.last_work)
+        pairs = ((raw, want_raw), (table, want_table), (ordered, want_rows))
+        if any(a.shape != b.shape for a, b in pairs):
+            fail(f"png {name} {w}x{h}: the kernels' tables have other "
+                 "shapes than the plain version's")
+        # The largest difference of any raw byte, table word or row entry.
+        max_diff = max(int((a.to(torch.int64) - b.to(torch.int64))
+                           .abs().max()) if a.numel() else 0
+                       for a, b in pairs)
+        if max_diff:
+            fail(f"png {name} {w}x{h}: the kernels' tables differ from the "
+                 f"plain version's by up to {max_diff}")
+        rgba = native.quantize_native(np.nan_to_num(
+            np.asarray(host, np.float32)))
+        want, zlib_ms = host_ms(lambda: native.encode_png_native(rgba))
+        tables = [raw.cpu().numpy(), table.cpu().numpy(),
+                  ordered.cpu().numpy(),
+                  deflate.directory_of(ordered[:, 0], n).cpu().numpy()]
+        got, emit_ms = host_ms(lambda: emitter.encode(*tables, w, h))
+        frame_png, png_ms = host_ms(lambda: emitter.png_bytes(image))
+        path = os.path.join(tempfile.gettempdir(), "rray_png_phase.png")
+        _, write_png_ms = host_ms(lambda: canvas.write_png(path, host))
+        with open(path, "rb") as f:
+            if not (got == want == frame_png == f.read()):
+                fail(f"png {name} {w}x{h}: the PNG differs from compress2's")
+        print(f"parity png {name} {w}x{h} aa={aa}: raw stream ({n} bytes), "
+              f"table, {rows.shape[0]} listed rows and the PNG "
+              f"({len(want)} bytes) equal the plain version's and "
+              f"compress2's")
+        ms, call, plain_ms = timed_turns(
+            torch, f"deflate_match {name} {w}x{h}", "deflate_match_kernel",
+            lambda: deflate.match_tables(image),
+            lambda: deflate.match_tables_reference(
+                deflate.quantize_reference(image)))
+        bound = bound_ms(7 * n, 0, work["words"])
+        print(f"time deflate_match {name} {w}x{h}: kernel {ms:.5f} ms on the "
+              f"device ({100 * bound[0] / ms:.1f}% of its bound), call "
+              f"(quantize, chain links, search) {call:.5f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound[0]:.5f} ms ({bound[1]}; "
+              f"{bound[2]}; {work['candidates']} candidates, "
+              f"{work['compared']} compared whole, {work['words']} words "
+              f"compared); host clock, medians of "
+              f"{reps}: emitter {emit_ms:.2f} ms against compress2 "
+              f"{zlib_ms:.2f} ms on the same stream, the whole PNG "
+              f"{png_ms:.2f} ms against canvas.write_png {write_png_ms:.2f} "
+              f"ms [{card_state()}]")
+        rows_out[name] = {"ms": ms, "call_ms": call, "plain_ms": plain_ms,
+                          "bound": bound, "emit_ms": emit_ms,
+                          "zlib_ms": zlib_ms, "max_abs": max_diff}
+    return rows_out
 
 
 def whitted_plain_image(torch, np, path, aa):
@@ -1807,9 +1916,10 @@ def progressive_phase(torch, np, scene_paths, images):
     if counts["whitted_compact"] != bands or builds != 1:
         fail(f"progressive area: {counts['whitted_compact']} whitted "
              f"launches for {bands} bands, {builds} table builds (one)")
-    if counts["downsample"]:
-        fail(f"progressive area: {counts['downsample']} downsample launches "
-             f"(the band canvas is downsampled on the host)")
+    if counts["downsample"] or counts["deflate_match"]:
+        fail(f"progressive area: {counts['downsample']} downsample and "
+             f"{counts['deflate_match']} match-search launches (the band "
+             f"canvas is downsampled and deflated on the host)")
     with plain_whitted():
         plain, plain_ms = timed(torch, api.render_scene_progressive, area,
                                 w, h, "", aa=aa, band_rows=PROG_BAND_ROWS,
@@ -2421,6 +2531,7 @@ def main() -> int:
 
     images, counts = main_path(torch, np, scene_paths)
     box = downsample_phase(torch, np)
+    png = png_phase(torch, np, scene_paths)
     # Main-path images against the plain versions': the whitted kernel's
     # scenes against whitted_compact_reference (area at aa=3 against the
     # plain image of the 4.32 M rays above, downsampled), the fast node's
@@ -2551,6 +2662,18 @@ def main() -> int:
         "max_abs_err": box["max_abs"], "ms": box["ms"],
         "plain_ms": box["plain_ms"], "bound_ms": box["bound"][0],
         "bound_by": box["bound"][1], "library_ms": box["mean_ms"]})
+    # The match search replaces no TPU kernel either (rray_tpu deflates on
+    # the host); at config 5's size, with zlib's compress2 beside it.
+    res = png["csg"]
+    kernels.append({
+        "name": "deflate_match", "route": "cuda",
+        "source": "rray_tpu_torch/kernels/csrc/deflate.cu",
+        "replaces": None, "launches": counts["deflate_match"],
+        "max_abs_err": res["max_abs"], "ms": res["ms"],
+        "plain_ms": res["plain_ms"],
+        "bound_ms": res["bound"][0], "bound_by": res["bound"][1],
+        "library_ms": None, "emitter_ms": res["emit_ms"],
+        "compress2_ms": res["zlib_ms"]})
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,7 +4,9 @@
 the reference pipeline: build the scene from YAML, size the camera at
 width*aa x height*aa (scene_builder_yaml.rs:392), render, box-downsample
 by aa on the raster's device (kernels/downsample.py, so only the image
-is copied to the host), and write the PNG. The device is explicit:
+is copied to the host), and write the PNG: from the card, an image there
+has its deflate matches searched there too (io/deflate.py), with
+compress2's bytes. The device is explicit:
 "cuda" runs the CUDA kernels and is an error where CUDA is missing; "cpu"
 runs their plain PyTorch versions. `render_scene_progressive` renders
 band by band with a checkpoint (the CLI's --checkpoint) and downsamples
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .config import RenderSettings, checked_device, default_dtype
+from .io import deflate
 from .io.yaml_loader import load_scene_file, load_scene_str
 from .kernels import downsample
 from .render import canvas
@@ -39,13 +42,10 @@ def _build(camera_spec, lights, shapes, width, height, aa, dtype, dev):
     return scene, compile_camera(cam, dtype, dev)
 
 
-def render_scene(camera_spec, lights, shapes, width: int, height: int,
-                 aa: int = 1, settings: RenderSettings = None, seed: int = 0,
-                 dtype=None, device="cuda") -> np.ndarray:
-    """Render a loaded scene -> linear float image [height, width, 3]
-    (already AA-downsampled). `seed` keys the area lights' jitter draws,
-    as rray_tpu's `seed` does (the same seed gives the same image);
-    point lights draw no random numbers. dtype None: default_dtype()."""
+def _render_image(camera_spec, lights, shapes, width, height, aa, settings,
+                  seed, dtype, device):
+    """render_scene up to the copy: the downsampled image, left on the
+    raster's device, and a function that copies it to the host."""
     dev = checked_device(device)
     settings = settings or RenderSettings()
     scene, cam = _build(camera_spec, lights, shapes, width, height, aa,
@@ -56,13 +56,45 @@ def render_scene(camera_spec, lights, shapes, width: int, height: int,
         # On the raster's device, before the copy: only the image crosses.
         with profiling.span("downsample"):
             image = downsample.downsample(image, aa)
-    with profiling.span("copy"):
-        image = image.cpu().numpy()
-    dt = time.perf_counter() - t0
-    log.info("rendered %dx%d (aa=%d, %d raster rays) on %s: render and "
-             "copy to the host %.3fs", width, height, aa,
-             cam.hsize * cam.vsize, dev, dt)
-    return image
+
+    def to_host() -> np.ndarray:
+        with profiling.span("copy"):
+            host = image.cpu().numpy()
+        log.info("rendered %dx%d (aa=%d, %d raster rays) on %s: render and "
+                 "copy to the host %.3fs", width, height, aa,
+                 cam.hsize * cam.vsize, dev, time.perf_counter() - t0)
+        return host
+
+    return image, to_host
+
+
+def render_scene(camera_spec, lights, shapes, width: int, height: int,
+                 aa: int = 1, settings: RenderSettings = None, seed: int = 0,
+                 dtype=None, device="cuda") -> np.ndarray:
+    """Render a loaded scene -> linear float image [height, width, 3]
+    (already AA-downsampled). `seed` keys the area lights' jitter draws,
+    as rray_tpu's `seed` does (the same seed gives the same image);
+    point lights draw no random numbers. dtype None: default_dtype()."""
+    return _render_image(camera_spec, lights, shapes, width, height, aa,
+                         settings, seed, dtype, device)[1]()
+
+
+def _render_frame(loaded, width, height, png_file, aa, settings, seed, dtype,
+                  device) -> np.ndarray:
+    """A loaded scene's frame: the image copied to the host, and the PNG
+    written from where the image lies. An image on the card has its
+    deflate matches searched there (io/deflate.py); a host image goes
+    through canvas.write_png. Both write the same bytes."""
+    camera_spec, lights, shapes = loaded
+    image, to_host = _render_image(camera_spec, lights, shapes, width,
+                                   height, aa, settings, seed, dtype, device)
+    host = to_host()
+    if png_file:
+        if image.device.type == "cuda":
+            deflate.write_png(png_file, image)
+        else:
+            canvas.write_png(png_file, host)
+    return host
 
 
 def render_scene_from_str(contents: str, width: int, height: int,
@@ -70,12 +102,9 @@ def render_scene_from_str(contents: str, width: int, height: int,
                           settings: RenderSettings = None, seed: int = 0,
                           dtype=None, device="cuda") -> np.ndarray:
     with profiling.span("frame"):
-        camera_spec, lights, shapes = load_scene_str(contents, base_dir)
-        image = render_scene(camera_spec, lights, shapes, width, height, aa,
-                             settings, seed, dtype, device)
-        if png_file:
-            canvas.write_png(png_file, image)
-    return image
+        return _render_frame(load_scene_str(contents, base_dir), width,
+                             height, png_file, aa, settings, seed, dtype,
+                             device)
 
 
 def render_scene_from_file(path: str, width: int, height: int,
@@ -83,12 +112,8 @@ def render_scene_from_file(path: str, width: int, height: int,
                            settings: RenderSettings = None, seed: int = 0,
                            dtype=None, device="cuda") -> np.ndarray:
     with profiling.span("frame"):
-        camera_spec, lights, shapes = load_scene_file(path)
-        image = render_scene(camera_spec, lights, shapes, width, height, aa,
-                             settings, seed, dtype, device)
-        if png_file:
-            canvas.write_png(png_file, image)
-    return image
+        return _render_frame(load_scene_file(path), width, height, png_file,
+                             aa, settings, seed, dtype, device)
 
 
 def render_scene_progressive(path: str, width: int, height: int,

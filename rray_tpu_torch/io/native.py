@@ -30,25 +30,33 @@ _SRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc",
 _FLAGS = ("-O2", "-shared", "-fPIC")
 
 
-def library_path() -> str:
-    h = hashlib.sha256(" ".join(_FLAGS).encode())
-    with open(_SRC, "rb") as f:
+def host_library_path(src: str, flags, stem: str) -> str:
+    """`build/rray_tpu_torch/lib<stem>_<hash>.so`, named by a hash of the
+    flags and the source."""
+    h = hashlib.sha256(" ".join(flags).encode())
+    with open(src, "rb") as f:
         h.update(f.read())
-    return os.path.join(BUILD_DIR, f"librray_host_{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{h.hexdigest()[:16]}.so")
 
 
-def _build() -> str:
-    so = library_path()
+def build_host_library(src: str, flags, stem: str) -> str:
+    """The path of a host library built by g++ from one C++ source with
+    `flags`, linked against zlib; built first if it is not there."""
+    so = host_library_path(src, flags, stem)
     if os.path.exists(so):
         return so
     # Build beside the target and rename: a process loading the library
     # must never see a half-written file.
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.tmp"
-    subprocess.run(["g++", *_FLAGS, "-o", tmp, _SRC, "-lz"], check=True,
+    subprocess.run(["g++", *flags, "-o", tmp, src, "-lz"], check=True,
                    capture_output=True)
     os.replace(tmp, so)
     return so
+
+
+def library_path() -> str:
+    return host_library_path(_SRC, _FLAGS, "rray_host")
 
 
 def get_lib():
@@ -61,7 +69,7 @@ def get_lib():
         if os.environ.get("RRAY_NO_NATIVE") == "1":
             return None
         try:
-            lib = ctypes.CDLL(_build())
+            lib = ctypes.CDLL(build_host_library(_SRC, _FLAGS, "rray_host"))
         except Exception:
             return None
 

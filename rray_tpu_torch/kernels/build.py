@@ -31,11 +31,12 @@ _CSRC = os.path.join(_HERE, "csrc")
 _UNITS = (("whitted.cu", ()),
           *(("whitted.cu", (f"-DRRAY_EXT_UNIT={u}",)) for u in (1, 2, 3, 4)),
           ("triangles.cu", ()), ("bvh.cu", ()), ("area.cu", ()),
-          ("downsample.cu", ()))
+          ("downsample.cu", ()), ("deflate.cu", ()))
 _SOURCES = ("whitted.cu", "triangles.cu", "bvh.cu", "area.cu",
-            "downsample.cu", "vec_device.cuh", "mesh_device.cuh",
-            "whitted_device.cuh", "jitter_device.cuh", "quartic_device.cuh",
-            "noise_device.cuh", "stage_device.cuh", "downsample_device.cuh")
+            "downsample.cu", "deflate.cu", "vec_device.cuh",
+            "mesh_device.cuh", "whitted_device.cuh", "jitter_device.cuh",
+            "quartic_device.cuh", "noise_device.cuh", "stage_device.cuh",
+            "downsample_device.cuh")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(_HERE)), "build",
                          "rray_tpu_torch")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -148,6 +149,10 @@ def load_library():
             [ptr] * 7 + [i32] * 3 + [ptr, i32, ptr])
         lib.downsample_launch.restype = i32
         lib.downsample_launch.argtypes = [ptr, ptr] + [i32] * 5 + [ptr]
+        lib.png_quantize_launch.restype = i32
+        lib.png_quantize_launch.argtypes = [ptr, ptr, i32, i32, ptr]
+        lib.deflate_match_launch.restype = i32
+        lib.deflate_match_launch.argtypes = [ptr, ptr, i32] + [ptr] * 5
         lib.whitted_error_string.restype = ctypes.c_char_p
         lib.whitted_error_string.argtypes = [i32]
         _LIB = lib

@@ -27,7 +27,15 @@ to the host work open at the time:
                      raster's device (on the card an enqueue with no
                      wait; kernels/downsample.py), and canvas.downsample
                      of a host canvas (render_scene_progressive, write_png)
-    rray.png         canvas.write_png: quantize, encode, write
+    rray.png         the PNG: canvas.write_png of a host image (quantize,
+                     compress2, write), or io/deflate.py::write_png of
+                     an image on the card, which holds the next two and
+                     the write
+    rray.png_tables  the card's quantize and deflate match search
+                     (kernels/deflate.py), the copy of the stream and its
+                     tables into pinned buffers, and the wait for them
+    rray.deflate     the host's lazy parse, Huffman blocks and
+                     checksums over those tables (io/csrc/png_deflate.cpp)
 
 With no profiler recording, a span is one flag check and a shared
 no-op; it never synchronizes the card. An operator sees the spans by

@@ -211,3 +211,25 @@ def test_a_traced_card_frame_downsamples_before_the_copy(cuda, aa,
         return
     assert spans["rray.downsample"][1] <= spans["rray.copy"][0]
     assert len(kernels) == 1
+
+
+@pytest.mark.cuda
+def test_a_traced_card_frame_splits_its_png(cuda, tmp_path):
+    """On the card the frame's rray.png holds rray.png_tables (the match
+    search, the copy of its tables and the wait) and, after it,
+    rray.deflate (the host's parse and blocks); the card runs
+    deflate_match_kernel once inside the frame."""
+    api.render_scene_from_file(GLASS, 160, 120, str(tmp_path / "w.png"),
+                               device=cuda)
+    with profiling.trace(str(tmp_path / "trace")) as prof:
+        api.render_scene_from_file(GLASS, 160, 120,
+                                   str(tmp_path / "a.png"), device=cuda)
+    host, device = _ranges(prof)
+    spans = {n: (s, e) for s, e, n in host}
+    assert _inside(spans[FRAME], spans["rray.png"])
+    assert _inside(spans["rray.png"], spans["rray.png_tables"])
+    assert _inside(spans["rray.png"], spans["rray.deflate"])
+    assert spans["rray.png_tables"][1] <= spans["rray.deflate"][0]
+    kernels = [n for s, e, n in device if "deflate_match_kernel" in n
+               and _inside(spans[FRAME], (s, e))]
+    assert len(kernels) == 1
